@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``ray_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --plant-fault flash_fwd|flash_bwd_dq|flash_bwd_dkv
+    python3 chip_smoke.py --plant-fault KERNEL    (any kernel of FAULTS)
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -11,13 +11,14 @@ exits non-zero without its result line:
 2. Build: every CUDA kernel of ``ray_tpu_torch/ops/cuda/csrc`` with
    nvcc (one process per source, in parallel), with ptxas' register and
    spill counts.
-3. Kernels: each flash-attention kernel at GPT-2 small widths (H=12,
-   D=64, bf16, causal), at T=1024 (the training shape, batch 32) and at
-   T=2048 (batch 8), held against its plain PyTorch version on the same
-   inputs by ``flash_attention.agreement`` (per element and overall,
-   limits in ``AGREEMENT_TOL``), and timed with CUDA events beside its
-   bound, the plain version and ``F.scaled_dot_product_attention`` on
-   the same inputs (a yardstick only: the port never calls it).
+3. Kernels: each square flash-attention kernel at GPT-2 small widths
+   (H=12, D=64, bf16, causal), at T=1024 (the training shape, batch 32)
+   and at T=2048 (batch 8), held against its plain PyTorch version on
+   the same inputs by ``flash_attention.agreement`` (per element and
+   overall, limits in ``AGREEMENT_TOL``), and timed with CUDA events
+   beside its bound, the plain version and
+   ``F.scaled_dot_product_attention`` on the same inputs (a yardstick
+   only: the port never calls it).
 4. Train: GPT-2 124M (``GPT2Config.small()``, random weights from seed
    0) on ``cuda:0`` at batch 32 and seq 1024. First, at step 0 on one
    batch: each layer's attention kernels, on the q, k, v and output
@@ -31,24 +32,57 @@ exits non-zero without its result line:
    and ``make_multi_train_step`` with ``adamw(3e-4, weight_decay=0.1,
    mu_dtype=bf16)`` on that batch, repeated. Checks: the loss is finite
    and falls; each kernel launched 12 times (one per layer) per step.
+5. Bands: the band kernels of the causal split (``flash_fwd_rect``,
+   ``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) at B=32, T=1024, on
+   every band of split 2 and split 4, read in place from the [BH, T, D]
+   tensors, held against their plain versions by ``agreement`` and
+   timed beside their bound, the plain version and SDPA with a
+   bottom-right causal mask (``causal_lower_right``). The whole split
+   (``RAY_TPU_FLASH_SPLIT``) is held against the unsplit kernels (o bit
+   for bit, gradients by ``agreement``) and the plain whole attention,
+   and timed beside the unsplit attention.
+6. Split training: phase 4's model and batch with
+   ``RAY_TPU_FLASH_SPLIT`` 2, then 4 (set for the phase, restored
+   after). Checks: the band kernels on layers 0 and 11's own q, k, v and
+   output gradient; the step-0 loss within STEP0_LOSS_TOL of phase 4's;
+   the loss finite and falling; n_split x 12 launches per step of each
+   band kernel and none of the square ones.
+7. Remat: phase 4's model under each ``remat_policy``. Checks: the
+   step-0 loss and every gradient match the model without remat
+   (REMAT_LOSS_TOL, REMAT_GRAD_TOL); per layer per step 2 forward
+   launches (1 under "everything") and 1 of each backward kernel; peak
+   memory under "nothing" below phase 4's.
+8. TinyLlama 1.1B (``LlamaConfig.tinyllama_1b()``, random weights from
+   seed 0, 32 heads on 4 kv heads, D=64) at batch 8 and seq 2048, chunked
+   CE with chunk 2048, trained and profiled as in phase 4. Checks: the
+   kernels on layers 0, 11 and 21's own q, k, v and output gradient (all
+   256 folded heads, the shape training gives them); the step-0 loss
+   against the
+   plain-attention, full-logit path's; the loss finite and falling; each
+   square kernel launched 22 times per step.
 
 Then it prints the ``kernels`` JSON line, the card line again, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
 GPU is visible, and when the package is not beside it.
 
-``--plant-fault NAME`` shows what the checks of phases 3 and 4 read on
-a wrong kernel: it builds a copy of kernel NAME's source (under the
-gitignored build directory, never in the source tree) in which one
-64-row tile is skipped for the last query tile (``flash_fwd``,
+``--plant-fault NAME`` shows what the checks read on a wrong kernel: it
+builds a copy of kernel NAME's source (under the gitignored build
+directory, never in the source tree) carrying the fault of FAULTS, binds
+the wrapper to it, and prints what each check reads. Square kernels:
+one 64-row tile is skipped for the last query tile (``flash_fwd``,
 ``flash_bwd_dq``) or the last query tile is skipped for every key tile
-but the diagonal ones (``flash_bwd_dkv``), binds the wrapper to it,
-prints what each check reads, and exits 0 only if the kernel check
-fails it at both shapes and the per-layer check on some layer.
+but the diagonal ones (``flash_bwd_dkv``); the run exits 0 only if the
+kernel check fails it at both shapes and the per-layer check on some
+layer. Band kernels: the diagonal is misaligned (row0 forced to 0, top
+left instead of bottom right); the run exits 0 only if the band check
+fails it on every band with tq < tk and the split phase's per-layer
+check on some layer at both splits.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -64,7 +98,13 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.core.accelerator import default_device
-from ray_tpu_torch.models import GPT2, GPT2Config
+from ray_tpu_torch.models import (
+    GPT2,
+    GPT2Config,
+    Llama,
+    LlamaConfig,
+    llama_loss_fn,
+)
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
 from ray_tpu_torch.ops.cuda import build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
@@ -98,35 +138,62 @@ GRAD_TOL = 3.5e-2
 # loss barely depends on attention; this check holds the CE paths, the
 # gradient check above holds attention.
 STEP0_LOSS_TOL = 1e-3
+# Remat against no remat, same weights and batch on the card: the
+# recomputed forward repeats the same kernels and products, so the two
+# agree to the last bit unless a library product picks another
+# algorithm; a wrong recompute or a stale saved tensor moves them by
+# orders of magnitude more.
+REMAT_LOSS_TOL = 1e-5
+REMAT_GRAD_TOL = 1e-3
 
 H, D = 12, 64
 SHAPES = ((32, 1024), (8, 2048))   # (batch, seq)
 TRAIN_BATCH, TRAIN_SEQ = 32, 1024
+SPLITS = (2, 4)
+REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "everything")
+SPLIT_CHECK_LAYERS = (0, 11)
+LLAMA_BATCH, LLAMA_SEQ = 8, 2048
+LLAMA_CHECK_LAYERS = (0, 11, 21)
 K_STEPS = 2                        # optimizer steps per dispatch
 TIMED_DISPATCHES = 3
+SHORT_TIMED_DISPATCHES = 2         # split, remat and TinyLlama phases
 
-SOURCES = {
-    "flash_fwd": "ray_tpu_torch/ops/cuda/csrc/flash_fwd.cu",
-    "flash_bwd_dq": "ray_tpu_torch/ops/cuda/csrc/flash_bwd_dq.cu",
-    "flash_bwd_dkv": "ray_tpu_torch/ops/cuda/csrc/flash_bwd_dkv.cu",
-}
+SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+BAND = ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")
+WRAPPERS = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+            "flash_bwd_dkv": fa.flash_bwd_dkv,
+            "flash_fwd_rect": fa.flash_fwd_rect,
+            "flash_bwd_dq_rect": fa.flash_bwd_dq_rect,
+            "flash_bwd_dkv_rect": fa.flash_bwd_dkv_rect}
+_CSRC = "ray_tpu_torch/ops/cuda/csrc"
+SOURCES = {name: f"{_CSRC}/{fa._KERNELS[name].source}.cu"
+           for name in SQUARE + BAND}
 # The TPU kernel each replaces on the training path (T=1024 runs the
-# single-block Pallas kernels; T=2048 the streaming ones, :77/:218/:255).
+# single-block Pallas kernels; T=2048, TinyLlama's, the streaming ones,
+# :77/:218/:255; the split runs the band kernels).
+_PALLAS = "ray_tpu/ops/pallas/flash_attention.py"
 REPLACES = {
-    "flash_fwd": "ray_tpu/ops/pallas/flash_attention.py:122",
-    "flash_bwd_dq": "ray_tpu/ops/pallas/flash_attention.py:296",
-    "flash_bwd_dkv": "ray_tpu/ops/pallas/flash_attention.py:296",
+    "flash_fwd": f"{_PALLAS}:122",
+    "flash_bwd_dq": f"{_PALLAS}:296",
+    "flash_bwd_dkv": f"{_PALLAS}:296",
+    "flash_fwd_rect": f"{_PALLAS}:418",
+    "flash_bwd_dq_rect": f"{_PALLAS}:436",
+    "flash_bwd_dkv_rect": f"{_PALLAS}:436",
 }
 # --plant-fault: (text of the source, the same text with the fault).
 _KT_LOOP = "for (int j = 0; j < n_kt; ++j) {\n"
 _QT_LOOP = "for (int iq = first; iq < n_qt; ++iq) {\n"
+_ROW0 = "const int row0 = tk - tq;"
 FAULTS = {
     "flash_fwd": (_KT_LOOP, _KT_LOOP
-                  + "    if (j == 3 && q0 + kTile >= seq) continue;\n"),
+                  + "    if (j == 3 && q0 + kTile >= sh.tq) continue;\n"),
     "flash_bwd_dq": (_KT_LOOP, _KT_LOOP
-                     + "    if (j == 3 && q0 + kTile >= seq) continue;\n"),
+                     + "    if (j == 3 && q0 + kTile >= sh.tq) continue;\n"),
     "flash_bwd_dkv": (_QT_LOOP, _QT_LOOP
                       + "    if (iq == n_qt - 1 && iq != first) continue;\n"),
+    "flash_fwd_rect": (_ROW0, "const int row0 = 0;"),
+    "flash_bwd_dq_rect": (_ROW0, "const int row0 = 0;"),
+    "flash_bwd_dkv_rect": (_ROW0, "const int row0 = 0;"),
 }
 
 
@@ -171,31 +238,54 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bounds(b: int, t: int) -> dict[str, tuple[float, str]]:
-    """Least time (ms) each kernel could take on this input, and what
-    bounds it: the larger of its tensor-core FLOPs over the bf16 peak
-    and its bytes (each input read once, each output written once) over
-    the memory rate. Causal work counts the T(T+1)/2 pairs this input
-    needs. ``flash_bwd`` is the backward as one function (what the TPU's
-    fused kernel computes): 5 products, where the dq and dkv kernels
-    together do 7."""
-    n = b * H
-    mm = 2.0 * n * (t * (t + 1) / 2) * D          # one causal product
-    seq_bytes = n * t * D * 2                      # one bf16 [BH, T, D]
-    row_bytes = n * t * 4                          # one f32 [BH, T]
-    work = {
-        "flash_fwd": (2 * mm, 4 * seq_bytes + row_bytes),
-        "flash_bwd_dq": (3 * mm, 5 * seq_bytes + 2 * row_bytes),
-        "flash_bwd_dkv": (4 * mm, 6 * seq_bytes + 2 * row_bytes),
-        "flash_bwd": (5 * mm, 7 * seq_bytes + 2 * row_bytes),
+@contextlib.contextmanager
+def flash_split(n: int):
+    """``RAY_TPU_FLASH_SPLIT=n`` (unset for 0) inside the block, restored
+    after."""
+    old = os.environ.get("RAY_TPU_FLASH_SPLIT")
+    if n:
+        os.environ["RAY_TPU_FLASH_SPLIT"] = str(n)
+    else:
+        os.environ.pop("RAY_TPU_FLASH_SPLIT", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RAY_TPU_FLASH_SPLIT", None)
+        else:
+            os.environ["RAY_TPU_FLASH_SPLIT"] = old
+
+
+def work(bh: int, tq: int, tk: int) -> dict[str, tuple[float, float]]:
+    """{kernel: (tensor-core FLOPs, bytes)} of each kernel on q [BH, tq,
+    D] against k, v [BH, tk, D] with the causal diagonal bottom-right
+    aligned: each input read once, each output written once, and the
+    tq * (tk - tq) + tq (tq + 1) / 2 causal pairs this input needs.
+    ``flash_bwd`` is the backward as one function (what the TPU's fused
+    kernels compute): 5 products, where the dq and dkv kernels together
+    do 7."""
+    pairs = tq * (tk - tq) + tq * (tq + 1) / 2
+    mm = 2.0 * bh * pairs * D                    # one causal product
+    row = bh * D * 2                             # one bf16 row of BH heads
+    stats = bh * tq * 4                          # one f32 [BH, tq]
+    return {
+        "flash_fwd": (2 * mm, row * (2 * tq + 2 * tk) + stats),
+        "flash_bwd_dq": (3 * mm, row * (3 * tq + 2 * tk) + 2 * stats),
+        "flash_bwd_dkv": (4 * mm, row * (2 * tq + 4 * tk) + 2 * stats),
+        "flash_bwd": (5 * mm, row * (3 * tq + 4 * tk) + 2 * stats),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops = flops / PEAK_BF16_FLOPS * 1e3
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
-                     else (t_bytes, "bytes"))
-    return out
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time (ms) for this work and what bounds it: the larger of its
+    FLOPs over the bf16 peak and its bytes over the memory rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def bounds(bh: int, tq: int, tk: int) -> dict[str, tuple[float, str]]:
+    return {name: bound(*w) for name, w in work(bh, tq, tk).items()}
 
 
 def kernel_inputs(b: int, t: int, dev):
@@ -205,29 +295,53 @@ def kernel_inputs(b: int, t: int, dev):
     return q, k, v, do
 
 
-def kernel_readings(q, k, v, do) -> dict[str, dict]:
-    """Each kernel's outputs on ``[BH, T, D]`` inputs held against its
-    plain version's on the same inputs: {kernel: {output:
-    fa.agreement(...)}}, lse beside."""
+def kernel_readings(q, k, v, do, band: bool = False) -> dict[str, dict]:
+    """Each kernel's outputs held against its plain version's on the same
+    inputs: {kernel: {output: fa.agreement(...)}}, lse beside. The square
+    kernels on ``[BH, T, D]`` inputs, or (``band``) the band kernels on
+    q, do ``[BH, tq, D]`` and k, v ``[BH, tk, D]``."""
+    fwd, dq_k, dkv_k = BAND if band else SQUARE
     scale = D ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, scale, True)
+    o, lse = WRAPPERS[fwd](q, k, v, scale)
     o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, True)
     # The backward kernels take the plain lse and delta, so each is held
     # against its own plain version alone.
     delta = (o_ref.float() * do.float()).sum(-1)
-    bwd = (q, k, v, do, lse_ref, delta, scale, True)
-    dq = fa.flash_bwd_dq(*bwd)
-    dq_ref = fa.flash_bwd_dq_reference(*bwd)
-    dk, dv = fa.flash_bwd_dkv(*bwd)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*bwd)
+    bwd = (q, k, v, do, lse_ref, delta, scale)
+    dq = WRAPPERS[dq_k](*bwd)
+    dq_ref = fa.flash_bwd_dq_reference(*bwd, True)
+    dk, dv = WRAPPERS[dkv_k](*bwd)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*bwd, True)
     torch.cuda.synchronize()
-    out = {"flash_fwd": {"o": fa.agreement(o, o_ref)},
-           "flash_bwd_dq": {"dq": fa.agreement(dq, dq_ref)},
-           "flash_bwd_dkv": {"dk": fa.agreement(dk, dk_ref),
-                             "dv": fa.agreement(dv, dv_ref)}}
+    out = {fwd: {"o": fa.agreement(o, o_ref)},
+           dq_k: {"dq": fa.agreement(dq, dq_ref)},
+           dkv_k: {"dk": fa.agreement(dk, dk_ref),
+                   "dv": fa.agreement(dv, dv_ref)}}
     lse_err = float((lse - lse_ref).abs().max())
-    out["flash_fwd"]["lse"] = {"max_abs_err": lse_err,
-                               "ok": lse_err < LSE_TOL}
+    out[fwd]["lse"] = {"max_abs_err": lse_err, "ok": lse_err < LSE_TOL}
+    return out
+
+
+def bands(q, k, v, do, n: int):
+    """The n bands of the causal split of folded ``[BH, T, D]`` tensors,
+    as views: (tq, tk, (q band, k prefix, v prefix, do band))."""
+    s = q.shape[1] // n
+    for r in range(n):
+        lo, hi = r * s, (r + 1) * s
+        yield s, hi, (q[:, lo:hi], k[:, :hi], v[:, :hi], do[:, lo:hi])
+
+
+def worst(readings: list[dict[str, dict]]) -> dict[str, dict]:
+    """The worst reading of each kernel output over several readings."""
+    out: dict[str, dict] = {}
+    for reading in readings:
+        for name, outs in reading.items():
+            for o_name, r in outs.items():
+                cur = out.setdefault(name, {}).get(o_name)
+                key = (not r["ok"], r.get("elem", 0.0), r["max_abs_err"])
+                if cur is None or key > (not cur["ok"], cur.get("elem", 0.0),
+                                         cur["max_abs_err"]):
+                    out[name][o_name] = r
     return out
 
 
@@ -252,13 +366,21 @@ def kernel_phase(b: int, t: int, dev) -> dict[str, dict]:
     readings = kernel_readings(q, k, v, do)
     print(f"agreement B={b} T={t}: {describe(readings)}", flush=True)
     check_readings(readings, f"at B={b} T={t}")
+    return kernel_times(b, q, k, v, do, readings, f"B={b} T={t} H={H}")
+
+
+def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
+    """The square kernels on ``[B*heads, T, D]`` inputs timed (CUDA events)
+    beside their bounds, their plain versions and SDPA on the same inputs
+    (forward, and its whole backward for the backward kernels)."""
+    bh, t, _ = q.shape
     scale = D ** -0.5
     o, lse = fa.flash_fwd(q, k, v, scale, True)
     delta = (o.float() * do.float()).sum(-1)
     bwd = (q, k, v, do, lse, delta, scale, True)
 
     # The yardstick: one library call computing the same function.
-    q4, k4, v4, do4 = (x.view(b, H, t, D) for x in (q, k, v, do))
+    q4, k4, v4, do4 = (x.view(b, bh // b, t, D) for x in (q, k, v, do))
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
     lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
@@ -281,7 +403,7 @@ def kernel_phase(b: int, t: int, dev) -> dict[str, dict]:
             cuda_ms(lambda: fa.flash_bwd_dkv_reference(*bwd), 3, 1),
             lib_bwd),
     }
-    bnd = bounds(b, t)
+    bnd = bounds(bh, t, t)
     rows = {}
     for name, (ms, p_ms, l_ms) in times.items():
         err = max(r["max_abs_err"] for o_name, r in readings[name].items()
@@ -289,14 +411,14 @@ def kernel_phase(b: int, t: int, dev) -> dict[str, dict]:
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
                       "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
                       "library_ms": l_ms}
-        print(f"kernel {name} B={b} T={t} H={H} D={D} bf16 causal: "
+        print(f"kernel {name} {what} D={D} bf16 causal: "
               f"max abs err {err:.3g}, {ms:.4f} ms, "
               f"bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), "
               f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms", flush=True)
     pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
     pair_plain = cuda_ms(lambda: fa.flash_bwd_reference(
         q, k, v, o, lse, do, scale, True), 3, 1)
-    print(f"kernel pair flash_bwd_dq+flash_bwd_dkv B={b} T={t}: {pair_ms:.4f}"
+    print(f"kernel pair flash_bwd_dq+flash_bwd_dkv {what}: {pair_ms:.4f}"
           f" ms, bound of the backward as one function (5 products) "
           f"{bnd['flash_bwd'][0]:.4f} ms ({bnd['flash_bwd'][1]}), "
           f"{pair_ms / bnd['flash_bwd'][0]:.2f}x it; the split's 7 "
@@ -305,6 +427,153 @@ def kernel_phase(b: int, t: int, dev) -> dict[str, dict]:
           f"plain whole backward {pair_plain:.4f} ms, library {lib_bwd:.4f} "
           f"ms", flush=True)
     return rows
+
+
+def band_times(b: int, tq: int, tk: int, q, k, v, do, readings) -> dict:
+    """One band's kernels timed (CUDA events) beside their bound, their
+    plain versions and SDPA with a bottom-right causal mask on the same
+    inputs (the library yardstick: forward for the forward kernel, its
+    whole backward for the backward kernels)."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd_rect(q, k, v, scale)
+    delta = (o.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, scale)
+    mask = causal_lower_right(tq, tk)
+    q4, do4 = (x.reshape(b, H, tq, D).contiguous() for x in (q, do))
+    k4, v4 = (x.reshape(b, H, tk, D).contiguous() for x in (k, v))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask), 20)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do4, retain_graph=True), 20)
+    times = {
+        "flash_fwd_rect": (
+            cuda_ms(lambda: fa.flash_fwd_rect(q, k, v, scale), 20),
+            cuda_ms(lambda: fa.flash_fwd_rect_reference(q, k, v, scale),
+                    3, 1), lib_fwd),
+        "flash_bwd_dq_rect": (
+            cuda_ms(lambda: fa.flash_bwd_dq_rect(*bwd), 20),
+            cuda_ms(lambda: fa.flash_bwd_dq_reference(*bwd, True), 3, 1),
+            lib_bwd),
+        "flash_bwd_dkv_rect": (
+            cuda_ms(lambda: fa.flash_bwd_dkv_rect(*bwd), 20),
+            cuda_ms(lambda: fa.flash_bwd_dkv_reference(*bwd, True), 3, 1),
+            lib_bwd),
+    }
+    w = work(b * H, tq, tk)
+    rows = {}
+    for name, sq in zip(BAND, SQUARE):
+        ms, p_ms, l_ms = times[name]
+        err = max(r["max_abs_err"] for o_name, r in readings[name].items()
+                  if o_name != "lse")
+        flops, nbytes = w[sq]
+        bnd_ms, bnd_by = bound(flops, nbytes)
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+                      "library_ms": l_ms, "flops": flops, "bytes": nbytes,
+                      "bound_ms": bnd_ms, "bound_by": bnd_by}
+        print(f"kernel {name} B={b} tq={tq} tk={tk} H={H} D={D} bf16: max "
+              f"abs err {err:.3g}, {ms:.4f} ms, bound {bnd_ms:.4f} ms "
+              f"({bnd_by}), plain {p_ms:.4f} ms, library {l_ms:.4f} ms",
+              flush=True)
+    return rows
+
+
+def split_composition(b: int, t: int, n: int, q, k, v, do,
+                      kernel_ms: float) -> None:
+    """The whole split on ``[B, T, H, D]`` through autograd against the
+    unsplit kernels (o bit for bit, gradients by ``agreement``) and the
+    plain whole attention, and its fwd+bwd time beside the unsplit one's
+    and beside the sum of its band kernels' times."""
+    def unfold(x):
+        return x.view(b, H, t, D).transpose(1, 2)
+
+    ins = [unfold(x).detach().requires_grad_() for x in (q, k, v)]
+    do4 = unfold(do)
+    results = {}
+    for m in (n, 0):
+        with flash_split(m):
+            out = fa.flash_attention(*ins)
+            grads = torch.autograd.grad(out, ins, do4)
+
+            def step():
+                torch.autograd.grad(fa.flash_attention(*ins), ins, do4)
+
+            results[m] = (fold4(out.detach()), [fold4(g) for g in grads],
+                          cuda_ms(step, 10))
+    scale = D ** -0.5
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, True)
+    plain = (o_ref, *fa.flash_bwd_reference(q, k, v, o_ref, lse_ref, do,
+                                            scale, True))
+    got, whole = results[n], results[0]
+    vs_whole = {name: fa.agreement(x, y) for name, x, y in zip(
+        ("dq", "dk", "dv"), got[1], whole[1])}
+    vs_plain = {name: fa.agreement(x, y) for name, x, y in zip(
+        ("o", "dq", "dk", "dv"), (got[0], *got[1]), plain)}
+    o_equal = torch.equal(got[0], whole[0])
+    dq_equal = torch.equal(got[1][0], whole[1][0])
+    print(f"split {n} B={b} T={t}: o equals the unsplit kernels' bit for "
+          f"bit: {o_equal}; dq too: {dq_equal}; vs unsplit "
+          f"{describe({'': vs_whole})}; vs plain {describe({'': vs_plain})}",
+          flush=True)
+    rest = got[2] - kernel_ms
+    print(f"split {n} B={b} T={t} fwd+bwd through autograd: {got[2]:.4f} ms "
+          f"(band kernels {kernel_ms:.4f} ms, the rest {rest:.4f} ms: folds, "
+          f"delta, cat and the sum of band dk/dv into the prefix); unsplit "
+          f"{whole[2]:.4f} ms", flush=True)
+    check(o_equal, f"split {n}: o equals the unsplit kernels' bit for bit")
+    check_readings({"split vs unsplit": vs_whole, "split vs plain": vs_plain},
+                   f"for the whole split {n} at B={b} T={t}")
+
+
+def band_phase(b: int, t: int, dev) -> dict[int, dict[str, dict]]:
+    """Every band of split 2 and 4 at (b, t): agreement and times. Returns
+    {n: {kernel: the sums over the n bands}} for the kernels line."""
+    q, k, v, do = kernel_inputs(b, t, dev)
+    sums = {}
+    for n in SPLITS:
+        per_band = []
+        whole_bwd = [0.0, 0.0]      # the 5-product backward, over the bands
+        for tq, tk, band in bands(q, k, v, do, n):
+            readings = kernel_readings(*band, band=True)
+            print(f"agreement split {n} band tq={tq} tk={tk}: "
+                  f"{describe(readings)}", flush=True)
+            check_readings(readings, f"on band tq={tq} tk={tk}")
+            per_band.append(band_times(b, tq, tk, *band, readings))
+            for j, x in enumerate(work(b * H, tq, tk)["flash_bwd"]):
+                whole_bwd[j] += x
+        total = {}
+        for name in BAND:
+            rows = [r[name] for r in per_band]
+            flops = sum(r["flops"] for r in rows)
+            nbytes = sum(r["bytes"] for r in rows)
+            bnd_ms, bnd_by = bound(flops, nbytes)
+            total[name] = {
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": bnd_ms, "bound_by": bnd_by,
+                "library_ms": sum(r["library_ms"] for r in rows)}
+            print(f"kernel {name} split {n} B={b} T={t}, all {n} bands: "
+                  f"{total[name]['ms']:.4f} ms, bound {bnd_ms:.4f} ms "
+                  f"({bnd_by}), plain {total[name]['plain_ms']:.4f} ms, "
+                  f"library {total[name]['library_ms']:.4f} ms", flush=True)
+        dq, dkv = total["flash_bwd_dq_rect"], total["flash_bwd_dkv_rect"]
+        pair_ms = dq["ms"] + dkv["ms"]
+        bwd_ms, bwd_by = bound(*whole_bwd)
+        print(f"kernel pair flash_bwd_dq_rect+flash_bwd_dkv_rect split {n} "
+              f"B={b} T={t}, all {n} bands: {pair_ms:.4f} ms, bound of the "
+              f"band backward as one function (5 products, "
+              f"_bwd_rect_kernel) {bwd_ms:.4f} ms ({bwd_by}), "
+              f"{pair_ms / bwd_ms:.2f}x it; the dq and dkv kernels' 7 "
+              f"products bound it at "
+              f"{dq['bound_ms'] + dkv['bound_ms']:.4f} ms", flush=True)
+        sums[n] = total
+        split_composition(b, t, n, q, k, v, do,
+                          sum(total[name]["ms"] for name in BAND))
+    return sums
 
 
 class PlainAttention(torch.autograd.Function):
@@ -325,45 +594,64 @@ class PlainAttention(torch.autograd.Function):
                                         ctx.scale, True), None)
 
 
+def fold4(x):
+    """[B, T, H, D] -> contiguous [B*H, T, D], as the kernels take it."""
+    b, t, h, d = x.shape
+    return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+
 def plain_attention(q, k, v):
     """Causal attention through the plain versions, on [B, T, H, D]."""
     b, t, h, d = q.shape
-
-    def fold(x):
-        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
-
-    o = PlainAttention.apply(fold(q), fold(k), fold(v), d ** -0.5)
+    o = PlainAttention.apply(fold4(q), fold4(k), fold4(v), d ** -0.5)
     return o.view(b, h, t, d).transpose(1, 2)
 
 
-def layer_readings(model, batch) -> list[dict[str, dict]]:
-    """Each layer's attention at step 0, on the q, k, v and output
-    gradient the model gives it on ``batch``: :func:`kernel_readings`
-    for each layer, in order."""
-    seen = []
+def layer_inputs(model, loss, layers) -> dict[int, list]:
+    """{layer: [q, k, v, do]} at step 0, folded ``[BH, T, D]``: the
+    attention inputs and output gradient ``loss(model)`` gives each of
+    ``layers``."""
+    seen = {}
     kernel_attn = model.attn_fn
+    calls = [0]
 
     def capture(q, k, v):
+        i = calls[0]
+        calls[0] += 1
         out = kernel_attn(q, k, v)
-        seen.append([q.detach(), k.detach(), v.detach(), None])
-        out.register_hook(lambda g, entry=seen[-1]: entry.__setitem__(3, g))
+        if i in layers:
+            seen[i] = [q.detach(), k.detach(), v.detach(), None]
+            out.register_hook(lambda g, entry=seen[i]:
+                              entry.__setitem__(3, g))
         return out
 
     model.attn_fn = capture
     try:
-        torch.autograd.grad(gpt2_loss_fn(ce_chunk=2048)(model, batch),
-                            model.wte.weight)
+        torch.autograd.grad(loss(model), model.wte.weight)
     finally:
         model.attn_fn = kernel_attn
+    return {i: [fold4(x) for x in entry] for i, entry in sorted(seen.items())}
 
-    def fold(x):
-        b, t, h, d = x.shape
-        return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
+def layer_readings(model, batch, layers=None, n_split: int = 0
+                   ) -> list[dict[str, dict]]:
+    """Each GPT-2 layer's attention at step 0, on the q, k, v and output
+    gradient the model gives it on ``batch``: :func:`kernel_readings` for
+    each of ``layers`` (default all), in order; under ``n_split`` the
+    band kernels on every band (the worst reading over the bands)."""
+    layers = range(len(model.h)) if layers is None else layers
+    captured = layer_inputs(
+        model, lambda m: gpt2_loss_fn(ce_chunk=2048)(m, batch), set(layers))
     out = []
-    for i, entry in enumerate(seen):
-        out.append(kernel_readings(*(fold(x) for x in entry)))
-        print(f"agreement layer {i}: {describe(out[-1])}", flush=True)
+    for i, xs in captured.items():
+        if n_split:
+            readings = worst([kernel_readings(*band, band=True)
+                              for _, _, band in bands(*xs, n_split)])
+        else:
+            readings = kernel_readings(*xs)
+        out.append(readings)
+        route = f" (split {n_split})" if n_split else ""
+        print(f"agreement layer {i}{route}: {describe(readings)}", flush=True)
     return out
 
 
@@ -380,7 +668,7 @@ def attention_grad_readings(model, batch) -> dict[str, tuple[float, int]]:
         model.attn_fn = attn
         grads[name] = torch.autograd.grad(loss_fn(model, batch), params)
     model.attn_fn = kernel_attn
-    worst = {}
+    worst_rel = {}
     for i in range(len(model.h)):
         gk_qkv, gk_proj = grads["kernels"][2 * i: 2 * i + 2]
         gp_qkv, gp_proj = grads["plain"][2 * i: 2 * i + 2]
@@ -391,23 +679,23 @@ def attention_grad_readings(model, batch) -> dict[str, tuple[float, int]]:
         for w, (gk, gp) in pairs.items():
             rel = float(torch.linalg.vector_norm(gk - gp)
                         / torch.linalg.vector_norm(gp))
-            if rel > worst.get(w, (-1.0, 0))[0]:
-                worst[w] = (rel, i)
+            if rel > worst_rel.get(w, (-1.0, 0))[0]:
+                worst_rel[w] = (rel, i)
     print("attention grads vs plain (largest relative norm error over the "
           "layers, layer): " + ", ".join(
-              f"{w} {r:.4g} (layer {i})" for w, (r, i) in worst.items())
+              f"{w} {r:.4g} (layer {i})" for w, (r, i) in worst_rel.items())
           + f"; limit {GRAD_TOL}", flush=True)
-    return worst
+    return worst_rel
 
 
-def step0_losses(model, batch) -> tuple[float, float]:
+def step0_losses(model, batch, loss_fn=gpt2_loss_fn) -> tuple[float, float]:
     """Step-0 loss through the kernels and the chunked CE, and through
     the plain attention and full float32 logits, same weights and batch."""
     kernel_attn = model.attn_fn
     with torch.no_grad():
-        loss_kernel = float(gpt2_loss_fn()(model, batch))
+        loss_kernel = float(loss_fn()(model, batch))
         model.attn_fn = plain_attention
-        loss_plain = float(gpt2_loss_fn(fused_ce=False)(model, batch))
+        loss_plain = float(loss_fn(fused_ce=False)(model, batch))
     model.attn_fn = kernel_attn
     print(f"train step-0 loss: kernels {loss_kernel:.6f}, plain "
           f"{loss_plain:.6f}, |diff| {abs(loss_kernel - loss_plain):.3g} "
@@ -415,11 +703,15 @@ def step0_losses(model, batch) -> tuple[float, float]:
     return loss_kernel, loss_plain
 
 
-def train_batch(cfg: GPT2Config):
+def train_batch(vocab: int, b: int = TRAIN_BATCH, t: int = TRAIN_SEQ):
     rng = np.random.default_rng(0)
-    toks = rng.integers(0, cfg.vocab_size,
-                        (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int32)
+    toks = rng.integers(0, vocab, (b, t)).astype(np.int32)
     return toks, np.roll(toks, -1, 1)
+
+
+def device_batch(toks, tgts, dev) -> dict:
+    return {"tokens": torch.from_numpy(toks).to(dev),
+            "targets": torch.from_numpy(tgts).to(dev)}
 
 
 def profile_dispatch(step, state, batch, card: str):
@@ -464,17 +756,77 @@ def profile_dispatch(step, state, batch, card: str):
     return state
 
 
-def train_phase(card: str) -> dict[str, int]:
+def train_run(model, loss_fn, toks, tgts, timed: int,
+              profile_card: str | None = None) -> dict:
+    """Train ``model`` on the repeated batch through ``prefetch_to_device``
+    and ``make_multi_train_step`` with ``adamw(3e-4, weight_decay=0.1,
+    mu_dtype=bf16)``: one warm-up dispatch of K_STEPS steps, ``timed``
+    timed dispatches and, with ``profile_card``, one profiled dispatch
+    (after the launch counts are read). Peak memory is over the whole
+    run."""
+    dev = next(model.parameters()).device
+    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    state = init_train_state(model, opt)
+    step = make_multi_train_step(loss_fn, opt, grad_norm=False)
+    stack = {"tokens": np.stack([toks] * K_STEPS),
+             "targets": np.stack([tgts] * K_STEPS)}
+    n_dispatch = 1 + timed + (profile_card is not None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with prefetch_to_device((stack for _ in range(n_dispatch)), dev) as pf:
+        fa.reset_launch_counts()
+        state, metrics = step(state, next(pf))     # warm-up dispatch
+        loss_warm = float(metrics["loss"])
+        stall0 = pf.stall_s
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, metrics = step(state, next(pf))
+        loss_final = float(metrics["loss"])        # waits for the device
+        dt = time.perf_counter() - t0
+        stall = pf.stall_s - stall0
+        counts = fa.launch_counts()
+        if profile_card is not None:
+            state = profile_dispatch(step, state, next(pf), profile_card)
+    b, t = toks.shape
+    n_steps = (1 + timed) * K_STEPS
+    check(state.step == n_dispatch * K_STEPS, "every step ran")
+    check(np.isfinite(loss_final), "loss finite")
+    return {"loss_warm": loss_warm, "loss_final": loss_final,
+            "n_steps": n_steps, "counts": counts,
+            "step_ms": dt / (timed * K_STEPS) * 1e3,
+            "tok_s": b * t * timed * K_STEPS / dt,
+            "peak": torch.cuda.max_memory_allocated(), "stall_ms": stall * 1e3}
+
+
+def check_counts(run: dict, per_step: dict[str, int], what: str) -> None:
+    """Each kernel launched ``per_step[name]`` times per step (0 where not
+    named) over the run's counted steps."""
+    n = run["n_steps"]
+    for name, got in run["counts"].items():
+        want = per_step.get(name, 0)
+        check(got == want * n, f"{what}: {name} launched {want} times per "
+              f"step ({got} for {n} steps)")
+
+
+def describe_run(what: str, run: dict, loss0: float, card: str) -> str:
+    return (f"train {what}, {run['n_steps']} steps: loss {loss0:.4f} -> "
+            f"{run['loss_warm']:.4f} (step {K_STEPS}) -> "
+            f"{run['loss_final']:.4f} (step {run['n_steps']}); step "
+            f"{run['step_ms']:.2f} ms, {run['tok_s']:.1f} tokens/s, peak "
+            f"memory {run['peak']} B, input stall {run['stall_ms']:.3f} ms; "
+            f"launches {run['counts']}; card {card}")
+
+
+def train_phase(card: str) -> tuple[dict, float]:
     cfg = GPT2Config.small()
     model = GPT2(cfg, seed=0)                     # on the card by default
     dev = next(model.parameters()).device
-    toks, tgts = train_batch(cfg)
-    batch0 = {"tokens": torch.from_numpy(toks).to(dev),
-              "targets": torch.from_numpy(tgts).to(dev)}
+    toks, tgts = train_batch(cfg.vocab_size)
+    batch0 = device_batch(toks, tgts, dev)
     for i, readings in enumerate(layer_readings(model, batch0)):
         check_readings(readings, f"on layer {i}'s inputs")
-    worst = attention_grad_readings(model, batch0)
-    for w, (rel, layer) in worst.items():
+    worst_rel = attention_grad_readings(model, batch0)
+    for w, (rel, layer) in worst_rel.items():
         check(rel < GRAD_TOL, f"{w} gradient of layer {layer} within "
               f"{GRAD_TOL} of the plain path's (got {rel:.4g})")
     loss_kernel, loss_plain = step0_losses(model, batch0)
@@ -483,72 +835,221 @@ def train_phase(card: str) -> dict[str, int]:
           "step-0 loss matches the plain path")
     del batch0
 
-    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
-    state = init_train_state(model, opt)
-    step = make_multi_train_step(gpt2_loss_fn(ce_chunk=2048), opt,
-                                 grad_norm=False)
-    stack = {"tokens": np.stack([toks] * K_STEPS),
-             "targets": np.stack([tgts] * K_STEPS)}
-    n_dispatch = 1 + TIMED_DISPATCHES
-    torch.cuda.reset_peak_memory_stats()
-    # The last dispatch is profiled, after the counts are read.
-    with prefetch_to_device((stack for _ in range(n_dispatch + 1)),
-                            dev) as pf:
-        fa.reset_launch_counts()
-        state, metrics = step(state, next(pf))     # warm-up dispatch
-        loss_warm = float(metrics["loss"])
-        stall0 = pf.stall_s
-        t0 = time.perf_counter()
-        for _ in range(TIMED_DISPATCHES):
-            state, metrics = step(state, next(pf))
-        loss_final = float(metrics["loss"])        # waits for the device
-        dt = time.perf_counter() - t0
-        stall = pf.stall_s - stall0
-        counts = fa.launch_counts()
-        state = profile_dispatch(step, state, next(pf), card)
-    n_steps = n_dispatch * K_STEPS
-    step_ms = dt / (TIMED_DISPATCHES * K_STEPS) * 1e3
-    tok_s = TRAIN_BATCH * TRAIN_SEQ * TIMED_DISPATCHES * K_STEPS / dt
-    peak = torch.cuda.max_memory_allocated()
-    print(f"train GPT-2 124M B={TRAIN_BATCH} T={TRAIN_SEQ} bf16, "
-          f"{n_steps} steps: loss {loss_kernel:.4f} -> {loss_warm:.4f} "
-          f"(step {K_STEPS}) -> {loss_final:.4f} (step {n_steps}); "
-          f"step {step_ms:.2f} ms, {tok_s:.1f} tokens/s, peak memory "
-          f"{peak} B, input stall {stall * 1e3:.3f} ms; launches {counts}; "
-          f"card {card}", flush=True)
-    check(np.isfinite(loss_final), "loss finite")
-    check(loss_final < loss_warm < loss_kernel,
+    run = train_run(model, gpt2_loss_fn(ce_chunk=2048), toks, tgts,
+                    TIMED_DISPATCHES, profile_card=card)
+    print(describe_run(f"GPT-2 124M B={TRAIN_BATCH} T={TRAIN_SEQ} bf16", run,
+                       loss_kernel, card), flush=True)
+    check(run["loss_final"] < run["loss_warm"] < loss_kernel,
           "loss falls on a repeated batch")
-    check(state.step == n_steps + K_STEPS, "every step ran")
-    for name, n in counts.items():
-        check(n == cfg.n_layer * n_steps,
-              f"{name} launched {cfg.n_layer} times per step "
-              f"({n} for {n_steps} steps)")
-    return counts
+    check_counts(run, {name: cfg.n_layer for name in SQUARE},
+                 "GPT-2 unsplit")
+    return run, loss_kernel
+
+
+def split_train_phase(n: int, loss_unsplit: float, card: str) -> dict:
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    dev = next(model.parameters()).device
+    toks, tgts = train_batch(cfg.vocab_size)
+    with flash_split(n):
+        batch0 = device_batch(toks, tgts, dev)
+        for i, readings in zip(SPLIT_CHECK_LAYERS, layer_readings(
+                model, batch0, SPLIT_CHECK_LAYERS, n_split=n)):
+            check_readings(readings, f"on layer {i}'s inputs, split {n}")
+        with torch.no_grad():
+            loss0 = float(gpt2_loss_fn(ce_chunk=2048)(model, batch0))
+        print(f"train split {n} step-0 loss {loss0:.6f}, unsplit "
+              f"{loss_unsplit:.6f}, |diff| {abs(loss0 - loss_unsplit):.3g} "
+              f"(limit {STEP0_LOSS_TOL})", flush=True)
+        check(abs(loss0 - loss_unsplit) < STEP0_LOSS_TOL,
+              f"split {n} step-0 loss matches the unsplit run's")
+        del batch0
+        run = train_run(model, gpt2_loss_fn(ce_chunk=2048), toks, tgts,
+                        SHORT_TIMED_DISPATCHES)
+    print(describe_run(f"GPT-2 124M split {n} B={TRAIN_BATCH} T={TRAIN_SEQ} "
+                       "bf16", run, loss0, card), flush=True)
+    check(run["loss_final"] < run["loss_warm"] < loss0,
+          f"split {n}: loss falls on a repeated batch")
+    check_counts(run, {name: n * cfg.n_layer for name in BAND},
+                 f"GPT-2 split {n}")
+    return run
+
+
+def remat_phase(base_peak: int, card: str) -> dict[str, dict]:
+    """Step-0 loss and gradients of each policy against no remat, then a
+    short training run per policy."""
+    toks, tgts = train_batch(GPT2Config.small().vocab_size)
+    loss_fn = gpt2_loss_fn(ce_chunk=2048)
+
+    def loss_and_grads(cfg):
+        model = GPT2(cfg, seed=0)
+        batch = device_batch(toks, tgts, next(model.parameters()).device)
+        loss = loss_fn(model, batch)
+        return float(loss), torch.autograd.grad(loss,
+                                                list(model.parameters()))
+
+    loss0, grads0 = loss_and_grads(GPT2Config.small())
+    for policy in REMAT_POLICIES:
+        loss, grads = loss_and_grads(GPT2Config.small(remat=True,
+                                                      remat_policy=policy))
+        rel = max(float(torch.linalg.vector_norm(g - g0)
+                        / torch.linalg.vector_norm(g0))
+                  for g, g0 in zip(grads, grads0))
+        equal = sum(torch.equal(g, g0) for g, g0 in zip(grads, grads0))
+        del grads
+        print(f"remat {policy}: step-0 loss {loss:.6f} vs {loss0:.6f} "
+              f"(|diff| {abs(loss - loss0):.3g}, limit {REMAT_LOSS_TOL}); "
+              f"gradients: largest relative norm error {rel:.3g} (limit "
+              f"{REMAT_GRAD_TOL}), {equal} of {len(grads0)} bit-equal",
+              flush=True)
+        check(abs(loss - loss0) <= REMAT_LOSS_TOL and rel <= REMAT_GRAD_TOL,
+              f"remat {policy}: step-0 loss and gradients match no remat")
+    del grads0
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for policy in REMAT_POLICIES:
+        cfg = GPT2Config.small(remat=True, remat_policy=policy)
+        run = train_run(GPT2(cfg, seed=0), loss_fn, toks, tgts,
+                        SHORT_TIMED_DISPATCHES)
+        print(describe_run(f"GPT-2 124M remat {policy} B={TRAIN_BATCH} "
+                           f"T={TRAIN_SEQ} bf16", run, loss0, card),
+              flush=True)
+        fwd = cfg.n_layer * (1 if policy == "everything" else 2)
+        check_counts(run, {"flash_fwd": fwd, "flash_bwd_dq": cfg.n_layer,
+                           "flash_bwd_dkv": cfg.n_layer}, f"remat {policy}")
+        runs[policy] = run
+        torch.cuda.empty_cache()
+    print("remat peak memory (B): " + ", ".join(
+        f"{p} {r['peak']}" for p, r in runs.items())
+        + f"; no remat {base_peak}", flush=True)
+    check(runs["nothing"]["peak"] < base_peak,
+          "remat nothing: peak memory below the run without remat")
+    return runs
+
+
+def llama_phase(card: str) -> dict[str, dict]:
+    cfg = LlamaConfig.tinyllama_1b()
+    model = Llama(cfg, seed=0)
+    dev = next(model.parameters()).device
+    n_params = sum(p.numel() for p in model.parameters())
+    toks, tgts = train_batch(cfg.vocab_size, LLAMA_BATCH, LLAMA_SEQ)
+    batch0 = device_batch(toks, tgts, dev)
+    captured = layer_inputs(
+        model, lambda m: llama_loss_fn(ce_chunk=2048)(m, batch0),
+        set(LLAMA_CHECK_LAYERS))
+    readings = {}
+    for i, xs in captured.items():
+        readings[i] = kernel_readings(*xs)
+        print(f"agreement TinyLlama layer {i}: {describe(readings[i])}",
+              flush=True)
+        check_readings(readings[i], f"on TinyLlama layer {i}'s inputs")
+    # The kernels at TinyLlama's own shape, on its last layer's inputs.
+    last = LLAMA_CHECK_LAYERS[-1]
+    rows = kernel_times(LLAMA_BATCH, *captured[last], readings[last],
+                        f"TinyLlama layer {last} B={LLAMA_BATCH} "
+                        f"T={LLAMA_SEQ} H={cfg.n_head}")
+    del captured
+    torch.cuda.empty_cache()
+    loss_kernel, loss_plain = step0_losses(model, batch0, llama_loss_fn)
+    check(np.isfinite(loss_kernel), "TinyLlama step-0 loss finite")
+    check(abs(loss_kernel - loss_plain) < STEP0_LOSS_TOL,
+          "TinyLlama step-0 loss matches the plain path")
+    del batch0
+    torch.cuda.empty_cache()
+
+    run = train_run(model, llama_loss_fn(ce_chunk=2048), toks, tgts,
+                    SHORT_TIMED_DISPATCHES, profile_card=card)
+    mfu = 6 * n_params * run["tok_s"] / PEAK_BF16_FLOPS
+    print(describe_run(f"TinyLlama 1.1B ({n_params} params) B={LLAMA_BATCH} "
+                       f"T={LLAMA_SEQ} bf16", run, loss_kernel, card)
+          + f"; 6*N*tokens/s = {mfu:.4f} of the bf16 peak (attention FLOPs "
+          "not counted)", flush=True)
+    check(run["loss_final"] < run["loss_warm"] < loss_kernel,
+          "TinyLlama: loss falls on a repeated batch")
+    check_counts(run, {name: cfg.n_layer for name in SQUARE}, "TinyLlama")
+    return rows
 
 
 def plant_fault(name: str) -> str:
-    """Build kernel ``name`` from a copy of its source carrying the fault
-    of FAULTS, under the build directory, and bind its wrapper to it.
+    """Build kernel ``name``'s source with the fault of FAULTS, under the
+    build directory, and bind that kernel's wrapper (and only it) to it.
     Returns the temporary directory, for the caller to remove."""
     old, new = FAULTS[name]
-    with open(build.sources()[name]) as f:
+    kernel = fa._KERNELS[name]
+    with open(build.sources()[kernel.source]) as f:
         src = f.read()
-    check(src.count(old) == 1, f"the fault's anchor is in {name}.cu once")
+    check(src.count(old) == 1,
+          f"the fault's anchor is in {kernel.source}.cu once")
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="fault-", dir=build.BUILD_DIR)
-    cu, lib = os.path.join(tmp, f"{name}.cu"), os.path.join(tmp, "lib.so")
+    cu, lib = (os.path.join(tmp, f"{kernel.source}.cu"),
+               os.path.join(tmp, "lib.so"))
     with open(cu, "w") as f:
         f.write(src.replace(old, new))
     subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I", build.SRC_DIR,
                     "-o", lib, cu], check=True, capture_output=True,
                    timeout=600)
-    kernel = fa._KERNELS[name]
     fn = getattr(ctypes.CDLL(lib), kernel.symbol)
     fn.argtypes = kernel.argtypes
     fn.restype = ctypes.c_int
     kernel._fn = fn
     return tmp
+
+
+def square_fault_result(name: str, dev) -> dict:
+    def fails(readings):
+        return not all(r["ok"] for r in readings[name].values())
+
+    kernel_caught = []
+    for b, t in SHAPES:
+        readings = kernel_readings(*kernel_inputs(b, t, dev))
+        print(f"agreement B={b} T={t}: {describe(readings)}", flush=True)
+        kernel_caught.append(fails(readings))
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    batch0 = device_batch(*train_batch(cfg.vocab_size), dev)
+    layer_caught = [fails(r) for r in layer_readings(model, batch0)]
+    worst_rel = attention_grad_readings(model, batch0)
+    loss_kernel, loss_plain = step0_losses(model, batch0)
+    return {"fault": name, "kernel_check_fails_it": all(kernel_caught),
+            "layer_check_fails_it_on_layers":
+                [i for i, caught in enumerate(layer_caught) if caught],
+            "grad_check_fails_it": any(rel >= GRAD_TOL
+                                       for rel, _ in worst_rel.values()),
+            "loss_check_fails_it":
+                abs(loss_kernel - loss_plain) >= STEP0_LOSS_TOL,
+            "caught": all(kernel_caught) and any(layer_caught)}
+
+
+def band_fault_result(name: str, dev) -> dict:
+    def fails(readings):
+        return not all(r["ok"] for r in readings[name].values())
+
+    q, k, v, do = kernel_inputs(TRAIN_BATCH, TRAIN_SEQ, dev)
+    band_caught = {}
+    for n in SPLITS:
+        for tq, tk, band in bands(q, k, v, do, n):
+            readings = kernel_readings(*band, band=True)
+            print(f"agreement split {n} band tq={tq} tk={tk}: "
+                  f"{describe(readings)}", flush=True)
+            band_caught[f"{tq}x{tk}"] = fails(readings)
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    batch0 = device_batch(*train_batch(cfg.vocab_size), dev)
+    layer_caught = {}
+    for n in SPLITS:
+        with flash_split(n):
+            readings = layer_readings(model, batch0, SPLIT_CHECK_LAYERS,
+                                      n_split=n)
+        layer_caught[n] = [i for i, r in zip(SPLIT_CHECK_LAYERS, readings)
+                           if fails(r)]
+    rect = [key for key in band_caught
+            if int(key.split("x")[0]) < int(key.split("x")[1])]
+    return {"fault": name, "band_check_fails_it_on": band_caught,
+            "split_layer_check_fails_it_on_layers": layer_caught,
+            "caught": (all(band_caught[key] for key in rect)
+                       and all(layer_caught.values()))}
 
 
 def fault_main(name: str, dev) -> int:
@@ -557,33 +1058,12 @@ def fault_main(name: str, dev) -> int:
     try:
         print(f"planted fault in {name}: "
               f"{FAULTS[name][1].splitlines()[-1].strip()}", flush=True)
-        def fails(readings):
-            return not all(r["ok"] for r in readings[name].values())
-
-        kernel_caught = []
-        for b, t in SHAPES:
-            readings = kernel_readings(*kernel_inputs(b, t, dev))
-            print(f"agreement B={b} T={t}: {describe(readings)}", flush=True)
-            kernel_caught.append(fails(readings))
-        cfg = GPT2Config.small()
-        model = GPT2(cfg, seed=0)
-        toks, tgts = train_batch(cfg)
-        batch0 = {"tokens": torch.from_numpy(toks).to(dev),
-                  "targets": torch.from_numpy(tgts).to(dev)}
-        layer_caught = [fails(r) for r in layer_readings(model, batch0)]
-        worst = attention_grad_readings(model, batch0)
-        grad_caught = any(rel >= GRAD_TOL for rel, _ in worst.values())
-        loss_kernel, loss_plain = step0_losses(model, batch0)
-        loss_caught = abs(loss_kernel - loss_plain) >= STEP0_LOSS_TOL
+        result = (band_fault_result if name in BAND
+                  else square_fault_result)(name, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    result = {"fault": name, "kernel_check_fails_it": all(kernel_caught),
-              "layer_check_fails_it_on_layers":
-                  [i for i, caught in enumerate(layer_caught) if caught],
-              "grad_check_fails_it": grad_caught,
-              "loss_check_fails_it": loss_caught}
     print(json.dumps(result), flush=True)
-    return 0 if all(kernel_caught) and any(layer_caught) else 1
+    return 0 if result["caught"] else 1
 
 
 def main() -> int:
@@ -602,20 +1082,35 @@ def main() -> int:
     t0 = time.perf_counter()
     build.ensure_built()
     print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
-    for name in SOURCES:
+    for name in build.sources():
         with open(build.log_path(name)) as f:
             print(f"build {name}: {ptxas_usage(f.read())}", flush=True)
 
     rows = {}
     for b, t in SHAPES:
         rows[(b, t)] = kernel_phase(b, t, dev)
+    band_rows = band_phase(TRAIN_BATCH, TRAIN_SEQ, dev)
 
-    counts = train_phase(card)
+    main_run, loss_unsplit = train_phase(card)
+    torch.cuda.empty_cache()
+    split_runs = {}
+    for n in SPLITS:
+        split_runs[n] = split_train_phase(n, loss_unsplit, card)
+        torch.cuda.empty_cache()
+    remat_phase(main_run["peak"], card)
+    llama_phase(card)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
+          "began", flush=True)
 
     main_rows = rows[(TRAIN_BATCH, TRAIN_SEQ)]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name], "launches": counts[name],
-                **main_rows[name]} for name in SOURCES]
+                "replaces": REPLACES[name],
+                "launches": main_run["counts"][name], **main_rows[name]}
+               for name in SQUARE]
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name],
+                 "launches": split_runs[SPLITS[0]]["counts"][name],
+                 **band_rows[SPLITS[0]][name]} for name in BAND]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Models of the port."""
 
 from ray_tpu_torch.models.gpt2 import GPT2, GPT2Config
+from ray_tpu_torch.models.llama import Llama, LlamaConfig, llama_loss_fn
 
-__all__ = ["GPT2", "GPT2Config"]
+__all__ = ["GPT2", "GPT2Config", "Llama", "LlamaConfig", "llama_loss_fn"]

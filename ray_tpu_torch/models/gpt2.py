@@ -23,10 +23,20 @@ The numerics follow the flax model so that the two agree step for step:
 Attention is pluggable (``attn_fn``) and defaults to
 ``ops.attention.causal_attention``: the CUDA flash kernels for CUDA
 tensors, their plain versions for CPU tensors.
+
+``GPT2Config.remat`` runs each block under activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant), the counterpart of
+``nn.remat`` per block; ``remat_policy`` names what the forward may keep,
+as ``jax.checkpoint_policies`` do, through selective checkpointing;
+``"everything"`` keeps all, which is the block without a checkpoint. The
+flash kernels are custom ops, not matrix products, so every policy but
+``"everything"`` runs the attention forward again in the backward, as
+JAX does with its ``pallas_call``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -36,6 +46,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch.core.accelerator import resolve_device
 from ray_tpu_torch.ops.attention import causal_attention
@@ -51,6 +66,12 @@ class GPT2Config:
     dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16       # compute dtype
     param_dtype: torch.dtype = torch.float32
+    remat: bool = False
+    # What remat may KEEP from the forward (see _REMAT_POLICIES):
+    # "nothing" recomputes the whole block, "dots" / "dots_no_batch" keep
+    # matrix-product outputs, "everything" keeps all and recomputes
+    # nothing (the block runs without a checkpoint).
+    remat_policy: str = "nothing"
 
     @staticmethod
     def small(**kw) -> "GPT2Config":
@@ -83,6 +104,55 @@ class GPT2Config:
             self.seq_len
         per_block = 12 * e * e + 13 * e  # qkv+proj+mlp + norms/biases
         return v * e + s * e + l * per_block + 2 * e
+
+
+_aten = torch.ops.aten
+# Ops whose outputs each policy saves, the counterparts of
+# jax.checkpoint_policies' nothing_saveable, checkpoint_dots,
+# checkpoint_dots_with_no_batch_dims and everything_saveable. On the
+# port's models every product without batch dimensions reaches the
+# dispatcher as mm or addmm. "everything" (None) recomputes nothing,
+# which is autograd without a checkpoint: a checkpoint that saved every
+# op would keep every intermediate, where autograd keeps only what the
+# backward reads.
+_REMAT_POLICIES = {
+    "nothing": frozenset(),
+    "dots": frozenset({_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm}),
+    "dots_no_batch": frozenset({_aten.mm, _aten.addmm}),
+    "everything": None,
+}
+
+
+def _policy(saved, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op.overloadpacket in saved:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_policy(name: str) -> Callable | None:
+    """Resolve a ``remat_policy`` name to a selective-checkpoint policy,
+    ``(ctx, op, *args, **kwargs) -> CheckpointPolicy``, or None for
+    ``"everything"``, whose blocks run without a checkpoint; ValueError
+    for an unknown name."""
+    try:
+        saved = _REMAT_POLICIES[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown remat policy {name!r}; "
+            f"one of {sorted(_REMAT_POLICIES)}") from None
+    return None if saved is None else functools.partial(_policy, saved)
+
+
+def remat_call(fn: Callable, *args, policy: str):
+    """``fn(*args)`` under non-reentrant activation checkpointing with the
+    named policy: the counterpart of ``nn.remat(..., policy=...)``."""
+    policy_fn = remat_policy(policy)
+    if policy_fn is None:
+        return fn(*args)
+    return checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     policy_fn))
 
 
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -203,6 +273,8 @@ class GPT2(nn.Module):
         super().__init__()
         if config.dropout > 0:
             raise NotImplementedError("dropout > 0 is not ported yet")
+        if config.remat:
+            remat_policy(config.remat_policy)   # unknown names raise here
         self.config = config
         self.attn_fn = attn_fn
         device = resolve_device(device)
@@ -224,7 +296,11 @@ class GPT2(nn.Module):
         x = F.embedding(tokens, self.wte.weight.to(dt)) \
             + self.wpe.weight[:t].to(dt)
         for block in self.h:
-            x = block(x, self.attn_fn)
+            if self.config.remat:
+                x = remat_call(block, x, self.attn_fn,
+                               policy=self.config.remat_policy)
+            else:
+                x = block(x, self.attn_fn)
         x = self.ln_f(x)
         if return_hidden:
             # Final hidden states for the chunked LM-head loss, which

@@ -5,7 +5,9 @@ the hand-written CUDA flash kernels for CUDA tensors
 (``ops/cuda/flash_attention.py``) and their plain PyTorch versions for
 CPU tensors. There is no library fallback: a CUDA input the kernels do
 not take raises. Shapes follow the JAX package: ``[batch, seq, heads,
-head_dim]``.
+head_dim]``. ``resolved_flash_config`` says which route (unsplit or
+the causal split's bands) a sequence length takes, for benchmarks to
+record.
 """
 
 from __future__ import annotations
@@ -16,7 +18,10 @@ from ray_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     flash_attention_available,
     flash_attention_shapes_ok,
+    resolved_flash_config,
 )
+
+__all__ = ["causal_attention", "flash_eligible", "resolved_flash_config"]
 
 
 def flash_eligible(t: int, d: int) -> bool:

@@ -3,14 +3,18 @@
 //   dv   = p^T do                            (p rounded to the input type)
 //   ds^T = p^T * (v do^T - delta) * scale    (rounded to the input type)
 //   dk   = ds^T q
-// on [BH, T, D] with D in {64, 128}; lse and delta are [BH, T] f32.
+// on [BH, T, D] with D in {64, 128}, or on one band of the causal split
+// (q, do [BH, tq, D], k, v, dk, dv [BH, tk, D], diagonal at row0 = tk -
+// tq; see Shape); lse and delta are [BH, tq] f32.
 //
 // Replaces, of ray_tpu/ops/pallas/flash_attention.py, the dk and dv
 // products of the single-block _bwd_fused_kernel (:296, launched by
-// _flash_bwd_fused :332) and the streaming _bwd_dkv_kernel (:255,
-// launched by _flash_bwd :374). Each block owns 64 key rows and walks the
-// query tiles from the diagonal down, so dk and dv are summed in
-// registers with no atomics (see flash_bwd_dq.cu for the split).
+// _flash_bwd_fused :332), the streaming _bwd_dkv_kernel (:255, launched
+// by _flash_bwd :374) and the band kernel _bwd_rect_kernel (:436,
+// launched by _rect_core_bwd :504). Each block owns 64 key rows and
+// walks the query tiles from the diagonal down, so dk and dv are summed
+// in registers with no atomics (see flash_bwd_dq.cu for the split). A
+// band's key tile that no query row reaches writes zeros.
 //
 // What bounds it on the H100: four products of 2 * BH * T^2 * D / 2 FLOP
 // each (s, dp, dv, dk) against reads of q, k, v, do and writes of dk, dv:
@@ -29,7 +33,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                      const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int seq,
+                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, Shape sh,
                      float scale, int causal) {
   constexpr int LD = D + 8;
   constexpr int NT = BQ / 8;  // 8-wide query tiles of one product
@@ -43,15 +47,16 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
 
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kTile;  // low key tiles see the most queries: first
-  const size_t base = static_cast<size_t>(bh) * seq * D;
-  const size_t row_base = static_cast<size_t>(bh) * seq;
+  const uint16_t* qh = q + static_cast<size_t>(bh) * sh.q_hs;
+  const uint16_t* doh = dout + static_cast<size_t>(bh) * sh.do_hs;
+  const size_t row_base = static_cast<size_t>(bh) * sh.tq;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
   const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
 
-  load_tile<D, kTile>(ks, k + base, k0, seq);
-  load_tile<D, kTile>(vs, v + base, k0, seq);
+  load_tile<D, kTile>(ks, k + static_cast<size_t>(bh) * sh.k_hs, k0, sh.tk);
+  load_tile<D, kTile>(vs, v + static_cast<size_t>(bh) * sh.v_hs, k0, sh.tk);
 
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
 #pragma unroll
@@ -60,16 +65,18 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
     dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
   }
 
-  const int n_qt = (seq + BQ - 1) / BQ;
-  const int first = causal ? k0 / BQ : 0;  // query tiles wholly above are masked
+  const int n_qt = (sh.tq + BQ - 1) / BQ;
+  // Causal: query rows above absolute row k0 (local row k0 - row0) see no
+  // key of this tile, so tiles wholly above it are skipped.
+  const int first = causal ? max(0, (k0 - sh.row0) / BQ) : 0;
 
   for (int iq = first; iq < n_qt; ++iq) {
     const int q0 = iq * BQ;
     __syncthreads();
-    load_tile<D, BQ>(qs, q + base, q0, seq);
-    load_tile<D, BQ>(dos, dout + base, q0, seq);
+    load_tile<D, BQ>(qs, qh, q0, sh.tq);
+    load_tile<D, BQ>(dos, doh, q0, sh.tq);
     for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const bool ok = q0 + i < seq;
+      const bool ok = q0 + i < sh.tq;
       lse_s[i] = ok ? lse[row_base + q0 + i] : 0.f;
       delta_s[i] = ok ? delta[row_base + q0 + i] : 0.f;
     }
@@ -97,7 +104,8 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
         const int qi = n * 8 + 2 * t + (e & 1);  // query within the tile
         const int qrow = q0 + qi;
         const int kr = key[e >> 1];
-        const bool masked = qrow >= seq || kr >= seq || (causal && kr > qrow);
+        const bool masked =
+            qrow >= sh.tq || kr >= sh.tk || (causal && kr > sh.row0 + qrow);
         p[n][e] = masked ? 0.f : __expf(p[n][e] * scale - lse_s[qi]);
       }
     }
@@ -161,8 +169,8 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (key[r] >= seq) continue;
-    const size_t off = base + static_cast<size_t>(key[r]) * D;
+    if (key[r] >= sh.tk) continue;
+    const size_t off = (static_cast<size_t>(bh) * sh.tk + key[r]) * D;
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
       *reinterpret_cast<uint32_t*>(dk + off + i * 8 + 2 * t) =
@@ -176,7 +184,7 @@ flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict_
 template <typename T, int D>
 int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dk, void* dv, int bh,
-                   int seq, float scale, int causal, cudaStream_t stream) {
+                   Shape sh, float scale, int causal, cudaStream_t stream) {
   constexpr int BQ = D == 64 ? 64 : 32;
   const int smem = (2 * kTile + 2 * BQ) * (D + 8) * static_cast<int>(sizeof(uint16_t)) +
                    2 * BQ * static_cast<int>(sizeof(float));
@@ -184,12 +192,12 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (seq + kTile - 1) / kTile);
+  const dim3 grid(bh, (sh.tk + kTile - 1) / kTile);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), seq, scale, causal);
+      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), sh, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,6 +208,22 @@ extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse, const void* delta,
                                  void* dk, void* dv, int bh, int seq, int d,
                                  float scale, int causal, int fp16, void* stream) {
+  const rtt::Shape sh = rtt::square_shape(seq, d);
   RTT_DISPATCH(fp16, d, rtt::launch_bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh,
-               seq, scale, causal, static_cast<cudaStream_t>(stream));
+               sh, scale, causal, static_cast<cudaStream_t>(stream));
+}
+
+// One causal band: q, do [BH, tq, D] and k, v [BH, tk, D] (tk >= tq) with
+// the given head strides; lse, delta [BH, tq] and dk, dv [BH, tk, D]
+// contiguous.
+extern "C" int rtt_flash_bwd_dkv_rect(const void* q, const void* k, const void* v,
+                                      const void* dout, const void* lse,
+                                      const void* delta, void* dk, void* dv, int bh,
+                                      int tq, int tk, int q_hs, int k_hs, int v_hs,
+                                      int do_hs, int d, float scale, int fp16,
+                                      void* stream) {
+  const int row0 = tk - tq;
+  const rtt::Shape sh = {tq, tk, row0, q_hs, k_hs, v_hs, do_hs};
+  RTT_DISPATCH(fp16, d, rtt::launch_bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh,
+               sh, scale, 1, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,11 @@
 // Shared pieces of the flash-attention kernels (flash_fwd.cu,
 // flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// Layout: q, k, v, o, do, dq, dk, dv are [BH, T, D] row-major in bf16 or
-// fp16; lse and delta are [BH, T] float32. Every kernel works on tiles of
+// Layout: the query-side tensors q, o, do, dq are [BH, tq, D] and the
+// key-side tensors k, v, dk, dv are [BH, tk, D], row-major in bf16 or
+// fp16; lse and delta are [BH, tq] float32. The square attention of one
+// sequence is tq = tk = T; a band of the causal split (Pallas _rect_fwd /
+// _rect_core_bwd) has tq <= tk (see Shape). Every kernel works on tiles of
 // 64 rows held in shared memory as raw 16-bit words, with each row padded
 // by 8 elements so that the fragment loads below hit 32 distinct banks.
 //
@@ -28,6 +31,22 @@ namespace rtt {
 constexpr int kTile = 64;       // rows of q (or of k) a block owns
 constexpr int kThreads = 128;   // 4 warps x 16 rows
 constexpr float kNegInf = -1e30f;  // the causal fill of the reference
+
+// The shape of one call. Query row i sits at absolute row row0 + i, and
+// the causal mask keeps key j for it iff j <= row0 + i: row0 = 0 for the
+// square attention, tk - tq for a band (the diagonal bottom-right
+// aligned, as _masked_scores(..., row0=tk - tq) in the reference). Rows
+// of every input are contiguous (row stride D); each input has its own
+// head stride, so that a band of a longer [BH, T, D] tensor is read in
+// place (head stride T * D). Outputs are contiguous.
+struct Shape {
+  int tq, tk, row0;
+  int q_hs, k_hs, v_hs, do_hs;  // head strides of q, k, v, do, in elements
+};
+
+inline Shape square_shape(int seq, int d) {
+  return Shape{seq, seq, 0, seq * d, seq * d, seq * d, seq * d};
+}
 
 __device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -71,19 +90,19 @@ template <> struct Elem<__half> {
   }
 };
 
-// Copy rows [row0, row0 + ROWS) of one [T, D] matrix into shared memory
-// (row stride D + 8), 16 bytes a thread, zero-filling rows at or past T
-// so that a ragged last tile contributes exact zeros.
+// Copy rows [first, first + ROWS) of one [rows, D] matrix into shared
+// memory (row stride D + 8), 16 bytes a thread, zero-filling rows at or
+// past `rows` so that a ragged last tile contributes exact zeros.
 template <int D, int ROWS>
-__device__ __forceinline__ void load_tile(uint16_t* s, const uint16_t* g, int row0,
-                                          int seq) {
+__device__ __forceinline__ void load_tile(uint16_t* s, const uint16_t* g, int first,
+                                          int rows) {
   constexpr int kChunks = D / 8;
   for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < seq)
-      v = *reinterpret_cast<const uint4*>(g + static_cast<size_t>(row0 + r) * D + c);
+    if (first + r < rows)
+      v = *reinterpret_cast<const uint4*>(g + static_cast<size_t>(first + r) * D + c);
     *reinterpret_cast<uint4*>(s + r * (D + 8) + c) = v;
   }
 }

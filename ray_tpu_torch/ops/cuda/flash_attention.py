@@ -1,16 +1,18 @@
 """Causal flash attention on hand-written CUDA kernels (fwd + bwd).
 
 Counterpart of ``ray_tpu/ops/pallas/flash_attention.py``. Three kernels
-in ``csrc/`` cover the seven Pallas calls the JAX package has on its
-main path and beside it:
+in ``csrc/`` cover the seven Pallas calls of the JAX package:
 
 - ``flash_fwd`` (``csrc/flash_fwd.cu``): o and lse, by streaming softmax
   over 64-row key tiles. Replaces ``_fwd_single_kernel`` and
-  ``_fwd_kernel``.
+  ``_fwd_kernel``; its band entry point (``flash_fwd_rect``) replaces
+  ``_fwd_rect_kernel``.
 - ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``) and ``flash_bwd_dkv``
   (``csrc/flash_bwd_dkv.cu``): the backward, split by output so that no
   block needs atomics. Together they replace ``_bwd_fused_kernel``,
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``.
+  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; their band entry points
+  (``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) replace
+  ``_bwd_rect_kernel``.
 
 The kernels work on the folded ``[B*H, T, D]`` layout, bf16 or fp16,
 with D in {64, 128} and any T >= 1. ``lse`` and ``delta`` are float32
@@ -19,19 +21,31 @@ with D in {64, 128} and any T >= 1. ``lse`` and ``delta`` are float32
 the input type before ``p·v`` and ``ds`` before the dq/dk products, all
 as in the reference.
 
+A band of the causal split (``RAY_TPU_FLASH_SPLIT``, see
+:func:`flash_attention`) is ``q [BH, tq, D]`` against the key/value
+prefix ``k, v [BH, tk, D]``, ``tk >= tq``, with the causal diagonal
+bottom-right aligned: query row ``i`` sits at absolute row ``tk - tq +
+i``. The band kernels read q, k, v and do in place through their head
+strides, so a band of a longer tensor is not copied.
+
 Each kernel wrapper takes its kernel for CUDA tensors and raises if the
 inputs do not suit it or the launch fails; it takes the plain PyTorch
 version beside it (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
-``flash_bwd_dkv_reference``) only for CPU tensors. Each counts its
-launches (:func:`launch_counts`). :func:`agreement` is the measure by
-which a kernel is held against its plain version.
+``flash_bwd_dkv_reference``, which also serve the bands) only for CPU
+tensors. Each wrapper runs as a ``torch.library`` custom op, so that
+selective activation checkpointing (models' ``remat_policy``) sees one
+op it can save or recompute, never the launch inside it. Each kernel
+counts its launches (:func:`launch_counts`). :func:`agreement` is the
+measure by which a kernel is held against its plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
+from torch import Tensor
 
 from ray_tpu_torch.ops.cuda import build
 
@@ -68,6 +82,8 @@ class _Kernel:
         self.launches += 1
 
 
+# The band entry points (``*_rect``) live in the same sources and count
+# their launches apart, so that a run shows which route ran.
 _KERNELS = {
     "flash_fwd": _Kernel("flash_fwd", "rtt_flash_fwd",
                          [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P]),
@@ -75,6 +91,12 @@ _KERNELS = {
                             [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P]),
     "flash_bwd_dkv": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv",
                              [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P]),
+    "flash_fwd_rect": _Kernel("flash_fwd", "rtt_flash_fwd_rect",
+                              [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    "flash_bwd_dq_rect": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq_rect",
+                                 [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
+    "flash_bwd_dkv_rect": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv_rect",
+                                  [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
 }
 
 
@@ -104,17 +126,21 @@ def flash_attention_shapes_ok(t: int, d: int) -> bool:
 # ---------------------------------------------------------------------------
 
 def _scores(q, k, scale, causal):
+    """Scaled q·kᵀ in float32, the causal mask bottom-right aligned (query
+    row i at absolute row tk - tq + i): the square mask when tq == tk."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if causal:
         t_q, t_k = s.shape[-2:]
-        keep = torch.ones(t_q, t_k, dtype=torch.bool, device=s.device).tril()
+        keep = torch.ones(t_q, t_k, dtype=torch.bool,
+                          device=s.device).tril(t_k - t_q)
         s = s.masked_fill(~keep, _NEG_INF)
     return s
 
 
 def flash_fwd_reference(q, k, v, scale: float, causal: bool = True):
-    """Plain ``(o, lse)`` for ``[BH, T, D]`` inputs: one-pass softmax over
-    the whole row, as ``_fwd_single_kernel`` computes it."""
+    """Plain ``(o, lse)`` for q ``[BH, tq, D]`` and k, v ``[BH, tk, D]``:
+    one-pass softmax over the whole row, as ``_fwd_single_kernel`` (tq =
+    tk) and ``_fwd_rect_kernel`` (a band, tq <= tk) compute it."""
     s = _scores(q, k, scale, causal)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
@@ -156,10 +182,24 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale: float,
 
 def flash_bwd_reference(q, k, v, o, lse, do, scale: float,
                         causal: bool = True):
-    """Plain ``(dq, dk, dv)``, as ``_bwd_fused_kernel`` computes them,
-    with ``delta = rowsum(o * do)`` taken in float32."""
+    """Plain ``(dq, dk, dv)``, as ``_bwd_fused_kernel`` (and, on a band,
+    ``_bwd_rect_kernel``) computes them, with ``delta = rowsum(o * do)``
+    taken in float32."""
     p, ds = _bwd_p_ds(q, k, v, do, lse, _delta(o, do), scale, causal)
     return (torch.matmul(ds, k.float()).to(q.dtype), *_dkv(q, do, p, ds))
+
+
+def flash_fwd_rect_reference(q, k, v, scale: float):
+    """Plain ``(o, lse)`` of one causal band: q ``[BH, tq, D]`` against
+    k, v ``[BH, tk, D]``, tk >= tq, the diagonal at ``row0 = tk - tq``
+    (``_fwd_rect_kernel``)."""
+    return flash_fwd_reference(q, k, v, scale, True)
+
+
+def flash_bwd_rect_reference(q, k, v, o, lse, do, scale: float):
+    """Plain ``(dq, dk, dv)`` of one causal band (``_bwd_rect_kernel``),
+    with ``delta = rowsum(o * do)`` in float32 (``_rect_core_bwd``)."""
+    return flash_bwd_reference(q, k, v, o, lse, do, scale, True)
 
 
 # How a kernel's output is held against its plain version (chip_smoke.py
@@ -247,54 +287,205 @@ def check_kernel_inputs(seq_tensors, row_tensors=()) -> None:
                              f"[{bh}, {t}], got {tuple(x.shape)}/{x.dtype}")
 
 
-def flash_fwd(q, k, v, scale: float, causal: bool = True):
-    """``(o, lse)`` for ``[BH, T, D]`` inputs: the ``flash_fwd`` kernel for
-    CUDA tensors, :func:`flash_fwd_reference` for CPU tensors."""
-    if _on_cpu(q, k, v):
+def _band_ok(x: torch.Tensor) -> bool:
+    """Rows contiguous (row stride D) and 16-byte aligned, any head
+    stride: what the band kernels read in place."""
+    return (x.stride(2) == 1 and x.stride(1) == x.shape[2]
+            and x.stride(0) % 8 == 0 and x.stride(0) < 2 ** 31
+            and x.data_ptr() % 16 == 0)
+
+
+def check_rect_inputs(q_side, kv_side, row_tensors=()) -> None:
+    """Raise ValueError unless the operands of one band suit the band
+    kernels: ``q`` (and ``do``) ``[BH, tq, D]``, ``k``, ``v`` ``[BH, tk,
+    D]`` with tk >= tq, one dtype, rows contiguous and 16-byte aligned
+    with any head stride (a band of a longer tensor is read in place),
+    and contiguous float32 ``[BH, tq]`` row statistics."""
+    ref = q_side[0]
+    if ref.dim() != 3 or any(x.dim() != 3 for x in kv_side):
+        raise ValueError(f"expected [BH, T, D] operands, got shape "
+                         f"{tuple(ref.shape)}")
+    bh, tq, d = ref.shape
+    tk = kv_side[0].shape[1]
+    if ref.dtype not in _KERNEL_DTYPES:
+        raise ValueError(f"flash kernels take bf16 or fp16, got {ref.dtype}")
+    if not flash_attention_shapes_ok(tq, d):
+        raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS} and "
+                         f"seq >= 1, got T={tq}, D={d}")
+    if tk < tq:
+        raise ValueError(f"a band needs tk >= tq, got tq={tq}, tk={tk}")
+    if bh < 1 or bh * tk >= 2 ** 31:
+        raise ValueError(f"B*H={bh} with T={tk} is out of the kernels' range")
+    for x, rows in [(x, tq) for x in q_side] + [(x, tk) for x in kv_side]:
+        if x.shape != (bh, rows, d) or x.dtype != ref.dtype:
+            raise ValueError("q, do [BH, tq, D] and k, v [BH, tk, D] must "
+                             f"share BH, D and dtype: {tuple(x.shape)}/"
+                             f"{x.dtype} vs {tuple(ref.shape)}/{ref.dtype}")
+        if not _band_ok(x):
+            raise ValueError("band kernels take operands with contiguous, "
+                             "16-byte aligned rows")
+    for x in row_tensors:
+        if (x.shape != (bh, tq) or x.dtype != torch.float32
+                or not x.is_contiguous()):
+            raise ValueError(f"lse/delta must be contiguous float32 "
+                             f"[{bh}, {tq}], got {tuple(x.shape)}/{x.dtype}")
+
+
+# Each kernel call is one custom op: its body launches the kernel for
+# CUDA tensors (the wrapper below has checked them) and runs the plain
+# version for CPU tensors. The ops return new tensors and mutate nothing.
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                  causal: bool) -> tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale, causal)
-    check_kernel_inputs((q, k, v))
     bh, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, t), device=q.device, dtype=torch.float32)
     _KERNELS["flash_fwd"].launch(
         q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(o.data_ptr()), _P(lse.data_ptr()), bh, t, d, float(scale),
+        _P(o.data_ptr()), _P(lse.data_ptr()), bh, t, d, scale,
         int(causal), int(q.dtype == torch.float16))
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool = True):
-    """dq: the ``flash_bwd_dq`` kernel for CUDA tensors, the plain
-    backward for CPU tensors."""
-    if _on_cpu(q, k, v, do, lse, delta):
+@torch.library.custom_op("ray_tpu_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                     lse: Tensor, delta: Tensor, scale: float,
+                     causal: bool) -> Tensor:
+    if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal)
-    check_kernel_inputs((q, k, v, do), (lse, delta))
     bh, t, d = q.shape
     dq = torch.empty_like(q)
     _KERNELS["flash_bwd_dq"].launch(
         q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
         _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
-        _P(dq.data_ptr()), bh, t, d, float(scale), int(causal),
+        _P(dq.data_ptr()), bh, t, d, scale, int(causal),
         int(q.dtype == torch.float16))
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool = True):
-    """(dk, dv): the ``flash_bwd_dkv`` kernel for CUDA tensors, the plain
-    backward for CPU tensors."""
-    if _on_cpu(q, k, v, do, lse, delta):
+@torch.library.custom_op("ray_tpu_torch::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                      lse: Tensor, delta: Tensor, scale: float,
+                      causal: bool) -> tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale,
                                        causal)
-    check_kernel_inputs((q, k, v, do), (lse, delta))
     bh, t, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _KERNELS["flash_bwd_dkv"].launch(
         q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
         _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
-        _P(dk.data_ptr()), _P(dv.data_ptr()), bh, t, d, float(scale),
+        _P(dk.data_ptr()), _P(dv.data_ptr()), bh, t, d, scale,
         int(causal), int(q.dtype == torch.float16))
     return dk, dv
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd_rect", mutates_args=())
+def _flash_fwd_rect_op(q: Tensor, k: Tensor, v: Tensor,
+                       scale: float) -> tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return flash_fwd_rect_reference(q, k, v, scale)
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    o = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((bh, tq), device=q.device, dtype=torch.float32)
+    _KERNELS["flash_fwd_rect"].launch(
+        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
+        _P(o.data_ptr()), _P(lse.data_ptr()), bh, tq, tk, q.stride(0),
+        k.stride(0), v.stride(0), d, scale, int(q.dtype == torch.float16))
+    return o, lse
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd_dq_rect", mutates_args=())
+def _flash_bwd_dq_rect_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                          lse: Tensor, delta: Tensor, scale: float) -> Tensor:
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, True)
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    dq = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
+    _KERNELS["flash_bwd_dq_rect"].launch(
+        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
+        _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
+        _P(dq.data_ptr()), bh, tq, tk, q.stride(0), k.stride(0),
+        v.stride(0), do.stride(0), d, scale, int(q.dtype == torch.float16))
+    return dq
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd_dkv_rect",
+                         mutates_args=())
+def _flash_bwd_dkv_rect_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                           lse: Tensor, delta: Tensor,
+                           scale: float) -> tuple[Tensor, Tensor]:
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, True)
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    dk = torch.empty((bh, tk, d), device=q.device, dtype=k.dtype)
+    dv = torch.empty((bh, tk, d), device=q.device, dtype=v.dtype)
+    _KERNELS["flash_bwd_dkv_rect"].launch(
+        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
+        _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
+        _P(dk.data_ptr()), _P(dv.data_ptr()), bh, tq, tk, q.stride(0),
+        k.stride(0), v.stride(0), do.stride(0), d, scale,
+        int(q.dtype == torch.float16))
+    return dk, dv
+
+
+def flash_fwd(q, k, v, scale: float, causal: bool = True):
+    """``(o, lse)`` for ``[BH, T, D]`` inputs: the ``flash_fwd`` kernel for
+    CUDA tensors, :func:`flash_fwd_reference` for CPU tensors."""
+    if not _on_cpu(q, k, v):
+        check_kernel_inputs((q, k, v))
+    return _flash_fwd_op(q, k, v, float(scale), bool(causal))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool = True):
+    """dq: the ``flash_bwd_dq`` kernel for CUDA tensors, the plain
+    backward for CPU tensors."""
+    if not _on_cpu(q, k, v, do, lse, delta):
+        check_kernel_inputs((q, k, v, do), (lse, delta))
+    return _flash_bwd_dq_op(q, k, v, do, lse, delta, float(scale),
+                            bool(causal))
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool = True):
+    """(dk, dv): the ``flash_bwd_dkv`` kernel for CUDA tensors, the plain
+    backward for CPU tensors."""
+    if not _on_cpu(q, k, v, do, lse, delta):
+        check_kernel_inputs((q, k, v, do), (lse, delta))
+    return _flash_bwd_dkv_op(q, k, v, do, lse, delta, float(scale),
+                             bool(causal))
+
+
+def flash_fwd_rect(q, k, v, scale: float):
+    """``(o, lse)`` of one causal band (q ``[BH, tq, D]``, k, v ``[BH, tk,
+    D]``): the ``flash_fwd_rect`` kernel for CUDA tensors,
+    :func:`flash_fwd_rect_reference` for CPU tensors."""
+    if not _on_cpu(q, k, v):
+        check_rect_inputs((q,), (k, v))
+    return _flash_fwd_rect_op(q, k, v, float(scale))
+
+
+def flash_bwd_dq_rect(q, k, v, do, lse, delta, scale: float):
+    """dq of one causal band: the ``flash_bwd_dq_rect`` kernel for CUDA
+    tensors, the plain backward for CPU tensors."""
+    if not _on_cpu(q, k, v, do, lse, delta):
+        check_rect_inputs((q, do), (k, v), (lse, delta))
+    return _flash_bwd_dq_rect_op(q, k, v, do, lse, delta, float(scale))
+
+
+def flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv) of one causal band, ``[BH, tk, D]``: the
+    ``flash_bwd_dkv_rect`` kernel for CUDA tensors, the plain backward for
+    CPU tensors."""
+    if not _on_cpu(q, k, v, do, lse, delta):
+        check_rect_inputs((q, do), (k, v), (lse, delta))
+    return _flash_bwd_dkv_rect_op(q, k, v, do, lse, delta, float(scale))
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -319,6 +510,72 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+class FlashRectFn(torch.autograd.Function):
+    """``o = attention(q, k, v)`` of one causal band (q ``[BH, tq, D]``, k,
+    v ``[BH, tk, D]``) with the band kernels as forward and backward: the
+    counterpart of the ``_rect_core`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_fwd_rect(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = _delta(o, do)
+        do = do.to(q.dtype)
+        if not _band_ok(do):
+            do = do.contiguous()
+        dq = flash_bwd_dq_rect(q, k, v, do, lse, delta, ctx.scale)
+        dk, dv = flash_bwd_dkv_rect(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
+
+
+def _flash_causal_split(q, k, v, scale: float, n_split: int):
+    """Causal attention on ``[BH, T, D]`` as ``n_split`` row bands: band r
+    is query rows ``[r*s, (r+1)*s)`` against the key/value prefix of
+    length ``(r+1)*s`` (``s = T / n_split``), one :class:`FlashRectFn`
+    each, read in place. Autograd sums each band's dk/dv into the prefix,
+    as JAX autodiff of the slices does (``_flash_causal_split``)."""
+    s = q.shape[1] // n_split
+    outs = [FlashRectFn.apply(q[:, r * s:(r + 1) * s], k[:, :(r + 1) * s],
+                              v[:, :(r + 1) * s], scale)
+            for r in range(n_split)]
+    return torch.cat(outs, dim=1)
+
+
+def _pick_block(t: int, target: int = 1024) -> int:
+    """Largest divisor of t that is <= target and a multiple of 8 (0 if
+    none): the JAX package's block choice, which decides whether the
+    causal split may engage."""
+    best = 0
+    for b in range(8, min(t, target) + 1, 8):
+        if t % b == 0:
+            best = b
+    return best
+
+
+def _split_bands(t: int, causal: bool) -> int:
+    """The number of bands ``RAY_TPU_FLASH_SPLIT`` asks for, where the JAX
+    package engages its split at this ``t``; else 0."""
+    n = int(os.environ.get("RAY_TPU_FLASH_SPLIT", 0))
+    if (causal and n > 1 and _pick_block(t) == t and t % n == 0
+            and (t // n) % 128 == 0):
+        return n
+    return 0
+
+
+def resolved_flash_config(t: int, causal: bool = True) -> dict:
+    """``{"split": n}``: the number of causal-split bands
+    :func:`flash_attention` runs at seq len ``t`` under the current
+    ``RAY_TPU_FLASH_SPLIT``, 0 for the unsplit kernels. The JAX version
+    also reports its TPU block sizes, which the port does not have."""
+    return {"split": _split_bands(t, causal)}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: float | None = None) -> torch.Tensor:
@@ -326,7 +583,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     CUDA tensors run the kernels and raise ValueError for shapes or
     dtypes the kernels do not take (check ``flash_attention_shapes_ok``);
-    CPU tensors run the plain versions."""
+    CPU tensors run the plain versions. ``RAY_TPU_FLASH_SPLIT=n`` runs
+    causal attention as n row bands on the band kernels, under the JAX
+    package's condition (T at most 1024 and a multiple of 8, T / n a
+    multiple of 128; see :func:`resolved_flash_config`)."""
     b, t, h, d = q.shape
     if scale is None:
         scale = d ** -0.5
@@ -334,6 +594,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     def fold(x):
         return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
-    out = FlashAttentionFn.apply(fold(q), fold(k), fold(v), float(scale),
-                                 causal)
+    n_split = _split_bands(t, causal)
+    if n_split:
+        out = _flash_causal_split(fold(q), fold(k), fold(v), float(scale),
+                                  n_split)
+    else:
+        out = FlashAttentionFn.apply(fold(q), fold(k), fold(v), float(scale),
+                                     causal)
     return out.view(b, h, t, d).transpose(1, 2)

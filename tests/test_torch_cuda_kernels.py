@@ -9,6 +9,11 @@ an H100 with
 
 They skip, from inside the test, where no GPU is visible.
 
+The band kernels of the causal split (``flash_fwd_rect``,
+``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) are held the same way at
+ragged ``(tq, tk)``, read in place from bands of a longer tensor, and
+through the split and remat paths of a small GPT-2.
+
 Tolerances: ``flash_attention.agreement`` with the limits of
 ``AGREEMENT_TOL`` for the input type. Per element, |kernel - plain| is
 within two units in the last place of the element plus sixteen of the
@@ -95,7 +100,9 @@ def test_autograd_function_and_launch_counts(cuda):
     grads = torch.autograd.grad(out, qkv, g)
     torch.cuda.synchronize()
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
-                                  "flash_bwd_dkv": 1}
+                                  "flash_bwd_dkv": 1, "flash_fwd_rect": 0,
+                                  "flash_bwd_dq_rect": 0,
+                                  "flash_bwd_dkv_rect": 0}
 
     def fold(x):
         return x.detach().transpose(1, 2).reshape(b * h, t, d).contiguous()
@@ -156,7 +163,9 @@ def test_gpt2_train_step_on_card_matches_cpu(cuda):
                     {k: v.to(dev) for k, v in batch.items()})
         metrics[str(dev)] = {k: float(v) for k, v in m.items()}
         launched = fa.launch_counts()
-    assert launched == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+    assert launched == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                        "flash_fwd_rect": 0, "flash_bwd_dq_rect": 0,
+                        "flash_bwd_dkv_rect": 0}
     cpu, card = metrics["cpu"], metrics[str(cuda)]
     assert abs(card["loss"] - cpu["loss"]) < 1e-2 * cpu["loss"]
     assert abs(card["grad_norm"] - cpu["grad_norm"]) < 5e-2 * cpu["grad_norm"]
@@ -196,6 +205,182 @@ def test_gpt2_grads_through_kernels_match_plain_attention(cuda):
         launched = fa.launch_counts()
         assert launched["flash_bwd_dkv"] == (cfg.n_layer if name == "kernels"
                                              else 0)
+    for (pname, _), gk, gp in zip(model.named_parameters(), grads["kernels"],
+                                  grads["plain"]):
+        rel = float(torch.linalg.vector_norm(gk - gp)
+                    / torch.linalg.vector_norm(gp))
+        assert rel < 2e-2, (pname, rel)
+
+
+RECT_BANDS = [(1, 70), (37, 100), (64, 64), (100, 37 + 100), (130, 259),
+              (128, 512)]
+
+
+def _band_inputs(bh, tq, tk, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def make(t):
+        return torch.from_numpy(rng.standard_normal((bh, t, d), np.float32)
+                                ).to(device=device, dtype=dtype)
+
+    return make(tq), make(tk), make(tk), make(tq)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", RECT_BANDS)
+def test_rect_kernels_match_plain(cuda, tq, tk, d, dtype):
+    q, k, v, do = _band_inputs(3, tq, tk, d, dtype, cuda)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_rect(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_fwd_rect_reference(q, k, v, scale)
+    torch.cuda.synchronize()
+    _assert_agrees(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) < LSE_TOL
+
+    delta = (o_ref.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse_ref, delta, scale)
+    dq = fa.flash_bwd_dq_rect(*bwd)
+    dk, dv = fa.flash_bwd_dkv_rect(*bwd)
+    ref = fa.flash_bwd_rect_reference(q, k, v, o_ref, lse_ref, do, scale)
+    torch.cuda.synchronize()
+    assert dk.shape == (3, tk, d) and dv.shape == (3, tk, d)
+    for got, want in zip((dq, dk, dv), ref):
+        _assert_agrees(got, want)
+
+
+def test_bands_are_read_in_place(cuda):
+    """A band view of a longer tensor (head stride T * D) gives, bit for
+    bit, what the kernels give on a contiguous copy of it, and the forward
+    of a band whose diagonal sits on a tile boundary equals the square
+    kernel's rows bit for bit."""
+    bh, t, d = 6, 512, 64
+    q, k, v, do = _inputs(bh, t, d, torch.bfloat16, cuda, seed=3)
+    scale = d ** -0.5
+    o_sq, lse_sq = fa.flash_fwd(q, k, v, scale, True)
+    for off, s in ((256, 256), (128, 128), (384, 128)):
+        qb, kb, vb, dob = (q[:, off:off + s], k[:, :off + s],
+                           v[:, :off + s], do[:, off:off + s])
+        assert not qb.is_contiguous()
+        o, lse = fa.flash_fwd_rect(qb, kb, vb, scale)
+        o_c, lse_c = fa.flash_fwd_rect(*(x.contiguous()
+                                         for x in (qb, kb, vb)), scale)
+        assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+        assert torch.equal(o, o_sq[:, off:off + s])
+        assert torch.equal(lse, lse_sq[:, off:off + s])
+        delta = (o.float() * dob.float()).sum(-1)
+        got = (fa.flash_bwd_dq_rect(qb, kb, vb, dob, lse, delta, scale),
+               *fa.flash_bwd_dkv_rect(qb, kb, vb, dob, lse, delta, scale))
+        contiguous = [x.contiguous() for x in (qb, kb, vb, dob)]
+        want = (fa.flash_bwd_dq_rect(*contiguous, lse, delta, scale),
+                *fa.flash_bwd_dkv_rect(*contiguous, lse, delta, scale))
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_rect_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v, _ = _band_inputs(2, 64, 128, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="tk >= tq"):
+        fa.flash_fwd_rect(k, q, q, 0.125)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_fwd_rect(q.transpose(1, 2).contiguous().transpose(1, 2),
+                          k, v, 0.125)
+    flat = torch.zeros(2 * 64 * 64 + 4, device=cuda, dtype=torch.bfloat16)
+    misaligned = flat[4:].view(2, 64, 64)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_fwd_rect(misaligned, k, v, 0.125)
+    with pytest.raises(ValueError, match="CPU or all"):
+        fa.flash_fwd_rect(q, k.cpu(), v, 0.125)
+
+
+@pytest.mark.parametrize("n_split", [2, 4])
+def test_split_attention_on_card(cuda, n_split, monkeypatch):
+    """The split through autograd: o equal to the unsplit kernels' bit
+    for bit, gradients held against the plain whole backward, n launches
+    of each band kernel and none of the square ones."""
+    b, t, h, d = 2, 512, 3, 64
+    rng = np.random.default_rng(n_split)
+    qkv = [torch.from_numpy(rng.standard_normal((b, t, h, d), np.float32))
+           .to(cuda, torch.bfloat16).requires_grad_() for _ in range(3)]
+    g = torch.from_numpy(rng.standard_normal((b, t, h, d), np.float32)).to(
+        cuda, torch.bfloat16)
+    monkeypatch.delenv("RAY_TPU_FLASH_SPLIT", raising=False)
+    whole = fa.flash_attention(*qkv)
+    monkeypatch.setenv("RAY_TPU_FLASH_SPLIT", str(n_split))
+    fa.reset_launch_counts()
+    out = fa.flash_attention(*qkv)
+    grads = torch.autograd.grad(out, qkv, g)
+    torch.cuda.synchronize()
+    assert fa.launch_counts() == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_rect": n_split, "flash_bwd_dq_rect": n_split,
+        "flash_bwd_dkv_rect": n_split}
+    assert torch.equal(out, whole)
+
+    def fold(x):
+        return x.detach().transpose(1, 2).reshape(b * h, t, d).contiguous()
+
+    q, k, v, do = (fold(x) for x in (*qkv, g))
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, d ** -0.5, True)
+    ref = fa.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, d ** -0.5, True)
+    for got, want in zip(grads, ref):
+        _assert_agrees(fold(got), want)
+
+
+@pytest.mark.parametrize("route", ["split2", "nothing", "dots",
+                                   "dots_no_batch", "everything"])
+def test_gpt2_split_and_remat_grads_match_plain(cuda, route, monkeypatch):
+    """Every gradient of a small bf16 GPT-2 on the card through the
+    kernels under the causal split or a remat policy, against the same
+    model through the plain attention: relative norm error within 2e-2
+    (as the unsplit test above). Launches per layer: the split runs 2
+    bands of each band kernel; remat runs the forward twice, except under
+    "everything", and each backward kernel once."""
+    from ray_tpu_torch.models import GPT2, GPT2Config
+    from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+
+    split = route == "split2"
+    if split:
+        monkeypatch.setenv("RAY_TPU_FLASH_SPLIT", "2")
+    else:
+        monkeypatch.delenv("RAY_TPU_FLASH_SPLIT", raising=False)
+    cfg = GPT2Config.tiny(n_embd=256, n_head=4, seq_len=256,
+                          remat=not split,
+                          remat_policy="nothing" if split else route)
+    model = GPT2(cfg, device=cuda, seed=0)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 256))).to(cuda)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+
+    def plain(q, k, v):
+        b, t, h, d = q.shape
+
+        def fold(x):
+            return x.transpose(1, 2).reshape(b * h, t, d)
+
+        o, _ = fa.flash_fwd_reference(fold(q), fold(k), fold(v), d ** -0.5)
+        return o.view(b, h, t, d).transpose(1, 2)
+
+    params = list(model.parameters())
+    grads = {}
+    for name, attn in (("kernels", model.attn_fn), ("plain", plain)):
+        model.attn_fn = attn
+        fa.reset_launch_counts()
+        grads[name] = torch.autograd.grad(
+            gpt2_loss_fn(ce_chunk=256)(model, batch), params)
+        torch.cuda.synchronize()
+        if name == "kernels":
+            launched = fa.launch_counts()
+    n = cfg.n_layer
+    if split:
+        want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_fwd_rect": 2 * n, "flash_bwd_dq_rect": 2 * n,
+                "flash_bwd_dkv_rect": 2 * n}
+    else:
+        want = {"flash_fwd": n * (1 if route == "everything" else 2),
+                "flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_fwd_rect": 0,
+                "flash_bwd_dq_rect": 0, "flash_bwd_dkv_rect": 0}
+    assert launched == want
     for (pname, _), gk, gp in zip(model.named_parameters(), grads["kernels"],
                                   grads["plain"]):
         rel = float(torch.linalg.vector_norm(gk - gp)

@@ -153,7 +153,9 @@ def test_cpu_path_launches_no_kernel():
     out = causal_attention(q.requires_grad_(), k, v)
     out.sum().backward()
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                  "flash_bwd_dkv": 0}
+                                  "flash_bwd_dkv": 0, "flash_fwd_rect": 0,
+                                  "flash_bwd_dq_rect": 0,
+                                  "flash_bwd_dkv_rect": 0}
 
 
 def test_wrappers_refuse_other_devices():

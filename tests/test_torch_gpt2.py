@@ -14,6 +14,13 @@ gradient within 3e-2 in relative norm, a few units of bf16's 2^-8 last
 place, since the two frameworks round matmul outputs and elementwise
 ops at different points; the loss, a mean over rows in float32, within
 1e-4 relative.
+
+Remat (``GPT2Config.remat``/``remat_policy``): with each of the four
+policies the loss and every gradient equal those without remat exactly
+(``torch.equal``, float32 on the CPU: the recomputed forward repeats the
+same arithmetic), and match the JAX package's remat gradients at the
+float32 tolerances above. A counter on the plain attention forward shows
+which policies run it again in the backward.
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ from ray_tpu_torch.models.gpt2 import (  # noqa: E402
     chunked_cross_entropy,
     gpt2_loss_fn,
 )
+from ray_tpu_torch.ops.cuda import flash_attention as fa  # noqa: E402
+
+REMAT_POLICIES = ["nothing", "dots", "dots_no_batch", "everything"]
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -193,3 +203,63 @@ def test_dropout_and_bad_params_raise():
     bad["wte"]["embedding"] = bad["wte"]["embedding"][:10]
     with pytest.raises(ValueError, match="does not fit"):
         model.load_jax_params(bad)
+
+
+def _loss_and_grads(model: GPT2, batch):
+    loss = gpt2_loss_fn(ce_chunk=48)(model, _torch_batch(batch))
+    loss.backward()
+    return loss.detach(), [p.grad for p in model.parameters()]
+
+
+@pytest.mark.parametrize("policy", REMAT_POLICIES)
+def test_remat_gives_the_no_remat_loss_and_gradients(policy):
+    jmodel, jparams, model = _pair("f32")
+    batch = _batch(seed=4)
+    loss0, grads0 = _loss_and_grads(model, batch)
+    remat = GPT2(GPT2Config.tiny(dtype=torch.float32, remat=True,
+                                 remat_policy=policy), device="cpu")
+    remat.load_state_dict(model.state_dict())
+    loss, grads = _loss_and_grads(remat, batch)
+    assert torch.equal(loss, loss0)
+    for g, g0 in zip(grads, grads0):
+        assert torch.equal(g, g0)
+
+    jremat = JaxGPT2(JaxGPT2Config.tiny(dtype=jnp.float32, remat=True,
+                                        remat_policy=policy))
+    loss_ref, grads_ref = jax.value_and_grad(jax_gpt2_loss_fn(
+        jremat, ce_chunk=48))(jparams, batch)
+    np.testing.assert_allclose(loss.item(), float(loss_ref), rtol=1e-6)
+    _compare_grads(remat, grads_ref, tol=1e-5, norm=False)
+
+
+@pytest.mark.parametrize("policy,forwards", [
+    (None, 1), ("nothing", 2), ("dots", 2), ("dots_no_batch", 2),
+    ("everything", 1)])
+def test_remat_policy_decides_whether_attention_runs_again(
+        policy, forwards, monkeypatch):
+    """Attention forwards per layer in one forward + backward: the flash
+    op is not a matrix product, so only "everything" keeps its output;
+    its backward runs once per layer under every policy."""
+    calls = {"fwd": 0, "bwd": 0}
+    plain_fwd, plain_dq = fa.flash_fwd_reference, fa.flash_bwd_dq_reference
+
+    def fwd(*args):
+        calls["fwd"] += 1
+        return plain_fwd(*args)
+
+    def dq(*args):
+        calls["bwd"] += 1
+        return plain_dq(*args)
+
+    monkeypatch.setattr(fa, "flash_fwd_reference", fwd)
+    monkeypatch.setattr(fa, "flash_bwd_dq_reference", dq)
+    cfg = GPT2Config.tiny(dtype=torch.float32, remat=policy is not None,
+                          remat_policy=policy or "nothing")
+    _loss_and_grads(GPT2(cfg, device="cpu"), _batch(seed=5))
+    assert calls == {"fwd": forwards * cfg.n_layer, "bwd": cfg.n_layer}
+
+
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="dots_no_batch"):
+        GPT2(GPT2Config.tiny(remat=True, remat_policy="dots_only"),
+             device="cpu")
