@@ -10,7 +10,7 @@ exits non-zero without its result line:
 1. Card: name and power limit from nvidia-smi.
 2. Build: every CUDA kernel of ``ray_tpu_torch/ops/cuda/csrc`` with
    nvcc (one process per source, in parallel), with ptxas' register and
-   spill counts.
+   spill counts and its notes (wgmma serialization).
 3. Kernels: each square flash-attention kernel at GPT-2 small widths
    (H=12, D=64, bf16, causal), at T=1024 (the training shape, batch 32)
    and at T=2048 (batch 8), held against its plain PyTorch version on
@@ -69,14 +69,19 @@ GPU is visible, and when the package is not beside it.
 builds a copy of kernel NAME's source (under the gitignored build
 directory, never in the source tree) carrying the fault of FAULTS, binds
 the wrapper to it, and prints what each check reads. Square kernels:
-one 64-row tile is skipped for the last query tile (``flash_fwd``,
-``flash_bwd_dq``) or the last query tile is skipped for every key tile
-but the diagonal ones (``flash_bwd_dkv``); the run exits 0 only if the
-kernel check fails it at both shapes and the per-layer check on some
-layer. Band kernels: the diagonal is misaligned (row0 forced to 0, top
-left instead of bottom right); the run exits 0 only if the band check
-fails it on every band with tq < tk and the split phase's per-layer
-check on some layer at both splits.
+``flash_fwd`` masks every score of key tile 3 for the last query tile
+(a dropped late key tile), ``flash_bwd_dq`` skips one 64-row key tile
+for the last query tile, ``flash_bwd_dkv`` masks the last query tile for
+every key block but the diagonal one; the run exits 0 only if the kernel
+check fails it at both shapes and the per-layer check on some layer.
+Band kernels: the diagonal is misaligned (row0 forced to 0, top left
+instead of bottom right); the run exits 0 only if the band check fails
+it on every band with tq < tk and the split phase's per-layer check on
+some layer at both splits.
+
+Each kernel line prints the kernel's time over SDPA's from the same run
+(``kernel / library``), and each shape the host time of one wrapper
+call (checks, tensor-map geometry and encoding, allocation, launch).
 """
 
 from __future__ import annotations
@@ -146,6 +151,10 @@ STEP0_LOSS_TOL = 1e-3
 REMAT_LOSS_TOL = 1e-5
 REMAT_GRAD_TOL = 1e-3
 
+# A spin of the card (~50 ms at the H100's clock) queued ahead of each
+# timed run, long enough for the host to queue every call of the run.
+HOLD_CYCLES = 100_000_000
+
 H, D = 12, 64
 SHAPES = ((32, 1024), (8, 2048))   # (batch, seq)
 TRAIN_BATCH, TRAIN_SEQ = 32, 1024
@@ -180,20 +189,29 @@ REPLACES = {
     "flash_bwd_dq_rect": f"{_PALLAS}:436",
     "flash_bwd_dkv_rect": f"{_PALLAS}:436",
 }
-# --plant-fault: (text of the source, the same text with the fault).
+# --plant-fault: (text of the source, the same text with the fault). The
+# forward drops key tile 3 of the last query tile (every score masked);
+# dk/dv drops the last query tile for every key block but the diagonal
+# one (every p masked); the dq kernel skips one 64-row key tile; the band
+# faults misalign the diagonal (row0 = 0, top left instead of bottom
+# right). Each keeps the kernel's barrier protocol intact, so a fault
+# changes values and never hangs the card.
+_FWD_MASK = ("    bool masked = min(a.tk, a.causal ? a.row0 + wrow0 + 1 : a.tk) - k0"
+             " < kFwdBK;\n")
+_DKV_QEND = "    int q_end = a.tq;\n"
 _KT_LOOP = "for (int j = 0; j < n_kt; ++j) {\n"
-_QT_LOOP = "for (int iq = first; iq < n_qt; ++iq) {\n"
+_ARGS_ROW0 = "  args.row0 = row0;"
 _ROW0 = "const int row0 = tk - tq;"
 FAULTS = {
-    "flash_fwd": (_KT_LOOP, _KT_LOOP
-                  + "    if (j == 3 && q0 + kTile >= sh.tq) continue;\n"),
+    "flash_fwd": (_FWD_MASK, _FWD_MASK + "    if (j == 3 && q0 + kFwdBQ >= a.tq)"
+                  " masked = true, lim[0] = lim[1] = 0;\n"),
     "flash_bwd_dq": (_KT_LOOP, _KT_LOOP
                      + "    if (j == 3 && q0 + kTile >= sh.tq) continue;\n"),
-    "flash_bwd_dkv": (_QT_LOOP, _QT_LOOP
-                      + "    if (iq == n_qt - 1 && iq != first) continue;\n"),
-    "flash_fwd_rect": (_ROW0, "const int row0 = 0;"),
+    "flash_bwd_dkv": (_DKV_QEND, _DKV_QEND
+                      + "    if (iq == n_qt - 1 && iq != first) q_end = 0;\n"),
+    "flash_fwd_rect": (_ARGS_ROW0, "  args.row0 = 0;"),
     "flash_bwd_dq_rect": (_ROW0, "const int row0 = 0;"),
-    "flash_bwd_dkv_rect": (_ROW0, "const int row0 = 0;"),
+    "flash_bwd_dkv_rect": (_ARGS_ROW0, "  args.row0 = 0;"),
 }
 
 
@@ -206,7 +224,8 @@ def card_line() -> str:
 
 
 def ptxas_usage(log: str) -> str:
-    """'bf16 D=64: 96 registers, 0 B spilled; ...' from ptxas -v output."""
+    """'bf16 D=64: 96 registers, 0 B spilled; ...' from ptxas -v output,
+    with ptxas' numbered notes after it (wgmma serialization, setmaxnreg)."""
     out = []
     for fn, body in re.findall(r"Compiling entry function '(\S+)'(.*?)"
                                r"(?=Compiling entry function|\Z)", log, re.S):
@@ -215,7 +234,10 @@ def ptxas_usage(log: str) -> str:
         regs = re.search(r"Used (\d+) registers", body).group(1)
         spill = re.search(r"(\d+) bytes spill stores", body).group(1)
         out.append(f"{dtype} D={d}: {regs} registers, {spill} B spilled")
-    return "; ".join(sorted(out))
+    notes = sorted({re.sub(r"(around line \d+ )|( in the function)?( in "
+                             r"function)? '\S+'", "", w).strip()
+                    for w in re.findall(r"ptxas \w+\s*: (\(C\d+\) .*)", log)})
+    return "; ".join(sorted(out)) + "".join(f"; ptxas {w}" for w in notes)
 
 
 def check(cond: bool, what: str) -> None:
@@ -224,18 +246,36 @@ def check(cond: bool, what: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls. The
+    calls queue behind a hold of HOLD_CYCLES, so the card runs them back
+    to back and the events read device time, not the rate at which the
+    host issues calls (which bounds the small bands)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Mean host time (us) of issuing ``fn`` ``iters`` times back to back:
+    the wrapper's checks, tensor-map geometry and encoding, allocation and
+    launch. The device runs behind and is waited for after the clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 @contextlib.contextmanager
@@ -414,7 +454,30 @@ def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
         print(f"kernel {name} {what} D={D} bf16 causal: "
               f"max abs err {err:.3g}, {ms:.4f} ms, "
               f"bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), "
-              f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms", flush=True)
+              f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, kernel / "
+              f"library {ms / l_ms:.3f}x", flush=True)
+    hosts = {name: host_us(fn) for name, fn in (
+        ("flash_fwd", lambda: fa.flash_fwd(q, k, v, scale, True)),
+        ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*bwd)),
+        ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*bwd)))}
+    # The forward's parts: its tensor-map geometry in Python, and the C
+    # entry point alone (three encodes and the launch).
+    maps = fa._tensor_maps((q, fa._FWD_BOX_ROWS[0]), (k, fa._FWD_BOX_ROWS[1]),
+                           (v, fa._FWD_BOX_ROWS[1]))
+    c_fn = fa._KERNELS["flash_fwd"]._fn
+    c_args = (maps, ctypes.c_void_p(o.data_ptr()),
+              ctypes.c_void_p(lse.data_ptr()), bh, t, t, 0, D, scale, 1, 0,
+              ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    geo_us = host_us(lambda: fa._tensor_maps(
+        (q, fa._FWD_BOX_ROWS[0]), (k, fa._FWD_BOX_ROWS[1]),
+        (v, fa._FWD_BOX_ROWS[1])))
+    c_us = host_us(lambda: c_fn(*c_args))
+    print(f"host per call {what}: " + ", ".join(
+        f"{name} {us:.1f} us" for name, us in hosts.items())
+        + f" (flash_fwd and flash_bwd_dkv encode 3 and 4 tensor maps, "
+        f"flash_bwd_dq none; of flash_fwd's, the geometry {geo_us:.1f} us "
+        f"and the C entry point, 3 encodes and the launch, {c_us:.1f} us)",
+        flush=True)
     pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
     pair_plain = cuda_ms(lambda: fa.flash_bwd_reference(
         q, k, v, o, lse, do, scale, True), 3, 1)
@@ -476,8 +539,8 @@ def band_times(b: int, tq: int, tk: int, q, k, v, do, readings) -> dict:
                       "bound_ms": bnd_ms, "bound_by": bnd_by}
         print(f"kernel {name} B={b} tq={tq} tk={tk} H={H} D={D} bf16: max "
               f"abs err {err:.3g}, {ms:.4f} ms, bound {bnd_ms:.4f} ms "
-              f"({bnd_by}), plain {p_ms:.4f} ms, library {l_ms:.4f} ms",
-              flush=True)
+              f"({bnd_by}), plain {p_ms:.4f} ms, library {l_ms:.4f} ms, "
+              f"kernel / library {ms / l_ms:.3f}x", flush=True)
     return rows
 
 
@@ -559,7 +622,9 @@ def band_phase(b: int, t: int, dev) -> dict[int, dict[str, dict]]:
             print(f"kernel {name} split {n} B={b} T={t}, all {n} bands: "
                   f"{total[name]['ms']:.4f} ms, bound {bnd_ms:.4f} ms "
                   f"({bnd_by}), plain {total[name]['plain_ms']:.4f} ms, "
-                  f"library {total[name]['library_ms']:.4f} ms", flush=True)
+                  f"library {total[name]['library_ms']:.4f} ms, kernel / "
+                  f"library {total[name]['ms'] / total[name]['library_ms']:.3f}"
+                  "x", flush=True)
         dq, dkv = total["flash_bwd_dq_rect"], total["flash_bwd_dkv_rect"]
         pair_ms = dq["ms"] + dkv["ms"]
         bwd_ms, bwd_by = bound(*whole_bwd)

@@ -3,227 +3,319 @@
 //   dv   = p^T do                            (p rounded to the input type)
 //   ds^T = p^T * (v do^T - delta) * scale    (rounded to the input type)
 //   dk   = ds^T q
-// on [BH, T, D] with D in {64, 128}, or on one band of the causal split
-// (q, do [BH, tq, D], k, v, dk, dv [BH, tk, D], diagonal at row0 = tk -
-// tq; see Shape); lse and delta are [BH, tq] f32.
+// on q, do [BH, tq, D] against k, v [BH, tk, D], D in {64, 128}: the
+// square attention (tq = tk, row0 = 0) or one band of the causal split
+// (query row i at absolute row row0 + i, row0 = tk - tq); lse and delta
+// are [BH, tq] f32, dk and dv [BH, tk, D].
 //
 // Replaces, of ray_tpu/ops/pallas/flash_attention.py, the dk and dv
 // products of the single-block _bwd_fused_kernel (:296, launched by
 // _flash_bwd_fused :332), the streaming _bwd_dkv_kernel (:255, launched
 // by _flash_bwd :374) and the band kernel _bwd_rect_kernel (:436,
-// launched by _rect_core_bwd :504). Each block owns 64 key rows and
-// walks the query tiles from the diagonal down, so dk and dv are summed
-// in registers with no atomics (see flash_bwd_dq.cu for the split). A
-// band's key tile that no query row reaches writes zeros.
+// launched by _rect_core_bwd :504). Blocks on the H100 run in parallel
+// with no order, so the backward is split by output (flash_bwd_dq.cu
+// holds the dq half): each work item is 64 key rows of one head, whose dk
+// and dv are summed over the query tiles in registers. No atomics: the
+// result is deterministic.
 //
 // What bounds it on the H100: four products of 2 * BH * T^2 * D / 2 FLOP
 // each (s, dp, dv, dk) against reads of q, k, v, do and writes of dk, dv:
 // about 340 FLOP per byte at T = 1024, D = 64, so the tensor cores bound
-// it. The design works on the transposed scores (keys as rows), which
-// makes p^T and ds^T the A operands of the dv and dk products straight
-// from their accumulator registers. For D = 128 the query tile is 32
-// rows so that the two f32 accumulators of 16 x 128 per warp and the
-// score tiles stay within the register file.
-#include "flash_common.cuh"
+// it. The design:
+//   - A block is one consumer warpgroup and one producer warp, and two
+//     blocks share an SM, so that one's elementwise work (exp, ds) runs
+//     beside the other's products. (Two consumer warpgroups a block with
+//     setmaxnreg measure the same at D = 64, scripts/flash_variants.py.
+//     Issuing tile i's s, dp products beside tile i - 1's dv, dk products
+//     measured slower: the live accumulators of both products outgrow the
+//     registers and ptxas serializes the wgmmas.)
+//   - The kernel is persistent: each block walks over (head, key block)
+//     items, low key blocks (the most queries) first. k and v are loaded
+//     once per item by TMA into one of two buffers; q, do tiles of kBQ
+//     rows stream through a ring of kStages stages that runs on across
+//     items, with their lse and delta rows (read by the producer warp, lse
+//     already in base-2 units), from the item's first causal query tile
+//     (max(0, (k0 - row0) / kBQ)) down.
+//   - All four products are wgmma with no transposed copy: s^T = k q^T and
+//     dp^T = v do^T with both operands in shared memory, K-major; p^T and
+//     ds^T, rounded in registers, are the register A operands of dv +=
+//     p^T do and dk += ds^T q, with do and q read MN-major through the
+//     transpose bit.
+//   - The dk and dv accumulators are two 64 x D f32 tiles (64 registers a
+//     thread at D = 64, 128 at D = 128); kBQ is 64 at D = 64 and 32 at
+//     D = 128, so that the score and dp tiles fit beside them (ptxas'
+//     counts: chip_smoke's build lines).
+//   - The mask runs only on query tiles that cross the diagonal or the
+//     ragged end. Rows past tq and keys past tk are zero-filled by the
+//     TMA; a key row that no query reaches gets zeros.
+#include "hopper_common.cuh"
 
 namespace rtt {
 
-template <typename T, int D, int BQ>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                     const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, Shape sh,
-                     float scale, int causal) {
-  constexpr int LD = D + 8;
-  constexpr int NT = BQ / 8;  // 8-wide query tiles of one product
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ks = smem;
-  uint16_t* vs = ks + kTile * LD;
-  uint16_t* qs = vs + kTile * LD;
-  uint16_t* dos = qs + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * LD);
-  float* delta_s = lse_s + BQ;
+constexpr int kDkvWGs = 1;            // consumer warpgroups of a block
+constexpr int kDkvBK = 64 * kDkvWGs;  // key rows of a block: 64 per consumer warpgroup
+using DkvBlock = BlockShape<kDkvWGs>;
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;  // low key tiles see the most queries: first
-  const uint16_t* qh = q + static_cast<size_t>(bh) * sh.q_hs;
-  const uint16_t* doh = dout + static_cast<size_t>(bh) * sh.do_hs;
-  const size_t row_base = static_cast<size_t>(bh) * sh.tq;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;
-  const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
+template <int D>
+struct DkvSmem {
+  static constexpr int kBQ = D == 64 ? 64 : 32;  // query rows of one streamed tile
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kKBytes = kDkvBK * D * 2;  // the k (or v) rows of an item
+  static constexpr int kQBytes = kBQ * D * 2;     // one q (or do) tile
+  static constexpr int kBytes = 2 * 2 * kKBytes + 2 * kStages * kQBytes +
+                                2 * kStages * kBQ * 4 + 1024;  // + alignment
+};
 
-  load_tile<D, kTile>(ks, k + static_cast<size_t>(bh) * sh.k_hs, k0, sh.tk);
-  load_tile<D, kTile>(vs, v + static_cast<size_t>(bh) * sh.v_hs, k0, sh.tk);
+struct DkvArgs {
+  int bh, n_kb, tq, tk, row0, causal;
+  float scale, scale_log2;
+};
 
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk_acc[i][0] = dk_acc[i][1] = dk_acc[i][2] = dk_acc[i][3] = 0.f;
-    dv_acc[i][0] = dv_acc[i][1] = dv_acc[i][2] = dv_acc[i][3] = 0.f;
-  }
-
-  const int n_qt = (sh.tq + BQ - 1) / BQ;
+// Work item w of a launch: key block kb of head bh, the low key blocks
+// (which see the most queries under the causal mask) first. Sets the
+// item's first key row and first query tile; returns its query tiles.
+template <int BQ>
+__device__ __forceinline__ int dkv_item(const DkvArgs& a, int w, int& bh, int& k0,
+                                        int& first) {
+  bh = w % a.bh;
+  k0 = (w / a.bh) * kDkvBK;
   // Causal: query rows above absolute row k0 (local row k0 - row0) see no
-  // key of this tile, so tiles wholly above it are skipped.
-  const int first = causal ? max(0, (k0 - sh.row0) / BQ) : 0;
+  // key of the block, so tiles wholly above it are skipped.
+  first = a.causal ? max(0, (k0 - a.row0) / BQ) : 0;
+  return (a.tq + BQ - 1) / BQ;
+}
 
-  for (int iq = first; iq < n_qt; ++iq) {
-    const int q0 = iq * BQ;
-    __syncthreads();
-    load_tile<D, BQ>(qs, qh, q0, sh.tq);
-    load_tile<D, BQ>(dos, doh, q0, sh.tq);
-    for (int i = threadIdx.x; i < BQ; i += kThreads) {
-      const bool ok = q0 + i < sh.tq;
-      lse_s[i] = ok ? lse[row_base + q0 + i] : 0.f;
-      delta_s[i] = ok ? delta[row_base + q0 + i] : 0.f;
-    }
-    __syncthreads();
+// A persistent kernel: each block takes work items w = blockIdx.x,
+// blockIdx.x + gridDim.x, ... (dkv_item). k and v alternate between two
+// buffers and the q/do tiles of consecutive items share one ring (a
+// running tile count gives each its stage and phase), so that the
+// producer loads the next item while the consumers finish this one.
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvBlock::kThreads, DkvBlock::kMinBlocks)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, DkvArgs a) {
+  using S = DkvSmem<D>;
+  constexpr int kBQ = S::kBQ;
+  constexpr int kStages = S::kStages;
+  __shared__ __align__(8) uint64_t kv_full[2], kv_empty[2], q_full[kStages],
+      q_empty[kStages];
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = align1024(smem_raw);               // buffer b at ks + 2 b kKBytes, v after k
+  uint8_t* qs = ks + 4 * S::kKBytes;               // stage s at qs + s * kQBytes
+  uint8_t* dos = qs + kStages * S::kQBytes;
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * S::kQBytes);  // [kStages][kBQ]
+  float* delta_s = lse_s + kStages * kBQ;
+  const int n_items = a.bh * a.n_kb;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-    // p^T = exp(k q^T * scale - lse): 16 keys x BQ queries per warp.
-    float p[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) p[n][0] = p[n][1] = p[n][2] = p[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      frag_a<LD>(a, ks, wr, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        frag_b_trans<LD>(b0, b1, qs, n * 8, kk, g, t);
-        Elem<T>::mma(p[n], a, b0, b1);
-      }
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kv_full[b], 1);
+      mbar_init(&kv_empty[b], DkvBlock::kConsumerThreads);
     }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + 2 * t + (e & 1);  // query within the tile
-        const int qrow = q0 + qi;
-        const int kr = key[e >> 1];
-        const bool masked =
-            qrow >= sh.tq || kr >= sh.tk || (causal && kr > sh.row0 + qrow);
-        p[n][e] = masked ? 0.f : __expf(p[n][e] * scale - lse_s[qi]);
-      }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&q_full[s], 32);  // the producer warp's lanes (lse, delta rows)
+      mbar_init(&q_empty[s], DkvBlock::kConsumerThreads);
     }
-
-    // dv += p^T do, p rounded to the input type.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t a[4] = {
-          Elem<T>::pack(p[2 * kk][0], p[2 * kk][1]),
-          Elem<T>::pack(p[2 * kk][2], p[2 * kk][3]),
-          Elem<T>::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-          Elem<T>::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        uint32_t b0, b1;
-        frag_b<LD>(b0, b1, dos, kk * 16, i * 8, g, t);
-        Elem<T>::mma(dv_acc[i], a, b0, b1);
-      }
-    }
-
-    // dp^T = v do^T, then ds^T = p^T * (dp^T - delta) * scale in p.
-    float dp[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n) dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      uint32_t a[4];
-      frag_a<LD>(a, vs, wr, kk, g, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b0, b1;
-        frag_b_trans<LD>(b0, b1, dos, n * 8, kk, g, t);
-        Elem<T>::mma(dp[n], a, b0, b1);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = n * 8 + 2 * t + (e & 1);
-        p[n][e] = p[n][e] * (dp[n][e] - delta_s[qi]) * scale;
-      }
-    }
-
-    // dk += ds^T q.
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t a[4] = {
-          Elem<T>::pack(p[2 * kk][0], p[2 * kk][1]),
-          Elem<T>::pack(p[2 * kk][2], p[2 * kk][3]),
-          Elem<T>::pack(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-          Elem<T>::pack(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        uint32_t b0, b1;
-        frag_b<LD>(b0, b1, qs, kk * 16, i * 8, g, t);
-        Elem<T>::mma(dk_acc[i], a, b0, b1);
-      }
-    }
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  if (warp >= DkvBlock::kProducerWarp) {
+    if constexpr (DkvBlock::kMoveRegs) setmaxnreg_dec<kProducerRegs>();
+    if (warp > DkvBlock::kProducerWarp) return;
+    int tile = 0;  // q/do tiles this block has loaded
+    for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+      int bh, k0, first;
+      const int n_qt = dkv_item<kBQ>(a, w, bh, k0, first);
+      const int b = n & 1;
+      mbar_wait(&kv_empty[b], ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        uint8_t* kb = ks + 2 * b * S::kKBytes;
+        mbar_arrive_expect_tx(&kv_full[b], 2 * S::kKBytes);
+        tma_load_tile<D>(kb, kDkvBK, &k_map, &kv_full[b], k0, bh);
+        tma_load_tile<D>(kb + S::kKBytes, kDkvBK, &v_map, &kv_full[b], k0, bh);
+      }
+      const size_t row_base = static_cast<size_t>(bh) * a.tq;
+      for (int iq = first; iq < n_qt; ++iq, ++tile) {
+        const int s = tile % kStages;
+        mbar_wait(&q_empty[s], ((tile / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&q_full[s], 2 * S::kQBytes);
+          tma_load_tile<D>(qs + s * S::kQBytes, kBQ, &q_map, &q_full[s], iq * kBQ, bh);
+          tma_load_tile<D>(dos + s * S::kQBytes, kBQ, &do_map, &q_full[s], iq * kBQ, bh);
+        }
+        for (int i = lane; i < kBQ; i += 32) {
+          const int qrow = iq * kBQ + i;
+          const bool ok = qrow < a.tq;
+          lse_s[s * kBQ + i] = ok ? lse[row_base + qrow] * kLog2e : 0.f;
+          delta_s[s * kBQ + i] = ok ? delta[row_base + qrow] : 0.f;
+        }
+        mbar_arrive(&q_full[s]);
+      }
+    }
+    return;
+  }
+  if constexpr (DkvBlock::kMoveRegs) setmaxnreg_inc<kConsumerRegs>();
+
+  // Consumers: warpgroup wg owns key rows [k0 + 64 wg, k0 + 64 wg + 64) of
+  // each item.
+  const int wg = warp / 4;
+  const int g = lane / 4, t = lane % 4;
+  float dk_acc[D / 2], dv_acc[D / 2], sc[kBQ / 2], dp[kBQ / 2];
+#pragma unroll
+  for (int i = 0; i < kBQ / 2; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t pa[kBQ / 16][4], dsa[kBQ / 16][4];  // p^T, ds^T: A operands of dv, dk
+  int tile = 0;                                // q/do tiles this block has consumed
+
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    int bh, k0, first;
+    const int n_qt = dkv_item<kBQ>(a, w, bh, k0, first);
+    const int b = n & 1;
+    const int kw = k0 + 64 * wg + 16 * (warp % 4);  // the warp's first key
+    const int key[2] = {kw + g, kw + g + 8};
+    const uint8_t* k_wg = ks + 2 * b * S::kKBytes + 64 * wg * kRowBytes;
+    const uint8_t* v_wg = k_wg + S::kKBytes;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(&kv_full[b], (n >> 1) & 1);
+
+    for (int iq = first; iq < n_qt; ++iq, ++tile) {
+      const int s = tile % kStages;
+      const uint8_t* qt = qs + s * S::kQBytes;
+      const uint8_t* dot = dos + s * S::kQBytes;
+      const float* lse2 = lse_s + s * kBQ;
+      const float* dlt = delta_s + s * kBQ;
+      mbar_wait(&q_full[s], (tile / kStages) & 1);
+
+      // s^T = k q^T and dp^T = v do^T: the warpgroup's 64 keys x kBQ
+      // queries, both operands K-major.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int pn = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<T, kBQ>(sc, sw128_desc(k_wg + pn * kDkvBK * kRowBytes + off),
+                         sw128_desc(qt + pn * kBQ * kRowBytes + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int pn = kk / 4, off = (kk % 4) * 32;
+        wgmma_ss<T, kBQ>(dp, sw128_desc(v_wg + pn * kDkvBK * kRowBytes + off),
+                         sw128_desc(dot + pn * kBQ * kRowBytes + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // p^T = exp(s^T * scale - lse) (0 where masked), then ds^T = p^T *
+      // (dp^T - delta) * scale. Queries at or past q_end are masked, and,
+      // causal, keys past a query's diagonal.
+      const int q0 = iq * kBQ;
+      int q_end = a.tq;
+      const bool masked = q0 + kBQ > q_end || (a.causal && kw + 15 > a.row0 + q0);
+#pragma unroll
+      for (int c = 0; c < kBQ / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * c + 2 * t + (e & 1);  // query within the tile
+          float p = fast_exp2(fmaf(sc[4 * c + e], a.scale_log2, -lse2[qi]));
+          if (masked && (q0 + qi >= q_end || (a.causal && key[e >> 1] > a.row0 + q0 + qi)))
+            p = 0.f;
+          sc[4 * c + e] = p;
+          dp[4 * c + e] = p * (dp[4 * c + e] - dlt[qi]) * a.scale;
+        }
+      }
+      pack_a<T>(pa, sc);
+      pack_a<T>(dsa, dp);
+
+      // dv += p^T do, dk += ds^T q (do and q MN-major).
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+        for (int pn = 0; pn < D / kPanelCols; ++pn)
+          wgmma_rs_mn<T>(dv_acc + 32 * pn, pa[kk],
+                         sw128_desc(dot + pn * kBQ * kRowBytes + kk * 16 * kRowBytes), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBQ / 16; ++kk) {
+#pragma unroll
+        for (int pn = 0; pn < D / kPanelCols; ++pn)
+          wgmma_rs_mn<T>(dk_acc + 32 * pn, dsa[kk],
+                         sw128_desc(qt + pn * kBQ * kRowBytes + kk * 16 * kRowBytes), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&q_empty[s]);
+    }
+    mbar_arrive(&kv_empty[b]);
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (key[r] >= sh.tk) continue;
-    const size_t off = (static_cast<size_t>(bh) * sh.tk + key[r]) * D;
+    for (int r = 0; r < 2; ++r) {
+      if (key[r] >= a.tk) continue;
+      const size_t off = (static_cast<size_t>(bh) * a.tk + key[r]) * D;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      *reinterpret_cast<uint32_t*>(dk + off + i * 8 + 2 * t) =
-          Elem<T>::pack(dk_acc[i][2 * r], dk_acc[i][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + i * 8 + 2 * t) =
-          Elem<T>::pack(dv_acc[i][2 * r], dv_acc[i][2 * r + 1]);
+      for (int i = 0; i < D / 8; ++i) {
+        *reinterpret_cast<uint32_t*>(dk + off + 8 * i + 2 * t) =
+            Elem<T>::pack(dk_acc[4 * i + 2 * r], dk_acc[4 * i + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off + 8 * i + 2 * t) =
+            Elem<T>::pack(dv_acc[4 * i + 2 * r], dv_acc[4 * i + 2 * r + 1]);
+      }
     }
   }
 }
 
 template <typename T, int D>
-int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dk, void* dv, int bh,
-                   Shape sh, float scale, int causal, cudaStream_t stream) {
-  constexpr int BQ = D == 64 ? 64 : 32;
-  const int smem = (2 * kTile + 2 * BQ) * (D + 8) * static_cast<int>(sizeof(uint16_t)) +
-                   2 * BQ * static_cast<int>(sizeof(float));
-  auto kernel = flash_bwd_dkv_kernel<T, D, BQ>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sh.tk + kTile - 1) / kTile);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), sh, scale, causal);
+int launch_bwd_dkv(const uint64_t* maps, const void* lse, const void* delta, void* dk,
+                   void* dv, DkvArgs args, cudaStream_t stream) {
+  using S = DkvSmem<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  int err = make_tensor_map<T>(&q_map, maps, D, S::kBQ);
+  if (err == 0) err = make_tensor_map<T>(&k_map, maps + kGeoWords, D, kDkvBK);
+  if (err == 0) err = make_tensor_map<T>(&v_map, maps + 2 * kGeoWords, D, kDkvBK);
+  if (err == 0) err = make_tensor_map<T>(&do_map, maps + 3 * kGeoWords, D, S::kBQ);
+  if (err != 0) return err;
+  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int grid = min(args.bh * args.n_kb, sm_count() * DkvBlock::kMinBlocks);
+  kernel<<<grid, DkvBlock::kThreads, S::kBytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), args);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace rtt
 
-// Returns a cudaError_t; 0 means the launch was accepted.
-extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse, const void* delta,
-                                 void* dk, void* dv, int bh, int seq, int d,
+// dk, dv [BH, tk, D] (contiguous) from q, do [BH, tq, D], k, v [BH, tk,
+// D] read through the tensor maps of `maps` (q, k, v, do; see
+// make_tensor_map) and lse, delta [BH, tq] (contiguous): the square
+// attention with tq = tk, row0 = 0, or one causal band with row0 = tk -
+// tq. Returns 0 when the launch was accepted, a cudaError_t, or minus the
+// CUresult of a failed tensor-map encode.
+extern "C" int rtt_flash_bwd_dkv(const uint64_t* maps, const void* lse, const void* delta,
+                                 void* dk, void* dv, int bh, int tq, int tk, int row0, int d,
                                  float scale, int causal, int fp16, void* stream) {
-  const rtt::Shape sh = rtt::square_shape(seq, d);
-  RTT_DISPATCH(fp16, d, rtt::launch_bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh,
-               sh, scale, causal, static_cast<cudaStream_t>(stream));
-}
-
-// One causal band: q, do [BH, tq, D] and k, v [BH, tk, D] (tk >= tq) with
-// the given head strides; lse, delta [BH, tq] and dk, dv [BH, tk, D]
-// contiguous.
-extern "C" int rtt_flash_bwd_dkv_rect(const void* q, const void* k, const void* v,
-                                      const void* dout, const void* lse,
-                                      const void* delta, void* dk, void* dv, int bh,
-                                      int tq, int tk, int q_hs, int k_hs, int v_hs,
-                                      int do_hs, int d, float scale, int fp16,
-                                      void* stream) {
-  const int row0 = tk - tq;
-  const rtt::Shape sh = {tq, tk, row0, q_hs, k_hs, v_hs, do_hs};
-  RTT_DISPATCH(fp16, d, rtt::launch_bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh,
-               sh, scale, 1, static_cast<cudaStream_t>(stream));
+  rtt::DkvArgs args;
+  args.bh = bh;
+  args.n_kb = (tk + rtt::kDkvBK - 1) / rtt::kDkvBK;
+  args.tq = tq;
+  args.tk = tk;
+  args.row0 = row0;
+  args.causal = causal;
+  args.scale = scale;
+  args.scale_log2 = scale * rtt::kLog2e;
+  RTT_DISPATCH(fp16, d, rtt::launch_bwd_dkv, maps, lse, delta, dk, dv, args,
+               static_cast<cudaStream_t>(stream));
 }

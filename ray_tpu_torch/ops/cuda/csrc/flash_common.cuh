@@ -1,13 +1,16 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// Shared pieces of the flash-attention kernels: the mma.sync kernel
+// flash_bwd_dq.cu, and the element type traits, quad reductions and
+// dispatch that the TMA kernels (flash_fwd.cu, flash_bwd_dkv.cu, through
+// hopper_common.cuh) reuse.
 //
 // Layout: the query-side tensors q, o, do, dq are [BH, tq, D] and the
 // key-side tensors k, v, dk, dv are [BH, tk, D], row-major in bf16 or
 // fp16; lse and delta are [BH, tq] float32. The square attention of one
 // sequence is tq = tk = T; a band of the causal split (Pallas _rect_fwd /
-// _rect_core_bwd) has tq <= tk (see Shape). Every kernel works on tiles of
-// 64 rows held in shared memory as raw 16-bit words, with each row padded
-// by 8 elements so that the fragment loads below hit 32 distinct banks.
+// _rect_core_bwd) has tq <= tk (see Shape). The mma.sync kernel works on
+// tiles of 64 rows held in shared memory as raw 16-bit words, with each
+// row padded by 8 elements so that the fragment loads below hit 32
+// distinct banks.
 //
 // Products run on the tensor cores through mma.sync.m16n8k16 with f32
 // accumulation. A warp owns 16 rows of a tile; the fragment layouts are

@@ -4,15 +4,14 @@ Counterpart of ``ray_tpu/ops/pallas/flash_attention.py``. Three kernels
 in ``csrc/`` cover the seven Pallas calls of the JAX package:
 
 - ``flash_fwd`` (``csrc/flash_fwd.cu``): o and lse, by streaming softmax
-  over 64-row key tiles. Replaces ``_fwd_single_kernel`` and
-  ``_fwd_kernel``; its band entry point (``flash_fwd_rect``) replaces
+  over 128-row key tiles, on TMA loads and ``wgmma``. Replaces
+  ``_fwd_single_kernel``, ``_fwd_kernel`` and, on a band,
   ``_fwd_rect_kernel``.
-- ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``) and ``flash_bwd_dkv``
-  (``csrc/flash_bwd_dkv.cu``): the backward, split by output so that no
-  block needs atomics. Together they replace ``_bwd_fused_kernel``,
-  ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; their band entry points
-  (``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) replace
-  ``_bwd_rect_kernel``.
+- ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, ``mma.sync``) and
+  ``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, TMA and ``wgmma``): the
+  backward, split by output so that no block needs atomics. Together
+  they replace ``_bwd_fused_kernel``, ``_bwd_dq_kernel``,
+  ``_bwd_dkv_kernel`` and, on a band, ``_bwd_rect_kernel``.
 
 The kernels work on the folded ``[B*H, T, D]`` layout, bf16 or fp16,
 with D in {64, 128} and any T >= 1. ``lse`` and ``delta`` are float32
@@ -25,8 +24,12 @@ A band of the causal split (``RAY_TPU_FLASH_SPLIT``, see
 :func:`flash_attention`) is ``q [BH, tq, D]`` against the key/value
 prefix ``k, v [BH, tk, D]``, ``tk >= tq``, with the causal diagonal
 bottom-right aligned: query row ``i`` sits at absolute row ``tk - tq +
-i``. The band kernels read q, k, v and do in place through their head
-strides, so a band of a longer tensor is not copied.
+i``. The square attention is the case ``tq = tk``. Each kernel has one
+custom op, one input check (:func:`check_inputs`) and one autograd
+Function (:class:`FlashAttentionFn`) for both routes; the band route
+reads q, k, v and do in place through their head strides, so a band of
+a longer tensor is not copied. The TMA kernels take each operand as a
+tensor map whose geometry :func:`tensor_map_geometry` computes.
 
 Each kernel wrapper takes its kernel for CUDA tensors and raises if the
 inputs do not suit it or the launch fails; it takes the plain PyTorch
@@ -35,8 +38,9 @@ version beside it (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
 tensors. Each wrapper runs as a ``torch.library`` custom op, so that
 selective activation checkpointing (models' ``remat_policy``) sees one
 op it can save or recompute, never the launch inside it. Each kernel
-counts its launches (:func:`launch_counts`). :func:`agreement` is the
-measure by which a kernel is held against its plain version.
+counts its launches per route (:func:`launch_counts`: ``flash_fwd`` and
+``flash_fwd_rect`` and so on). :func:`agreement` is the measure by which
+a kernel is held against its plain version.
 """
 
 from __future__ import annotations
@@ -56,6 +60,7 @@ _HEAD_DIMS = (64, 128)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_MAPS = ctypes.POINTER(ctypes.c_uint64)
 
 
 class _Kernel:
@@ -74,30 +79,45 @@ class _Kernel:
             fn.argtypes = self.argtypes
             fn.restype = _I
             self._fn = fn
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = self._fn(*args, _P(stream))
+        if device.index == torch.cuda.current_device():
+            rc = self._fn(*args, _P(torch.cuda.current_stream().cuda_stream))
+        else:
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                rc = self._fn(*args, _P(stream))
+        if rc < 0:
+            raise RuntimeError(f"{self.symbol}: cuTensorMapEncodeTiled failed: "
+                               f"CUresult {-rc}")
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: cudaError_t {rc}")
         self.launches += 1
 
 
-# The band entry points (``*_rect``) live in the same sources and count
-# their launches apart, so that a run shows which route ran.
+# Each route of a kernel (square, band: ``*_rect``) counts its launches
+# apart, so that a run shows which route ran. ``flash_fwd`` and
+# ``flash_bwd_dkv`` have one C entry point for both routes (tensor maps,
+# tq, tk, row0, d, scale, causal, fp16); ``flash_bwd_dq`` keeps two.
+_FWD_ARGS = [_MAPS, _P, _P] + [_I] * 5 + [_F, _I, _I, _P]
+_DKV_ARGS = [_MAPS] + [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]
 _KERNELS = {
-    "flash_fwd": _Kernel("flash_fwd", "rtt_flash_fwd",
-                         [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P]),
+    "flash_fwd": _Kernel("flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
     "flash_bwd_dq": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq",
                             [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P]),
-    "flash_bwd_dkv": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv",
-                             [_P] * 8 + [_I] * 3 + [_F, _I, _I, _P]),
-    "flash_fwd_rect": _Kernel("flash_fwd", "rtt_flash_fwd_rect",
-                              [_P] * 5 + [_I] * 7 + [_F, _I, _P]),
+    "flash_bwd_dkv": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv", _DKV_ARGS),
+    "flash_fwd_rect": _Kernel("flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
     "flash_bwd_dq_rect": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq_rect",
                                  [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
-    "flash_bwd_dkv_rect": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv_rect",
-                                  [_P] * 8 + [_I] * 8 + [_F, _I, _P]),
+    "flash_bwd_dkv_rect": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv",
+                                  _DKV_ARGS),
 }
+
+# Rows of one tensor-map box: the tiles of csrc/flash_fwd.cu (kFwdBQ,
+# kFwdBK) and csrc/flash_bwd_dkv.cu (DkvSmem::kBQ, kDkvBK), which refuse a
+# geometry whose box differs. The box is 64 columns wide, one 128-byte
+# swizzle row; D = 128 is two boxes.
+_FWD_BOX_ROWS = (128, 128)                       # (q, k and v)
+_DKV_BOX_ROWS = {64: (64, 64), 128: (32, 64)}  # D: (q and do, k and v)
+_BOX_COLS = 64
 
 
 def launch_counts() -> dict[str, int]:
@@ -257,56 +277,30 @@ def _on_cpu(*tensors) -> bool:
                      f"on one CUDA device, got {[str(t.device) for t in tensors]}")
 
 
-def check_kernel_inputs(seq_tensors, row_tensors=()) -> None:
-    """Raise ValueError unless the ``[BH, T, D]`` operands and the float32
-    ``[BH, T]`` row statistics suit the kernels."""
-    ref = seq_tensors[0]
-    if ref.dim() != 3:
-        raise ValueError(f"expected [BH, T, D] operands, got shape "
-                         f"{tuple(ref.shape)}")
-    bh, t, d = ref.shape
-    if ref.dtype not in _KERNEL_DTYPES:
-        raise ValueError(f"flash kernels take bf16 or fp16, got {ref.dtype}")
-    if not flash_attention_shapes_ok(t, d):
-        raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS} and "
-                         f"seq >= 1, got T={t}, D={d}")
-    if bh < 1 or bh * t >= 2 ** 31:
-        raise ValueError(f"B*H={bh} with T={t} is out of the kernels' range")
-    for x in seq_tensors:
-        if x.shape != ref.shape or x.dtype != ref.dtype:
-            raise ValueError("q, k, v (and do) must share shape and dtype: "
-                             f"{tuple(x.shape)}/{x.dtype} vs "
-                             f"{tuple(ref.shape)}/{ref.dtype}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError("flash kernels take contiguous, 16-byte aligned "
-                             "operands")
-    for x in row_tensors:
-        if (x.shape != (bh, t) or x.dtype != torch.float32
-                or not x.is_contiguous()):
-            raise ValueError(f"lse/delta must be contiguous float32 "
-                             f"[{bh}, {t}], got {tuple(x.shape)}/{x.dtype}")
-
-
-def _band_ok(x: torch.Tensor) -> bool:
+def _rows_ok(x: torch.Tensor) -> bool:
     """Rows contiguous (row stride D) and 16-byte aligned, any head
-    stride: what the band kernels read in place."""
+    stride: what the band route reads in place."""
     return (x.stride(2) == 1 and x.stride(1) == x.shape[2]
             and x.stride(0) % 8 == 0 and x.stride(0) < 2 ** 31
             and x.data_ptr() % 16 == 0)
 
 
-def check_rect_inputs(q_side, kv_side, row_tensors=()) -> None:
-    """Raise ValueError unless the operands of one band suit the band
-    kernels: ``q`` (and ``do``) ``[BH, tq, D]``, ``k``, ``v`` ``[BH, tk,
-    D]`` with tk >= tq, one dtype, rows contiguous and 16-byte aligned
-    with any head stride (a band of a longer tensor is read in place),
-    and contiguous float32 ``[BH, tq]`` row statistics."""
+def check_inputs(q_side, kv_side=(), row_tensors=(), band: bool = False
+                 ) -> None:
+    """Raise ValueError unless the operands suit the kernels: ``q`` (and
+    ``do``) ``[BH, tq, D]`` and ``k``, ``v`` ``[BH, tk, D]`` of one dtype
+    (bf16 or fp16), D in (64, 128), and contiguous float32 ``[BH, tq]``
+    row statistics. The square route (``band`` False) takes every operand
+    of one shape, contiguous and 16-byte aligned (``kv_side`` may be
+    empty); a band takes tk >= tq and rows contiguous and 16-byte aligned
+    with any head stride, so that a band of a longer tensor is read in
+    place."""
     ref = q_side[0]
-    if ref.dim() != 3 or any(x.dim() != 3 for x in kv_side):
+    if ref.dim() != 3 or (band and any(x.dim() != 3 for x in kv_side)):
         raise ValueError(f"expected [BH, T, D] operands, got shape "
                          f"{tuple(ref.shape)}")
     bh, tq, d = ref.shape
-    tk = kv_side[0].shape[1]
+    tk = kv_side[0].shape[1] if band else tq
     if ref.dtype not in _KERNEL_DTYPES:
         raise ValueError(f"flash kernels take bf16 or fp16, got {ref.dtype}")
     if not flash_attention_shapes_ok(tq, d):
@@ -318,11 +312,13 @@ def check_rect_inputs(q_side, kv_side, row_tensors=()) -> None:
         raise ValueError(f"B*H={bh} with T={tk} is out of the kernels' range")
     for x, rows in [(x, tq) for x in q_side] + [(x, tk) for x in kv_side]:
         if x.shape != (bh, rows, d) or x.dtype != ref.dtype:
-            raise ValueError("q, do [BH, tq, D] and k, v [BH, tk, D] must "
-                             f"share BH, D and dtype: {tuple(x.shape)}/"
-                             f"{x.dtype} vs {tuple(ref.shape)}/{ref.dtype}")
-        if not _band_ok(x):
-            raise ValueError("band kernels take operands with contiguous, "
+            what = ("q, do [BH, tq, D] and k, v [BH, tk, D] must share BH, D"
+                    if band else "q, k, v (and do) must share shape")
+            raise ValueError(f"{what} and dtype: {tuple(x.shape)}/{x.dtype} "
+                             f"vs {tuple(ref.shape)}/{ref.dtype}")
+        if not (_rows_ok(x) if band
+                else x.is_contiguous() and x.data_ptr() % 16 == 0):
+            raise ValueError("flash kernels take operands with contiguous, "
                              "16-byte aligned rows")
     for x in row_tensors:
         if (x.shape != (bh, tq) or x.dtype != torch.float32
@@ -331,195 +327,193 @@ def check_rect_inputs(q_side, kv_side, row_tensors=()) -> None:
                              f"[{bh}, {tq}], got {tuple(x.shape)}/{x.dtype}")
 
 
+def check_kernel_inputs(seq_tensors, row_tensors=()) -> None:
+    """:func:`check_inputs` on the square route: every ``[BH, T, D]``
+    operand of one shape."""
+    check_inputs(tuple(seq_tensors), (), row_tensors, band=False)
+
+
+def check_rect_inputs(q_side, kv_side, row_tensors=()) -> None:
+    """:func:`check_inputs` on the band route."""
+    check_inputs(q_side, kv_side, row_tensors, band=True)
+
+
+def tensor_map_geometry(x: torch.Tensor, box_rows: int) -> tuple[int, ...]:
+    """The 3-D TMA tensor map through which the Hopper kernels read the
+    ``[BH, rows, D]`` operand ``x``: ``(address, D, rows, BH, row stride,
+    head stride, 64, box_rows, 1)``, dims innermost first and strides in
+    bytes; a box is 64 columns (one 128-byte swizzle row) by ``box_rows``
+    rows of one head, and D = 128 is read as two boxes. A band view of a
+    longer tensor keeps that tensor's head stride and a base address
+    inside it; the hardware zero-fills box rows at or past ``rows``.
+    Raises ValueError where TMA cannot read ``x``: rows not contiguous, a
+    base address or head stride not a multiple of 16 bytes, heads that
+    overlap, or D not a multiple of 64."""
+    if x.dim() != 3:
+        raise ValueError(f"expected a [BH, rows, D] operand, got shape "
+                         f"{tuple(x.shape)}")
+    bh, rows, d = x.shape
+    s_head, s_row, s_col = x.stride()
+    es = x.element_size()
+    addr = x.data_ptr()
+    if d % _BOX_COLS or rows < 1 or bh < 1:
+        raise ValueError(f"tensor maps take D a multiple of {_BOX_COLS} and "
+                         f"at least one row and head, got {tuple(x.shape)}")
+    if s_col != 1 or s_row != d:
+        raise ValueError("tensor maps take operands with contiguous rows, "
+                         f"got strides {x.stride()}")
+    if addr % 16:
+        raise ValueError("tensor maps take a 16-byte aligned base address, "
+                         f"got {addr:#x}")
+    head = s_head * es if bh > 1 else rows * d * es
+    if head % 16 or head < rows * d * es:
+        raise ValueError("tensor maps take a head stride that is a multiple "
+                         "of 16 bytes and at least one head, got "
+                         f"{s_head} elements")
+    return (addr, d, rows, bh, d * es, head, _BOX_COLS, box_rows, 1)
+
+
+def _tensor_maps(*operands) -> ctypes.Array:
+    """The geometry of each ``(tensor, box_rows)``, in order, as the C
+    entry points take it."""
+    words = [w for x, rows in operands for w in tensor_map_geometry(x, rows)]
+    return (ctypes.c_uint64 * len(words))(*words)
+
+
 # Each kernel call is one custom op: its body launches the kernel for
 # CUDA tensors (the wrapper below has checked them) and runs the plain
 # version for CPU tensors. The ops return new tensors and mutate nothing.
 
 @torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
-                  causal: bool) -> tuple[Tensor, Tensor]:
+                  causal: bool, band: bool) -> tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale, causal)
-    bh, t, d = q.shape
-    o = torch.empty_like(q)
-    lse = torch.empty((bh, t), device=q.device, dtype=torch.float32)
-    _KERNELS["flash_fwd"].launch(
-        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(o.data_ptr()), _P(lse.data_ptr()), bh, t, d, scale,
-        int(causal), int(q.dtype == torch.float16))
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    o = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
+    lse = torch.empty((bh, tq), device=q.device, dtype=torch.float32)
+    bq, bk = _FWD_BOX_ROWS
+    _KERNELS["flash_fwd_rect" if band else "flash_fwd"].launch(
+        q.device, _tensor_maps((q, bq), (k, bk), (v, bk)), _P(o.data_ptr()),
+        _P(lse.data_ptr()), bh, tq, tk, tk - tq, d, scale, int(causal),
+        int(q.dtype == torch.float16))
     return o, lse
 
 
 @torch.library.custom_op("ray_tpu_torch::flash_bwd_dq", mutates_args=())
 def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
-                     lse: Tensor, delta: Tensor, scale: float,
-                     causal: bool) -> Tensor:
+                     lse: Tensor, delta: Tensor, scale: float, causal: bool,
+                     band: bool) -> Tensor:
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal)
-    bh, t, d = q.shape
-    dq = torch.empty_like(q)
-    _KERNELS["flash_bwd_dq"].launch(
-        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
-        _P(dq.data_ptr()), bh, t, d, scale, int(causal),
-        int(q.dtype == torch.float16))
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    dq = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
+    ptrs = [_P(x.data_ptr()) for x in (q, k, v, do, lse, delta, dq)]
+    fp16 = int(q.dtype == torch.float16)
+    if band:
+        _KERNELS["flash_bwd_dq_rect"].launch(
+            q.device, *ptrs, bh, tq, tk, q.stride(0), k.stride(0),
+            v.stride(0), do.stride(0), d, scale, fp16)
+    else:
+        _KERNELS["flash_bwd_dq"].launch(q.device, *ptrs, bh, tq, d, scale,
+                                        int(causal), fp16)
     return dq
 
 
 @torch.library.custom_op("ray_tpu_torch::flash_bwd_dkv", mutates_args=())
 def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
-                      lse: Tensor, delta: Tensor, scale: float,
-                      causal: bool) -> tuple[Tensor, Tensor]:
+                      lse: Tensor, delta: Tensor, scale: float, causal: bool,
+                      band: bool) -> tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale,
                                        causal)
-    bh, t, d = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    _KERNELS["flash_bwd_dkv"].launch(
-        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
-        _P(dk.data_ptr()), _P(dv.data_ptr()), bh, t, d, scale,
-        int(causal), int(q.dtype == torch.float16))
-    return dk, dv
-
-
-@torch.library.custom_op("ray_tpu_torch::flash_fwd_rect", mutates_args=())
-def _flash_fwd_rect_op(q: Tensor, k: Tensor, v: Tensor,
-                       scale: float) -> tuple[Tensor, Tensor]:
-    if q.device.type == "cpu":
-        return flash_fwd_rect_reference(q, k, v, scale)
-    bh, tq, d = q.shape
-    tk = k.shape[1]
-    o = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
-    lse = torch.empty((bh, tq), device=q.device, dtype=torch.float32)
-    _KERNELS["flash_fwd_rect"].launch(
-        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(o.data_ptr()), _P(lse.data_ptr()), bh, tq, tk, q.stride(0),
-        k.stride(0), v.stride(0), d, scale, int(q.dtype == torch.float16))
-    return o, lse
-
-
-@torch.library.custom_op("ray_tpu_torch::flash_bwd_dq_rect", mutates_args=())
-def _flash_bwd_dq_rect_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
-                          lse: Tensor, delta: Tensor, scale: float) -> Tensor:
-    if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, True)
-    bh, tq, d = q.shape
-    tk = k.shape[1]
-    dq = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
-    _KERNELS["flash_bwd_dq_rect"].launch(
-        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
-        _P(dq.data_ptr()), bh, tq, tk, q.stride(0), k.stride(0),
-        v.stride(0), do.stride(0), d, scale, int(q.dtype == torch.float16))
-    return dq
-
-
-@torch.library.custom_op("ray_tpu_torch::flash_bwd_dkv_rect",
-                         mutates_args=())
-def _flash_bwd_dkv_rect_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
-                           lse: Tensor, delta: Tensor,
-                           scale: float) -> tuple[Tensor, Tensor]:
-    if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, True)
     bh, tq, d = q.shape
     tk = k.shape[1]
     dk = torch.empty((bh, tk, d), device=q.device, dtype=k.dtype)
     dv = torch.empty((bh, tk, d), device=q.device, dtype=v.dtype)
-    _KERNELS["flash_bwd_dkv_rect"].launch(
-        q.device, _P(q.data_ptr()), _P(k.data_ptr()), _P(v.data_ptr()),
-        _P(do.data_ptr()), _P(lse.data_ptr()), _P(delta.data_ptr()),
-        _P(dk.data_ptr()), _P(dv.data_ptr()), bh, tq, tk, q.stride(0),
-        k.stride(0), v.stride(0), do.stride(0), d, scale,
+    bq, bk = _DKV_BOX_ROWS[d]
+    _KERNELS["flash_bwd_dkv_rect" if band else "flash_bwd_dkv"].launch(
+        q.device, _tensor_maps((q, bq), (k, bk), (v, bk), (do, bq)),
+        _P(lse.data_ptr()), _P(delta.data_ptr()), _P(dk.data_ptr()),
+        _P(dv.data_ptr()), bh, tq, tk, tk - tq, d, scale, int(causal),
         int(q.dtype == torch.float16))
     return dk, dv
+
+
+def _fwd(q, k, v, scale, causal, band):
+    if not _on_cpu(q, k, v):
+        check_inputs((q,), (k, v), band=band)
+        if not scale > 0:
+            raise ValueError(f"the flash forward kernel takes scale > 0, got "
+                             f"{scale}")
+    return _flash_fwd_op(q, k, v, float(scale), bool(causal), bool(band))
+
+
+def _bwd_dq(q, k, v, do, lse, delta, scale, causal, band):
+    if not _on_cpu(q, k, v, do, lse, delta):
+        check_inputs((q, do), (k, v), (lse, delta), band=band)
+    return _flash_bwd_dq_op(q, k, v, do, lse, delta, float(scale),
+                            bool(causal), bool(band))
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, scale, causal, band):
+    if not _on_cpu(q, k, v, do, lse, delta):
+        check_inputs((q, do), (k, v), (lse, delta), band=band)
+    return _flash_bwd_dkv_op(q, k, v, do, lse, delta, float(scale),
+                             bool(causal), bool(band))
 
 
 def flash_fwd(q, k, v, scale: float, causal: bool = True):
     """``(o, lse)`` for ``[BH, T, D]`` inputs: the ``flash_fwd`` kernel for
     CUDA tensors, :func:`flash_fwd_reference` for CPU tensors."""
-    if not _on_cpu(q, k, v):
-        check_kernel_inputs((q, k, v))
-    return _flash_fwd_op(q, k, v, float(scale), bool(causal))
+    return _fwd(q, k, v, scale, causal, False)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool = True):
     """dq: the ``flash_bwd_dq`` kernel for CUDA tensors, the plain
     backward for CPU tensors."""
-    if not _on_cpu(q, k, v, do, lse, delta):
-        check_kernel_inputs((q, k, v, do), (lse, delta))
-    return _flash_bwd_dq_op(q, k, v, do, lse, delta, float(scale),
-                            bool(causal))
+    return _bwd_dq(q, k, v, do, lse, delta, scale, causal, False)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale: float, causal: bool = True):
     """(dk, dv): the ``flash_bwd_dkv`` kernel for CUDA tensors, the plain
     backward for CPU tensors."""
-    if not _on_cpu(q, k, v, do, lse, delta):
-        check_kernel_inputs((q, k, v, do), (lse, delta))
-    return _flash_bwd_dkv_op(q, k, v, do, lse, delta, float(scale),
-                             bool(causal))
+    return _bwd_dkv(q, k, v, do, lse, delta, scale, causal, False)
 
 
 def flash_fwd_rect(q, k, v, scale: float):
     """``(o, lse)`` of one causal band (q ``[BH, tq, D]``, k, v ``[BH, tk,
-    D]``): the ``flash_fwd_rect`` kernel for CUDA tensors,
+    D]``): the ``flash_fwd`` kernel's band route for CUDA tensors,
     :func:`flash_fwd_rect_reference` for CPU tensors."""
-    if not _on_cpu(q, k, v):
-        check_rect_inputs((q,), (k, v))
-    return _flash_fwd_rect_op(q, k, v, float(scale))
+    return _fwd(q, k, v, scale, True, True)
 
 
 def flash_bwd_dq_rect(q, k, v, do, lse, delta, scale: float):
-    """dq of one causal band: the ``flash_bwd_dq_rect`` kernel for CUDA
-    tensors, the plain backward for CPU tensors."""
-    if not _on_cpu(q, k, v, do, lse, delta):
-        check_rect_inputs((q, do), (k, v), (lse, delta))
-    return _flash_bwd_dq_rect_op(q, k, v, do, lse, delta, float(scale))
+    """dq of one causal band: the ``flash_bwd_dq`` kernel's band route for
+    CUDA tensors, the plain backward for CPU tensors."""
+    return _bwd_dq(q, k, v, do, lse, delta, scale, True, True)
 
 
 def flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale: float):
-    """(dk, dv) of one causal band, ``[BH, tk, D]``: the
-    ``flash_bwd_dkv_rect`` kernel for CUDA tensors, the plain backward for
-    CPU tensors."""
-    if not _on_cpu(q, k, v, do, lse, delta):
-        check_rect_inputs((q, do), (k, v), (lse, delta))
-    return _flash_bwd_dkv_rect_op(q, k, v, do, lse, delta, float(scale))
+    """(dk, dv) of one causal band, ``[BH, tk, D]``: the ``flash_bwd_dkv``
+    kernel's band route for CUDA tensors, the plain backward for CPU
+    tensors."""
+    return _bwd_dkv(q, k, v, do, lse, delta, scale, True, True)
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """``o = attention(q, k, v)`` on ``[BH, T, D]`` with the kernels as
-    forward and backward (the counterpart of the ``jax.custom_vjp``)."""
+    """``o = attention(q, k, v)`` with the kernels as forward and backward:
+    on ``[BH, T, D]`` (the counterpart of the ``jax.custom_vjp``) or, with
+    ``band``, on one causal band (q ``[BH, tq, D]``, k, v ``[BH, tk, D]``;
+    the counterpart of the ``_rect_core`` custom VJP)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        o, lse = flash_fwd(q, k, v, scale, causal)
+    def forward(ctx, q, k, v, scale, causal, band=False):
+        o, lse = _fwd(q, k, v, scale, causal, band)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
-        ctx.causal = causal
-        return o
-
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        delta = _delta(o, do)
-        do = do.to(q.dtype).contiguous()
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
-
-
-class FlashRectFn(torch.autograd.Function):
-    """``o = attention(q, k, v)`` of one causal band (q ``[BH, tq, D]``, k,
-    v ``[BH, tk, D]``) with the band kernels as forward and backward: the
-    counterpart of the ``_rect_core`` custom VJP."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = flash_fwd_rect(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.causal, ctx.band = scale, causal, band
         return o
 
     @staticmethod
@@ -527,22 +521,35 @@ class FlashRectFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         delta = _delta(o, do)
         do = do.to(q.dtype)
-        if not _band_ok(do):
+        if not (_rows_ok(do) if ctx.band else do.is_contiguous()):
             do = do.contiguous()
-        dq = flash_bwd_dq_rect(q, k, v, do, lse, delta, ctx.scale)
-        dk, dv = flash_bwd_dkv_rect(q, k, v, do, lse, delta, ctx.scale)
-        return dq, dk, dv, None
+        args = (q, k, v, do, lse, delta, ctx.scale, ctx.causal, ctx.band)
+        dq = _bwd_dq(*args)
+        dk, dv = _bwd_dkv(*args)
+        # Trailing Nones past the inputs given (band is optional) are dropped.
+        return dq, dk, dv, None, None, None
+
+
+class FlashRectFn:
+    """:class:`FlashAttentionFn` on one causal band:
+    ``FlashRectFn.apply(q, k, v, scale)``."""
+
+    @staticmethod
+    def apply(q, k, v, scale):
+        return FlashAttentionFn.apply(q, k, v, scale, True, True)
 
 
 def _flash_causal_split(q, k, v, scale: float, n_split: int):
     """Causal attention on ``[BH, T, D]`` as ``n_split`` row bands: band r
     is query rows ``[r*s, (r+1)*s)`` against the key/value prefix of
-    length ``(r+1)*s`` (``s = T / n_split``), one :class:`FlashRectFn`
-    each, read in place. Autograd sums each band's dk/dv into the prefix,
-    as JAX autodiff of the slices does (``_flash_causal_split``)."""
+    length ``(r+1)*s`` (``s = T / n_split``), one band
+    :class:`FlashAttentionFn` each, read in place. Autograd sums each
+    band's dk/dv into the prefix, as JAX autodiff of the slices does
+    (``_flash_causal_split``)."""
     s = q.shape[1] // n_split
-    outs = [FlashRectFn.apply(q[:, r * s:(r + 1) * s], k[:, :(r + 1) * s],
-                              v[:, :(r + 1) * s], scale)
+    outs = [FlashAttentionFn.apply(q[:, r * s:(r + 1) * s],
+                                   k[:, :(r + 1) * s], v[:, :(r + 1) * s],
+                                   scale, True, True)
             for r in range(n_split)]
     return torch.cat(outs, dim=1)
 

@@ -9,10 +9,11 @@ an H100 with
 
 They skip, from inside the test, where no GPU is visible.
 
-The band kernels of the causal split (``flash_fwd_rect``,
+The band routes of the causal split (``flash_fwd_rect``,
 ``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) are held the same way at
-ragged ``(tq, tk)``, read in place from bands of a longer tensor, and
-through the split and remat paths of a small GPT-2.
+ragged ``(tq, tk)`` that cut the 128-row tiles, read in place from bands
+of a longer tensor, and through the split and remat paths of a small
+GPT-2. Two launches on the same inputs give the same bits.
 
 Tolerances: ``flash_attention.agreement`` with the limits of
 ``AGREEMENT_TOL`` for the input type. Per element, |kernel - plain| is
@@ -58,7 +59,9 @@ def _inputs(bh, t, d, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("t", [1, 37, 64, 130, 256])
+# T around the tiles of the kernels: 64 rows (dq), 128 rows (the forward's
+# query and key tiles, dk/dv's key blocks) and their edges.
+@pytest.mark.parametrize("t", [1, 37, 64, 127, 128, 129, 130, 255, 256, 2048])
 def test_kernels_match_plain(cuda, t, d, causal, dtype):
     q, k, v, do = _inputs(3, t, d, dtype, cuda)
     scale = d ** -0.5
@@ -126,6 +129,32 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_fwd(q.transpose(1, 2), k, v, 0.125)
     with pytest.raises(ValueError, match="CPU or all"):
         fa.flash_fwd(q, k.cpu(), v, 0.125)
+    with pytest.raises(ValueError, match="scale > 0"):
+        fa.flash_fwd(q, k, v, -0.125)
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_two_launches_give_the_same_bits(cuda, band):
+    """No atomics and a fixed order of sums: the same inputs give the same
+    o, lse, dq, dk and dv to the bit, square and band."""
+    q, k, v, do = _inputs(6, 640, 64, torch.bfloat16, cuda, seed=7)
+    if band:
+        q, do = q[:, 384:], do[:, 384:]
+        fwd, dq_fn, dkv_fn = fa.flash_fwd_rect, fa.flash_bwd_dq_rect, \
+            fa.flash_bwd_dkv_rect
+        extra = ()
+    else:
+        fwd, dq_fn, dkv_fn = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+        extra = (True,)
+    runs = []
+    for _ in range(2):
+        o, lse = fwd(q, k, v, 0.125, *extra)
+        delta = (o.float() * do.float()).sum(-1)
+        bwd = (q, k, v, do, lse, delta, 0.125, *extra)
+        runs.append((o, lse, dq_fn(*bwd), *dkv_fn(*bwd)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_prefetch_to_device_on_card(cuda):
@@ -213,7 +242,7 @@ def test_gpt2_grads_through_kernels_match_plain_attention(cuda):
 
 
 RECT_BANDS = [(1, 70), (37, 100), (64, 64), (100, 37 + 100), (130, 259),
-              (128, 512)]
+              (128, 512), (200, 1000)]
 
 
 def _band_inputs(bh, tq, tk, d, dtype, device, seed=0):
