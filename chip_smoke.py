@@ -69,15 +69,15 @@ GPU is visible, and when the package is not beside it.
 builds a copy of kernel NAME's source (under the gitignored build
 directory, never in the source tree) carrying the fault of FAULTS, binds
 the wrapper to it, and prints what each check reads. Square kernels:
-``flash_fwd`` masks every score of key tile 3 for the last query tile
-(a dropped late key tile), ``flash_bwd_dq`` skips one 64-row key tile
-for the last query tile, ``flash_bwd_dkv`` masks the last query tile for
-every key block but the diagonal one; the run exits 0 only if the kernel
-check fails it at both shapes and the per-layer check on some layer.
-Band kernels: the diagonal is misaligned (row0 forced to 0, top left
-instead of bottom right); the run exits 0 only if the band check fails
-it on every band with tq < tk and the split phase's per-layer check on
-some layer at both splits.
+``flash_fwd`` and ``flash_bwd_dq`` mask every score of key tile 3 for
+the last query tile (a dropped late key tile), ``flash_bwd_dkv`` masks
+the last query tile for every key block but the diagonal one; the run
+exits 0 only if the kernel check fails it at both shapes and the
+per-layer check on some layer. Band kernels: the diagonal is misaligned
+(row0 forced to 0, top left instead of bottom right); the run exits 0
+only if the band check fails it on every band with tq < tk and the split
+phase's per-layer check on some layer at both splits. Both print
+whether the gradient check fails the fault too.
 
 Each kernel line prints the kernel's time over SDPA's from the same run
 (``kernel / library``), and each shape the host time of one wrapper
@@ -190,27 +190,27 @@ REPLACES = {
     "flash_bwd_dkv_rect": f"{_PALLAS}:436",
 }
 # --plant-fault: (text of the source, the same text with the fault). The
-# forward drops key tile 3 of the last query tile (every score masked);
-# dk/dv drops the last query tile for every key block but the diagonal
-# one (every p masked); the dq kernel skips one 64-row key tile; the band
-# faults misalign the diagonal (row0 = 0, top left instead of bottom
-# right). Each keeps the kernel's barrier protocol intact, so a fault
-# changes values and never hangs the card.
+# forward and dq drop key tile 3 of the last query tile (every score
+# masked); dk/dv drops the last query tile for every key block but the
+# diagonal one (every p masked); the band faults misalign the diagonal
+# (row0 = 0, top left instead of bottom right). Each keeps the kernel's
+# barrier protocol intact (every tile is still loaded and consumed), so a
+# fault changes values and never hangs the card.
 _FWD_MASK = ("    bool masked = min(a.tk, a.causal ? a.row0 + wrow0 + 1 : a.tk) - k0"
              " < kFwdBK;\n")
+_DQ_MASK = ("      bool masked = min(a.tk, a.causal ? a.row0 + wrow0 + 1 : a.tk) - k0"
+            " < kBK;\n")
 _DKV_QEND = "    int q_end = a.tq;\n"
-_KT_LOOP = "for (int j = 0; j < n_kt; ++j) {\n"
 _ARGS_ROW0 = "  args.row0 = row0;"
-_ROW0 = "const int row0 = tk - tq;"
 FAULTS = {
     "flash_fwd": (_FWD_MASK, _FWD_MASK + "    if (j == 3 && q0 + kFwdBQ >= a.tq)"
                   " masked = true, lim[0] = lim[1] = 0;\n"),
-    "flash_bwd_dq": (_KT_LOOP, _KT_LOOP
-                     + "    if (j == 3 && q0 + kTile >= sh.tq) continue;\n"),
+    "flash_bwd_dq": (_DQ_MASK, _DQ_MASK + "      if (j == 3 && q0 + kDqBQ >= a.tq)"
+                     " masked = true, lim[0] = lim[1] = 0;\n"),
     "flash_bwd_dkv": (_DKV_QEND, _DKV_QEND
                       + "    if (iq == n_qt - 1 && iq != first) q_end = 0;\n"),
     "flash_fwd_rect": (_ARGS_ROW0, "  args.row0 = 0;"),
-    "flash_bwd_dq_rect": (_ROW0, "const int row0 = 0;"),
+    "flash_bwd_dq_rect": (_ARGS_ROW0, "  args.row0 = 0;"),
     "flash_bwd_dkv_rect": (_ARGS_ROW0, "  args.row0 = 0;"),
 }
 
@@ -474,8 +474,8 @@ def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
     c_us = host_us(lambda: c_fn(*c_args))
     print(f"host per call {what}: " + ", ".join(
         f"{name} {us:.1f} us" for name, us in hosts.items())
-        + f" (flash_fwd and flash_bwd_dkv encode 3 and 4 tensor maps, "
-        f"flash_bwd_dq none; of flash_fwd's, the geometry {geo_us:.1f} us "
+        + f" (flash_fwd encodes 3 tensor maps, flash_bwd_dq and "
+        f"flash_bwd_dkv 4; of flash_fwd's, the geometry {geo_us:.1f} us "
         f"and the C entry point, 3 encodes and the launch, {c_us:.1f} us)",
         flush=True)
     pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
@@ -781,9 +781,9 @@ def device_batch(toks, tgts, dev) -> dict:
 
 def profile_dispatch(step, state, batch, card: str):
     """Run one dispatch under torch.profiler and print where the device
-    time goes: the busy share of the wall time and the kernels with the
-    most device time. Informational: a profiler that records no device
-    time prints "not measured" and fails nothing."""
+    time goes: the busy share of the wall time, the kernels with the most
+    device time and every flash kernel. Informational: a profiler that
+    records no device time prints "not measured" and fails nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -815,7 +815,11 @@ def profile_dispatch(step, state, batch, card: str):
           f"ms, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); "
           + ", ".join(f"{g} {us / 1e3:.2f} ms" for g, us in groups.items())
           + f"; card {card}", flush=True)
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
+    # The 12 kernels with the most device time, then the flash kernels
+    # below them.
+    top = sorted(rows, key=lambda r: -r[2])
+    for key, count, us in top[:12] + [r for r in top[12:]
+                                      if "rtt::flash" in r[0]]:
         print(f"profile kernel {us / 1e3:9.3f} ms x{count:<5d} {key[:110]}",
               flush=True)
     return state
@@ -1102,17 +1106,20 @@ def band_fault_result(name: str, dev) -> dict:
     cfg = GPT2Config.small()
     model = GPT2(cfg, seed=0)
     batch0 = device_batch(*train_batch(cfg.vocab_size), dev)
-    layer_caught = {}
+    layer_caught, grad_caught = {}, {}
     for n in SPLITS:
         with flash_split(n):
             readings = layer_readings(model, batch0, SPLIT_CHECK_LAYERS,
                                       n_split=n)
+            worst_rel = attention_grad_readings(model, batch0)
         layer_caught[n] = [i for i, r in zip(SPLIT_CHECK_LAYERS, readings)
                            if fails(r)]
+        grad_caught[n] = any(rel >= GRAD_TOL for rel, _ in worst_rel.values())
     rect = [key for key in band_caught
             if int(key.split("x")[0]) < int(key.split("x")[1])]
     return {"fault": name, "band_check_fails_it_on": band_caught,
             "split_layer_check_fails_it_on_layers": layer_caught,
+            "split_grad_check_fails_it": grad_caught,
             "caught": (all(band_caught[key] for key in rect)
                        and all(layer_caught.values()))}
 

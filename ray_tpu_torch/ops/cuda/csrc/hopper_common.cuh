@@ -1,9 +1,19 @@
-// Hopper (sm_90a) building blocks of the redesigned flash-attention
-// kernels (flash_fwd.cu, flash_bwd_dkv.cu), as inline PTX beside the
-// mma.sync helpers of flash_common.cuh: mbarriers, TMA tile loads, wgmma
-// descriptors and products; and, on the host, the encoding of a tensor
-// map from the geometry the Python wrapper computes
-// (flash_attention.tensor_map_geometry).
+// Hopper (sm_90a) building blocks of the flash-attention kernels
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu), as inline PTX:
+// mbarriers, TMA tile loads, wgmma descriptors and products; and, on the
+// host, the encoding of a tensor map from the geometry the Python wrapper
+// computes (flash_attention.tensor_map_geometry).
+//
+// Layout: the query-side tensors q, o, do, dq are [BH, tq, D] and the
+// key-side tensors k, v, dk, dv are [BH, tk, D], rows contiguous, in bf16
+// or fp16; lse and delta are [BH, tq] float32. Query row i sits at
+// absolute row row0 + i, and the causal mask keeps key j for it iff j <=
+// row0 + i: row0 = 0 for the square attention of one sequence (tq = tk),
+// tk - tq for a band of the causal split (Pallas _rect_fwd /
+// _rect_core_bwd; the diagonal bottom-right aligned, as
+// _masked_scores(..., row0=tk - tq) in the reference). Each input is read
+// through its own tensor map with its own head stride, so that a band of
+// a longer [BH, T, D] tensor is read in place; outputs are contiguous.
 //
 // Tiles in shared memory are what a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: a box of 64 columns (128 bytes of
@@ -13,19 +23,21 @@
 // a 1024-byte boundary, the period of the swizzle. wgmma reads these
 // tiles through descriptors of the same 128-byte swizzle:
 //   - K-major (the reduction index contiguous): q and k in q k^T, k and q
-//     in k q^T, v and do in v do^T. An 8-row group is 1024 bytes (SBO);
-//     a k16 step within a 64-column panel adds 32 bytes to the start.
+//     in k q^T, v and do in v do^T and do v^T. An 8-row group is 1024
+//     bytes (SBO); a k16 step within a 64-column panel adds 32 bytes to
+//     the start.
 //   - MN-major (the output index contiguous, the transpose bit set): v in
-//     p v, do in p^T do, q in ds^T q. The k16 step is 16 rows (2048
+//     p v, do in p^T do, q in ds^T q, k in ds k. The k16 step is 16 rows (2048
 //     bytes); 8-row groups are 1024 bytes apart (SBO); each 64-column
 //     panel is its own 64-wide product.
 // Register layouts of wgmma m64nNk16 (warp w of the warpgroup owns rows
 // 16w..16w+15; g = lane / 4, t = lane % 4): the f32 accumulator holds,
 // for each 8-column chunk i, d[4i..4i+1] = D[g][8i+2t..8i+2t+1] and
 // d[4i+2..4i+3] = D[g+8][8i+2t..]; the register A operand of one k16 step
-// is the mma.sync m16n8k16 A fragment. So the accumulator of one product,
-// packed to the input type chunk pair by chunk pair, is the A operand of
-// the next, as in flash_common.cuh.
+// is the mma.sync m16n8k16 A fragment (a0 = A[g][2t..2t+1], a1 =
+// A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]). So the
+// accumulator of one product, packed to the input type chunk pair by
+// chunk pair (pack_a), is the A operand of the next.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)

@@ -7,11 +7,11 @@ in ``csrc/`` cover the seven Pallas calls of the JAX package:
   over 128-row key tiles, on TMA loads and ``wgmma``. Replaces
   ``_fwd_single_kernel``, ``_fwd_kernel`` and, on a band,
   ``_fwd_rect_kernel``.
-- ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``, ``mma.sync``) and
-  ``flash_bwd_dkv`` (``csrc/flash_bwd_dkv.cu``, TMA and ``wgmma``): the
-  backward, split by output so that no block needs atomics. Together
-  they replace ``_bwd_fused_kernel``, ``_bwd_dq_kernel``,
-  ``_bwd_dkv_kernel`` and, on a band, ``_bwd_rect_kernel``.
+- ``flash_bwd_dq`` (``csrc/flash_bwd_dq.cu``) and ``flash_bwd_dkv``
+  (``csrc/flash_bwd_dkv.cu``), both on TMA and ``wgmma``: the backward,
+  split by output so that no block needs atomics. Together they replace
+  ``_bwd_fused_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and, on
+  a band, ``_bwd_rect_kernel``.
 
 The kernels work on the folded ``[B*H, T, D]`` layout, bf16 or fp16,
 with D in {64, 128} and any T >= 1. ``lse`` and ``delta`` are float32
@@ -28,7 +28,7 @@ i``. The square attention is the case ``tq = tk``. Each kernel has one
 custom op, one input check (:func:`check_inputs`) and one autograd
 Function (:class:`FlashAttentionFn`) for both routes; the band route
 reads q, k, v and do in place through their head strides, so a band of
-a longer tensor is not copied. The TMA kernels take each operand as a
+a longer tensor is not copied. The kernels take each operand as a TMA
 tensor map whose geometry :func:`tensor_map_geometry` computes.
 
 Each kernel wrapper takes its kernel for CUDA tensors and raises if the
@@ -94,29 +94,31 @@ class _Kernel:
 
 
 # Each route of a kernel (square, band: ``*_rect``) counts its launches
-# apart, so that a run shows which route ran. ``flash_fwd`` and
-# ``flash_bwd_dkv`` have one C entry point for both routes (tensor maps,
-# tq, tk, row0, d, scale, causal, fp16); ``flash_bwd_dq`` keeps two.
+# apart, so that a run shows which route ran. Each kernel has one C entry
+# point for both routes (tensor maps, the output and row pointers, bh, tq,
+# tk, row0, d, scale, causal, fp16, stream).
 _FWD_ARGS = [_MAPS, _P, _P] + [_I] * 5 + [_F, _I, _I, _P]
+_DQ_ARGS = [_MAPS] + [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P]
 _DKV_ARGS = [_MAPS] + [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]
 _KERNELS = {
     "flash_fwd": _Kernel("flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
-    "flash_bwd_dq": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq",
-                            [_P] * 7 + [_I] * 3 + [_F, _I, _I, _P]),
+    "flash_bwd_dq": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq", _DQ_ARGS),
     "flash_bwd_dkv": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv", _DKV_ARGS),
     "flash_fwd_rect": _Kernel("flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
-    "flash_bwd_dq_rect": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq_rect",
-                                 [_P] * 7 + [_I] * 8 + [_F, _I, _P]),
+    "flash_bwd_dq_rect": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq",
+                                 _DQ_ARGS),
     "flash_bwd_dkv_rect": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv",
                                   _DKV_ARGS),
 }
 
 # Rows of one tensor-map box: the tiles of csrc/flash_fwd.cu (kFwdBQ,
-# kFwdBK) and csrc/flash_bwd_dkv.cu (DkvSmem::kBQ, kDkvBK), which refuse a
-# geometry whose box differs. The box is 64 columns wide, one 128-byte
-# swizzle row; D = 128 is two boxes.
+# kFwdBK), csrc/flash_bwd_dq.cu (kDqBQ, DqSmem::kBK) and
+# csrc/flash_bwd_dkv.cu (DkvSmem::kBQ, kDkvBK), which refuse a geometry
+# whose box differs. The box is 64 columns wide, one 128-byte swizzle row;
+# D = 128 is two boxes.
 _FWD_BOX_ROWS = (128, 128)                       # (q, k and v)
-_DKV_BOX_ROWS = {64: (64, 64), 128: (32, 64)}  # D: (q and do, k and v)
+_DQ_BOX_ROWS = {64: (128, 128), 128: (128, 64)}  # D: (q and do, k and v)
+_DKV_BOX_ROWS = {64: (64, 64), 128: (32, 64)}    # D: (q and do, k and v)
 _BOX_COLS = 64
 
 
@@ -380,6 +382,14 @@ def _tensor_maps(*operands) -> ctypes.Array:
     return (ctypes.c_uint64 * len(words))(*words)
 
 
+def _bwd_maps(q, k, v, do, box_rows: tuple[int, int]) -> ctypes.Array:
+    """The four tensor maps of a backward kernel, q, k, v, do in that
+    order, with ``box_rows`` = (rows of a q and do box, of a k and v box):
+    a band view is read in place through its head stride."""
+    bq, bk = box_rows
+    return _tensor_maps((q, bq), (k, bk), (v, bk), (do, bq))
+
+
 # Each kernel call is one custom op: its body launches the kernel for
 # CUDA tensors (the wrapper below has checked them) and runs the plain
 # version for CPU tensors. The ops return new tensors and mutate nothing.
@@ -410,15 +420,10 @@ def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     bh, tq, d = q.shape
     tk = k.shape[1]
     dq = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
-    ptrs = [_P(x.data_ptr()) for x in (q, k, v, do, lse, delta, dq)]
-    fp16 = int(q.dtype == torch.float16)
-    if band:
-        _KERNELS["flash_bwd_dq_rect"].launch(
-            q.device, *ptrs, bh, tq, tk, q.stride(0), k.stride(0),
-            v.stride(0), do.stride(0), d, scale, fp16)
-    else:
-        _KERNELS["flash_bwd_dq"].launch(q.device, *ptrs, bh, tq, d, scale,
-                                        int(causal), fp16)
+    _KERNELS["flash_bwd_dq_rect" if band else "flash_bwd_dq"].launch(
+        q.device, _bwd_maps(q, k, v, do, _DQ_BOX_ROWS[d]),
+        _P(lse.data_ptr()), _P(delta.data_ptr()), _P(dq.data_ptr()), bh, tq,
+        tk, tk - tq, d, scale, int(causal), int(q.dtype == torch.float16))
     return dq
 
 
@@ -433,9 +438,8 @@ def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     tk = k.shape[1]
     dk = torch.empty((bh, tk, d), device=q.device, dtype=k.dtype)
     dv = torch.empty((bh, tk, d), device=q.device, dtype=v.dtype)
-    bq, bk = _DKV_BOX_ROWS[d]
     _KERNELS["flash_bwd_dkv_rect" if band else "flash_bwd_dkv"].launch(
-        q.device, _tensor_maps((q, bq), (k, bk), (v, bk), (do, bq)),
+        q.device, _bwd_maps(q, k, v, do, _DKV_BOX_ROWS[d]),
         _P(lse.data_ptr()), _P(delta.data_ptr()), _P(dk.data_ptr()),
         _P(dv.data_ptr()), bh, tq, tk, tk - tq, d, scale, int(causal),
         int(q.dtype == torch.float16))

@@ -4,18 +4,19 @@
     python3 scripts/flash_variants.py            # every variant below
     python3 scripts/flash_variants.py NAME ...   # some of them
 
-Each variant is a copy of ``csrc/flash_fwd.cu`` or ``csrc/flash_bwd_dkv.cu``
-with one or two constants substituted (block shape, ring depth, query
-tile), built with the repo's nvcc flags under the gitignored build
-directory and bound to the wrapper in place of the committed kernel. For
-each it prints ptxas' registers and spills, and at GPT-2's (B32 T1024
-H12) and TinyLlama's (B8 T2048 H32) attention shapes, D = 64 bf16
-causal, whether it agrees with the plain version and its device time
-(``chip_smoke.cuda_ms``) over SDPA's in the same run: the forward over
-SDPA's forward, dk/dv over SDPA's whole backward. The forward variants
-also run every band of split 2 and 4 and check the split's o bit for bit
-against the unsplit kernel. ``committed`` rows are the sources as they
-are. Exits non-zero without a GPU.
+Each variant is a copy of ``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``
+or ``csrc/flash_bwd_dkv.cu`` with one or two constants substituted
+(block shape, ring depth, tile, overlap of products), built with the
+repo's nvcc flags under the gitignored build directory and bound to the
+wrapper in place of the committed kernel. For each it prints ptxas'
+registers and spills, and at GPT-2's (B32 T1024 H12) and TinyLlama's (B8
+T2048 H32) attention shapes, D = 64 bf16 causal, whether it agrees with
+the plain version and its device time (``chip_smoke.cuda_ms``) over
+SDPA's in the same run: the forward over SDPA's forward, dq and dk/dv
+over SDPA's whole backward. The forward and dq variants also run every
+band of split 2 and 4 and check the split's o (dq) bit for bit against
+the unsplit kernel's. ``committed`` rows are the sources as they are.
+Exits non-zero without a GPU.
 """
 
 from __future__ import annotations
@@ -44,6 +45,19 @@ VARIANTS = {
                                     "kStages = D == 64 ? 3 : 2")], None),
     "fwd_stages_4": ("flash_fwd", [("kStages = D == 64 ? 5 : 2",
                                     "kStages = D == 64 ? 4 : 2")], None),
+    "dq_committed": ("flash_bwd_dq", [], None),
+    "dq_one_warpgroup": (
+        "flash_bwd_dq", [("constexpr int kDqWGs = 2;", "constexpr int kDqWGs = 1;"),
+                         ("kStages = D == 64 ? 4 : 2", "kStages = D == 64 ? 2 : 2")],
+        ("_DQ_BOX_ROWS", {64: (64, 128), 128: (64, 64)})),
+    "dq_no_overlap": ("flash_bwd_dq", [("constexpr bool kDqOverlap = true;",
+                                        "constexpr bool kDqOverlap = false;")], None),
+    "dq_bk64": ("flash_bwd_dq", [("kBK = D == 64 ? 128 : 64", "kBK = D == 64 ? 64 : 64")],
+                ("_DQ_BOX_ROWS", {64: (128, 64), 128: (128, 64)})),
+    "dq_stages_2": ("flash_bwd_dq", [("kStages = D == 64 ? 4 : 2",
+                                      "kStages = D == 64 ? 2 : 2")], None),
+    "dq_stages_3": ("flash_bwd_dq", [("kStages = D == 64 ? 4 : 2",
+                                      "kStages = D == 64 ? 3 : 2")], None),
     "dkv_committed": ("flash_bwd_dkv", [], None),
     "dkv_two_warpgroups": (
         "flash_bwd_dkv", [("constexpr int kDkvWGs = 1;", "constexpr int kDkvWGs = 2;")],
@@ -136,6 +150,13 @@ def square_rows(kernel, dev, lib_times):
             ok = fa.agreement(o, o_ref)["ok"]
             ms = cs.cuda_ms(lambda: fa.flash_fwd(q, k, v, SCALE, True), 20)
             lib = lib_fwd
+        elif kernel == "flash_bwd_dq":
+            delta = (o_ref.float() * do.float()).sum(-1)
+            bwd = (q, k, v, do, lse_ref, delta, SCALE, True)
+            ok = fa.agreement(fa.flash_bwd_dq(*bwd),
+                              fa.flash_bwd_dq_reference(*bwd))["ok"]
+            ms = cs.cuda_ms(lambda: fa.flash_bwd_dq(*bwd), 20)
+            lib = lib_bwd
         else:
             delta = (o_ref.float() * do.float()).sum(-1)
             bwd = (q, k, v, do, lse_ref, delta, SCALE, True)
@@ -146,6 +167,28 @@ def square_rows(kernel, dev, lib_times):
         print(f"  B{b} T{t} H{h}: agrees {ok}, {ms:.4f} ms, {ms / lib:.3f}x SDPA "
               f"({lib:.4f} ms)", flush=True)
     cs.H = 12
+
+
+def dq_band_rows(dev):
+    """dq on every band of split 2 and 4, on the unsplit forward's lse and
+    delta rows: the time summed over the bands, and whether the bands' dq
+    equals the unsplit kernel's bit for bit."""
+    q, k, v, do = cs.kernel_inputs(32, 1024, dev)
+    o, lse = fa.flash_fwd(q, k, v, SCALE, True)
+    delta = (o.float() * do.float()).sum(-1)
+    whole = fa.flash_bwd_dq(q, k, v, do, lse, delta, SCALE, True)
+    for n in cs.SPLITS:
+        ms = 0.0
+        outs = []
+        for tq, tk, (qb, kb, vb, dob) in cs.bands(q, k, v, do, n):
+            rows = slice(tk - tq, tk)
+            bwd = (qb, kb, vb, dob, lse[:, rows].contiguous(),
+                   delta[:, rows].contiguous(), SCALE)
+            ms += cs.cuda_ms(lambda: fa.flash_bwd_dq_rect(*bwd), 20)
+            outs.append(fa.flash_bwd_dq_rect(*bwd))
+        equal = torch.equal(torch.cat(outs, 1), whole)
+        print(f"  split {n}, all bands: {ms:.4f} ms; dq equals the unsplit "
+              f"kernel's bit for bit: {equal}", flush=True)
 
 
 def band_rows(dev, lib_times):
@@ -186,7 +229,7 @@ def main() -> int:
         print(f"{name}: {cs.ptxas_usage(log)}", flush=True)
         # A block of two consumer warpgroups moves registers with setmaxnreg,
         # which needs ptxas' full 168 at entry: refuse to launch otherwise.
-        two = re.search(r"constexpr int k(Fwd|Dkv)WGs = 2;", src) is not None
+        two = re.search(r"constexpr int k(Fwd|Dq|Dkv)WGs = 2;", src) is not None
         if two and set(re.findall(r"Used (\d+) registers", log)) != {"168"}:
             print("  not launched: setmaxnreg needs 168 registers at entry", flush=True)
             continue
@@ -194,6 +237,8 @@ def main() -> int:
             square_rows(kernel, dev, lib_times)
             if kernel == "flash_fwd":
                 band_rows(dev, lib_times)
+            elif kernel == "flash_bwd_dq":
+                dq_band_rows(dev)
         torch.cuda.synchronize()
     return 0
 

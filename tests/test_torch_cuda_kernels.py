@@ -59,8 +59,9 @@ def _inputs(bh, t, d, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("d", [64, 128])
-# T around the tiles of the kernels: 64 rows (dq), 128 rows (the forward's
-# query and key tiles, dk/dv's key blocks) and their edges.
+# T around the tiles of the kernels: 64 rows (dk/dv's key blocks, dq's key
+# tiles at D = 128), 128 rows (the forward's and dq's query and key tiles)
+# and their edges.
 @pytest.mark.parametrize("t", [1, 37, 64, 127, 128, 129, 130, 255, 256, 2048])
 def test_kernels_match_plain(cuda, t, d, causal, dtype):
     q, k, v, do = _inputs(3, t, d, dtype, cuda)
@@ -320,6 +321,21 @@ def test_rect_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_fwd_rect(misaligned, k, v, 0.125)
     with pytest.raises(ValueError, match="CPU or all"):
         fa.flash_fwd_rect(q, k.cpu(), v, 0.125)
+
+
+def test_dq_band_refuses_a_view_tma_cannot_read(cuda):
+    """A band view that passes the input check but that TMA cannot read
+    (heads that overlap: a head stride shorter than one head) is refused
+    with ValueError by the tensor-map geometry, before any launch."""
+    _, k, v, do = _band_inputs(2, 64, 128, 64, torch.bfloat16, cuda)
+    lse, delta = (torch.zeros(2, 64, device=cuda) for _ in range(2))
+    overlap = torch.zeros(80 * 64, device=cuda, dtype=torch.bfloat16
+                          ).as_strided((2, 64, 64), (16 * 64, 64, 1))
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="head stride"):
+        fa.flash_bwd_dq_rect(overlap, k, v, do, lse, delta, 0.125)
+    torch.cuda.synchronize()
+    assert fa.launch_counts()["flash_bwd_dq_rect"] == 0
 
 
 @pytest.mark.parametrize("n_split", [2, 4])

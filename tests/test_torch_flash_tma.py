@@ -1,15 +1,16 @@
 """What the Hopper flash kernels are told about their operands, checked on
 the CPU.
 
-``flash_fwd`` and ``flash_bwd_dkv`` read q, k, v and do through TMA
-tensor maps. The C entry points encode each map from the geometry that
-``flash_attention.tensor_map_geometry`` computes in Python (address,
-dims innermost first, byte strides, box), so that geometry is held here:
-square ``[BH, T, D]`` operands at D = 64 and 128, every band view of
-split 2 and 4 taken in place from a ``[BH, 1024, D]`` tensor, ragged T,
-and the refusal of what TMA cannot read. The box rows the wrapper asks
-for are held against the tile constants of the CUDA sources, which
-refuse any other box.
+``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` read q, k, v and
+do through TMA tensor maps. The C entry points encode each map from the
+geometry that ``flash_attention.tensor_map_geometry`` computes in Python
+(address, dims innermost first, byte strides, box), so that geometry is
+held here: square ``[BH, T, D]`` operands at D = 64 and 128, every band
+view of split 2 and 4 taken in place from a ``[BH, 1024, D]`` tensor,
+ragged T, and the refusal of what TMA cannot read. The box rows the
+wrapper asks for are held against the tile constants of the CUDA
+sources, which refuse any other box, and the two routes of each kernel
+against its one C entry point.
 
 The square and band routes share one input check
 (``flash_attention.check_inputs``); its verdicts are held on the cases
@@ -103,22 +104,98 @@ def _const(src: str, name: str) -> str:
     return re.search(rf"constexpr \w+ {name} = ([^;]+);", src).group(1)
 
 
+def _source(name: str) -> str:
+    with open(build.sources()[name]) as f:
+        return f.read()
+
+
 def test_box_rows_match_the_kernels_tiles():
     """The wrapper's box rows are the tiles the CUDA sources are built
     with: the forward's 64 query rows per consumer warpgroup and kFwdBK
-    key rows; dk/dv's kBQ query rows and 64 key rows per warpgroup."""
-    srcs = build.sources()
-    with open(srcs["flash_fwd"]) as f:
-        fwd = f.read()
-    with open(srcs["flash_bwd_dkv"]) as f:
-        dkv = f.read()
+    key rows; dq's 64 query rows per consumer warpgroup and kBK key rows;
+    dk/dv's kBQ query rows and 64 key rows per warpgroup."""
+    fwd, dq, dkv = (_source(n) for n in ("flash_fwd", "flash_bwd_dq",
+                                         "flash_bwd_dkv"))
     assert fa._FWD_BOX_ROWS == (64 * int(_const(fwd, "kFwdWGs")),
                                 int(_const(fwd, "kFwdBK")))
+    wgs = int(_const(dq, "kDqWGs"))
+    bk = re.search(r"kBK = D == 64 \? (\d+) : (\d+);", dq).groups()
+    assert fa._DQ_BOX_ROWS == {64: (64 * wgs, int(bk[0])),
+                               128: (64 * wgs, int(bk[1]))}
     wgs = int(_const(dkv, "kDkvWGs"))
     bq = re.search(r"kBQ = D == 64 \? (\d+) : (\d+);", dkv).groups()
     assert fa._DKV_BOX_ROWS == {64: (int(bq[0]), 64 * wgs),
                                 128: (int(bq[1]), 64 * wgs)}
-    assert os.path.basename(srcs["flash_fwd"]) == "flash_fwd.cu"
+    assert os.path.basename(build.sources()["flash_fwd"]) == "flash_fwd.cu"
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"])
+def test_both_routes_bind_one_symbol(kernel):
+    """The square route and the band route (``*_rect``) of each kernel
+    bind the same C entry point with the same argtypes list, and that
+    entry point is the only one the source exports."""
+    square, band = fa._KERNELS[kernel], fa._KERNELS[kernel + "_rect"]
+    assert square.source == band.source == kernel
+    assert square.symbol == band.symbol == f"rtt_{kernel}"
+    assert square.argtypes is band.argtypes
+    exported = re.findall(r'extern "C" int (\w+)\(', _source(kernel))
+    assert exported == [square.symbol]
+
+
+def test_dq_kernel_is_tma_and_wgmma():
+    """The dq kernel's products are wgmma fed by TMA loads through
+    mbarriers, with no mma.sync left in it or in the shared header, and
+    its one entry point takes the four tensor maps of _DQ_ARGS."""
+    src = _source("flash_bwd_dq")
+    assert "mma.sync" not in src
+    with open(os.path.join(build.SRC_DIR, "flash_common.cuh")) as f:
+        common = f.read()
+    for gone in ("mma.sync", "load_tile", "frag_a", "frag_b", "Shape",
+                 "kTile", "ld32", "pack_raw"):
+        assert gone not in common, gone
+    for used in ("wgmma_ss<T, kBK>", "wgmma_rs_mn<T>", "tma_load_tile<D>",
+                 "mbar_wait", "make_tensor_map<T>(&do_map"):
+        assert used in src, used
+    assert fa._DQ_ARGS[0] is fa._MAPS and len(fa._DQ_ARGS) == 13
+
+
+@pytest.mark.parametrize("box", ["dq", "dkv"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n_split", [2, 4])
+def test_bwd_maps_read_band_views_in_place(n_split, d, box):
+    """The four maps of a backward kernel on every band of split n of
+    [BH, 1024, D] tensors: q and do start at the band's first row, k and
+    v at row 0, each with the whole tensor's head stride, in the order
+    q, k, v, do and with the kernel's box rows."""
+    bh, t = 3, 1024
+    q, k, v, do = (torch.zeros(bh, t, d, dtype=BF16) for _ in range(4))
+    rows = (fa._DQ_BOX_ROWS if box == "dq" else fa._DKV_BOX_ROWS)[d]
+    s = t // n_split
+    for r in range(n_split):
+        lo, hi = r * s, (r + 1) * s
+        views = (q[:, lo:hi], k[:, :hi], v[:, :hi], do[:, lo:hi])
+        maps = fa._bwd_maps(*views, rows)
+        assert isinstance(maps, ctypes.Array) and len(maps) == 36
+        want = [_expected(views[0], q.data_ptr(), lo, s, t * d, rows[0]),
+                _expected(views[1], k.data_ptr(), 0, hi, t * d, rows[1]),
+                _expected(views[2], v.data_ptr(), 0, hi, t * d, rows[1]),
+                _expected(views[3], do.data_ptr(), lo, s, t * d, rows[0])]
+        for i, geo in enumerate(want):
+            assert tuple(maps[9 * i:9 * i + 9]) == geo
+
+
+def test_bwd_maps_refuse_a_misaligned_view():
+    """A view whose base is not 16-byte aligned (a band that starts 4
+    elements into a row) is refused before any map is built."""
+    x = torch.zeros(2, 256, 64, dtype=BF16)
+    good = x[:, :128]
+    bad = x.view(-1)[4:4 + 2 * 128 * 64].view(2, 128, 64)
+    for i in range(4):
+        ops = [good] * 4
+        ops[i] = bad
+        with pytest.raises(ValueError, match="16-byte aligned base"):
+            fa._bwd_maps(*ops, fa._DQ_BOX_ROWS[64])
 
 
 # The cases of the two input checks the folded one replaced (square:
