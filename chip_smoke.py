@@ -60,9 +60,30 @@ exits non-zero without its result line:
    against the
    plain-attention, full-logit path's; the loss finite and falling; each
    square kernel launched 22 times per step.
+9. ResNet-50 (``ResNet50Config()``, 1000 classes, random weights from
+   seed 0) at batch 128, 224x224, bf16 in ``channels_last`` (cuDNN
+   convolutions), ``sgd(0.1, momentum=0.9, nesterov=True)`` with the
+   BatchNorm statistics through the step (``has_extra``), on images drawn
+   on the card behind the prefetcher. Checks: the step-0 train-mode
+   logits at batch 8 against the same weights' float32 forward on the
+   CPU (RESNET_LOGIT_TOL); the loss finite and falling; every running
+   mean and variance finite and moved, and an eval-mode forward that
+   reads them; no flash kernel launched. Prints step ms, images/s, peak
+   bytes, the input stall, one profiled dispatch (convolutions, products,
+   reductions, the rest) and the share of the bf16 peak from the FLOPs of
+   its products and convolutions.
+10. ViT-B/16 (``ViTConfig.base()``, random weights from seed 0) at batch
+   128, 224x224 (T = 197), ``adamw(3e-3)``. Checks: the square kernels
+   with ``causal=False`` on layers 0 and 11's own q, k, v and output
+   gradient (all 1536 folded heads) by ``agreement``; the step-0 loss
+   against the plain attention within VIT_STEP0_LOSS_TOL; the loss
+   finite and falling; 12 launches per step of each square kernel, none
+   of the band routes. Prints the kernels' times at that shape beside their bound,
+   plain versions and SDPA with no mask, and the run as for ResNet-50.
 
-Then it prints the ``kernels`` JSON line, the card line again, and as
-its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
+Then it prints the ``kernels`` JSON line (the ViT run's non-causal
+readings as entries with ``"causal": false``), the card line again, and
+as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
 GPU is visible, and when the package is not beside it.
 
 ``--plant-fault NAME`` shows what the checks read on a wrong kernel: it
@@ -89,6 +110,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import functools
 import json
 import os
 import re
@@ -108,7 +130,13 @@ from ray_tpu_torch.models import (
     GPT2Config,
     Llama,
     LlamaConfig,
+    ResNet,
+    ResNet50Config,
+    ViT,
+    ViTConfig,
     llama_loss_fn,
+    resnet_loss_fn,
+    vit_loss_fn,
 )
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
 from ray_tpu_torch.ops.cuda import build
@@ -118,6 +146,7 @@ from ray_tpu_torch.train import (
     init_train_state,
     make_multi_train_step,
     prefetch_to_device,
+    sgd,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core
@@ -143,6 +172,12 @@ GRAD_TOL = 3.5e-2
 # loss barely depends on attention; this check holds the CE paths, the
 # gradient check above holds attention.
 STEP0_LOSS_TOL = 1e-3
+# The same for ViT-B/16 (kernels against plain attention, on ~7.4 nats):
+# its loss is the mean over 128 images, GPT-2's over 32,768 tokens, so
+# the same per-item rounding differences leave ~16x more in the mean
+# (9.2e-4 read on an H100). Attention that saw the wrong keys (a causal
+# mask, say) would move the CLS token, and the loss, by far more.
+VIT_STEP0_LOSS_TOL = 5e-3
 # Remat against no remat, same weights and batch on the card: the
 # recomputed forward repeats the same kernels and products, so the two
 # agree to the last bit unless a library product picks another
@@ -150,6 +185,13 @@ STEP0_LOSS_TOL = 1e-3
 # orders of magnitude more.
 REMAT_LOSS_TOL = 1e-5
 REMAT_GRAD_TOL = 1e-3
+# ||logits(bf16 model, card) - logits(float32 model, CPU)|| / ||logits||
+# at step 0, train mode, same weights and images: every convolution rounds
+# its output to bf16 (2^-9 relative) and BatchNorm renormalises it, so
+# the paths drift apart by about a percent (1.2e-2 for ResNet-50 at 64x64
+# on the CPU); a window shifted by uneven SAME padding, a wrong layout or
+# statistics taken over the wrong axes move the logits by tens of percent.
+RESNET_LOGIT_TOL = 5e-2
 
 # A spin of the card (~50 ms at the H100's clock) queued ahead of each
 # timed run, long enough for the host to queue every call of the run.
@@ -163,6 +205,11 @@ REMAT_POLICIES = ("nothing", "dots", "dots_no_batch", "everything")
 SPLIT_CHECK_LAYERS = (0, 11)
 LLAMA_BATCH, LLAMA_SEQ = 8, 2048
 LLAMA_CHECK_LAYERS = (0, 11, 21)
+IMAGE_SIZE = 224
+RESNET_BATCH = 128                 # bench.py's ResNet-50 batch per chip
+RESNET_CHECK_BATCH = 8             # step-0 logits against the CPU
+VIT_BATCH = 128                    # DeiT's 1024 over 8 GPUs
+VIT_CHECK_LAYERS = (0, 11)
 K_STEPS = 2                        # optimizer steps per dispatch
 TIMED_DISPATCHES = 3
 SHORT_TIMED_DISPATCHES = 2         # split, remat and TinyLlama phases
@@ -296,15 +343,16 @@ def flash_split(n: int):
             os.environ["RAY_TPU_FLASH_SPLIT"] = old
 
 
-def work(bh: int, tq: int, tk: int) -> dict[str, tuple[float, float]]:
+def work(bh: int, tq: int, tk: int, causal: bool = True
+         ) -> dict[str, tuple[float, float]]:
     """{kernel: (tensor-core FLOPs, bytes)} of each kernel on q [BH, tq,
     D] against k, v [BH, tk, D] with the causal diagonal bottom-right
     aligned: each input read once, each output written once, and the
-    tq * (tk - tq) + tq (tq + 1) / 2 causal pairs this input needs.
-    ``flash_bwd`` is the backward as one function (what the TPU's fused
-    kernels compute): 5 products, where the dq and dkv kernels together
-    do 7."""
-    pairs = tq * (tk - tq) + tq * (tq + 1) / 2
+    tq * (tk - tq) + tq (tq + 1) / 2 causal pairs this input needs (all
+    tq * tk pairs when not ``causal``). ``flash_bwd`` is the backward as
+    one function (what the TPU's fused kernels compute): 5 products, where
+    the dq and dkv kernels together do 7."""
+    pairs = tq * (tk - tq) + tq * (tq + 1) / 2 if causal else tq * tk
     mm = 2.0 * bh * pairs * D                    # one causal product
     row = bh * D * 2                             # one bf16 row of BH heads
     stats = bh * tq * 4                          # one f32 [BH, tq]
@@ -324,8 +372,9 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def bounds(bh: int, tq: int, tk: int) -> dict[str, tuple[float, str]]:
-    return {name: bound(*w) for name, w in work(bh, tq, tk).items()}
+def bounds(bh: int, tq: int, tk: int, causal: bool = True
+           ) -> dict[str, tuple[float, str]]:
+    return {name: bound(*w) for name, w in work(bh, tq, tk, causal).items()}
 
 
 def kernel_inputs(b: int, t: int, dev):
@@ -335,23 +384,25 @@ def kernel_inputs(b: int, t: int, dev):
     return q, k, v, do
 
 
-def kernel_readings(q, k, v, do, band: bool = False) -> dict[str, dict]:
+def kernel_readings(q, k, v, do, band: bool = False,
+                    causal: bool = True) -> dict[str, dict]:
     """Each kernel's outputs held against its plain version's on the same
     inputs: {kernel: {output: fa.agreement(...)}}, lse beside. The square
-    kernels on ``[BH, T, D]`` inputs, or (``band``) the band kernels on
-    q, do ``[BH, tq, D]`` and k, v ``[BH, tk, D]``."""
+    kernels on ``[BH, T, D]`` inputs (``causal`` or not), or (``band``)
+    the band kernels on q, do ``[BH, tq, D]`` and k, v ``[BH, tk, D]``."""
     fwd, dq_k, dkv_k = BAND if band else SQUARE
+    route = () if band else (causal,)
     scale = D ** -0.5
-    o, lse = WRAPPERS[fwd](q, k, v, scale)
-    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, True)
+    o, lse = WRAPPERS[fwd](q, k, v, scale, *route)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, causal)
     # The backward kernels take the plain lse and delta, so each is held
     # against its own plain version alone.
     delta = (o_ref.float() * do.float()).sum(-1)
     bwd = (q, k, v, do, lse_ref, delta, scale)
-    dq = WRAPPERS[dq_k](*bwd)
-    dq_ref = fa.flash_bwd_dq_reference(*bwd, True)
-    dk, dv = WRAPPERS[dkv_k](*bwd)
-    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*bwd, True)
+    dq = WRAPPERS[dq_k](*bwd, *route)
+    dq_ref = fa.flash_bwd_dq_reference(*bwd, causal)
+    dk, dv = WRAPPERS[dkv_k](*bwd, *route)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_reference(*bwd, causal)
     torch.cuda.synchronize()
     out = {fwd: {"o": fa.agreement(o, o_ref)},
            dq_k: {"dq": fa.agreement(dq, dq_ref)},
@@ -409,29 +460,31 @@ def kernel_phase(b: int, t: int, dev) -> dict[str, dict]:
     return kernel_times(b, q, k, v, do, readings, f"B={b} T={t} H={H}")
 
 
-def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
+def kernel_times(b: int, q, k, v, do, readings, what: str,
+                 causal: bool = True) -> dict[str, dict]:
     """The square kernels on ``[B*heads, T, D]`` inputs timed (CUDA events)
     beside their bounds, their plain versions and SDPA on the same inputs
-    (forward, and its whole backward for the backward kernels)."""
+    (forward, and its whole backward for the backward kernels), causal or
+    not."""
     bh, t, _ = q.shape
     scale = D ** -0.5
-    o, lse = fa.flash_fwd(q, k, v, scale, True)
+    o, lse = fa.flash_fwd(q, k, v, scale, causal)
     delta = (o.float() * do.float()).sum(-1)
-    bwd = (q, k, v, do, lse, delta, scale, True)
+    bwd = (q, k, v, do, lse, delta, scale, causal)
 
     # The yardstick: one library call computing the same function.
     q4, k4, v4, do4 = (x.view(b, bh // b, t, D) for x in (q, k, v, do))
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
-    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 20)
+        q4, k4, v4, is_causal=causal), 20)
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qg, kg, vg), do4, retain_graph=True), 20)
 
     times = {
         "flash_fwd": (
-            cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, True), 20),
-            cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, scale, True),
+            cuda_ms(lambda: fa.flash_fwd(q, k, v, scale, causal), 20),
+            cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, scale, causal),
                     3, 1),
             lib_fwd),
         "flash_bwd_dq": (
@@ -443,7 +496,7 @@ def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
             cuda_ms(lambda: fa.flash_bwd_dkv_reference(*bwd), 3, 1),
             lib_bwd),
     }
-    bnd = bounds(bh, t, t)
+    bnd = bounds(bh, t, t, causal)
     rows = {}
     for name, (ms, p_ms, l_ms) in times.items():
         err = max(r["max_abs_err"] for o_name, r in readings[name].items()
@@ -451,13 +504,14 @@ def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
         rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
                       "bound_ms": bnd[name][0], "bound_by": bnd[name][1],
                       "library_ms": l_ms}
-        print(f"kernel {name} {what} D={D} bf16 causal: "
+        print(f"kernel {name} {what} D={D} bf16 "
+              f"{'causal' if causal else 'non-causal'}: "
               f"max abs err {err:.3g}, {ms:.4f} ms, "
               f"bound {bnd[name][0]:.4f} ms ({bnd[name][1]}), "
               f"plain {p_ms:.4f} ms, library {l_ms:.4f} ms, kernel / "
               f"library {ms / l_ms:.3f}x", flush=True)
     hosts = {name: host_us(fn) for name, fn in (
-        ("flash_fwd", lambda: fa.flash_fwd(q, k, v, scale, True)),
+        ("flash_fwd", lambda: fa.flash_fwd(q, k, v, scale, causal)),
         ("flash_bwd_dq", lambda: fa.flash_bwd_dq(*bwd)),
         ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(*bwd)))}
     # The forward's parts: its tensor-map geometry in Python, and the C
@@ -466,7 +520,8 @@ def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
                            (v, fa._FWD_BOX_ROWS[1]))
     c_fn = fa._KERNELS["flash_fwd"]._fn
     c_args = (maps, ctypes.c_void_p(o.data_ptr()),
-              ctypes.c_void_p(lse.data_ptr()), bh, t, t, 0, D, scale, 1, 0,
+              ctypes.c_void_p(lse.data_ptr()), bh, t, t, 0, D, scale,
+              int(causal), 0,
               ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     geo_us = host_us(lambda: fa._tensor_maps(
         (q, fa._FWD_BOX_ROWS[0]), (k, fa._FWD_BOX_ROWS[1]),
@@ -480,7 +535,7 @@ def kernel_times(b: int, q, k, v, do, readings, what: str) -> dict[str, dict]:
         flush=True)
     pair_ms = times["flash_bwd_dq"][0] + times["flash_bwd_dkv"][0]
     pair_plain = cuda_ms(lambda: fa.flash_bwd_reference(
-        q, k, v, o, lse, do, scale, True), 3, 1)
+        q, k, v, o, lse, do, scale, causal), 3, 1)
     print(f"kernel pair flash_bwd_dq+flash_bwd_dkv {what}: {pair_ms:.4f}"
           f" ms, bound of the backward as one function (5 products) "
           f"{bnd['flash_bwd'][0]:.4f} ms ({bnd['flash_bwd'][1]}), "
@@ -642,21 +697,21 @@ def band_phase(b: int, t: int, dev) -> dict[int, dict[str, dict]]:
 
 
 class PlainAttention(torch.autograd.Function):
-    """Causal attention on [BH, T, D] through the plain versions, forward
-    and backward, saving only what the kernels' Function saves."""
+    """Attention on [BH, T, D] through the plain versions, forward and
+    backward, saving only what the kernels' Function saves."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        o, lse = fa.flash_fwd_reference(q, k, v, scale, True)
+    def forward(ctx, q, k, v, scale, causal=True):
+        o, lse = fa.flash_fwd_reference(q, k, v, scale, causal)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.scale = scale
+        ctx.scale, ctx.causal = scale, causal
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         return (*fa.flash_bwd_reference(q, k, v, o, lse, do.contiguous(),
-                                        ctx.scale, True), None)
+                                        ctx.scale, ctx.causal), None, None)
 
 
 def fold4(x):
@@ -665,10 +720,10 @@ def fold4(x):
     return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
 
 
-def plain_attention(q, k, v):
-    """Causal attention through the plain versions, on [B, T, H, D]."""
+def plain_attention(q, k, v, causal: bool = True):
+    """Attention through the plain versions, on [B, T, H, D]."""
     b, t, h, d = q.shape
-    o = PlainAttention.apply(fold4(q), fold4(k), fold4(v), d ** -0.5)
+    o = PlainAttention.apply(fold4(q), fold4(k), fold4(v), d ** -0.5, causal)
     return o.view(b, h, t, d).transpose(1, 2)
 
 
@@ -692,7 +747,7 @@ def layer_inputs(model, loss, layers) -> dict[int, list]:
 
     model.attn_fn = capture
     try:
-        torch.autograd.grad(loss(model), model.wte.weight)
+        torch.autograd.grad(loss(model), next(model.parameters()))
     finally:
         model.attn_fn = kernel_attn
     return {i: [fold4(x) for x in entry] for i, entry in sorted(seen.items())}
@@ -779,6 +834,30 @@ def device_batch(toks, tgts, dev) -> dict:
             "targets": torch.from_numpy(tgts).to(dev)}
 
 
+# Kernel-name markers of each device-time group of ``profile_dispatch``,
+# matched in this order on the lower-cased name: cuDNN's convolutions
+# (forward, data and weight gradients) before the products, since both
+# may carry "gemm" or "xmma"; "reductions" are the row and column sums
+# (BatchNorm's and LayerNorm's statistics, the loss); "other" is the
+# elementwise work.
+KERNEL_GROUPS = (
+    ("flash kernels", ("rtt::flash",)),
+    ("convolution", ("cudnn", "implicit_gemm", "fprop", "dgrad", "wgrad",
+                     "convolution", "conv2d", "winograd", "nchwtonhwc",
+                     "nhwctonchw")),
+    ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "cublas")),
+    ("reductions", ("reduce", "norm")),
+)
+
+
+def kernel_group(name: str) -> str:
+    low = name.lower()
+    for group, markers in KERNEL_GROUPS:
+        if any(m in low for m in markers):
+            return group
+    return "other"
+
+
 def profile_dispatch(step, state, batch, card: str):
     """Run one dispatch under torch.profiler and print where the device
     time goes: the busy share of the wall time, the kernels with the most
@@ -801,48 +880,64 @@ def profile_dispatch(step, state, batch, card: str):
     if busy_ms == 0:
         print("profile: no device time recorded (not measured)", flush=True)
         return state
-    groups = {"flash kernels": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash kernels": 0.0, "convolution": 0.0, "matmul": 0.0,
+              "reductions": 0.0, "other": 0.0}
     for key, _, us in rows:
-        low = key.lower()
-        if "rtt::flash" in low:
-            groups["flash kernels"] += us
-        elif any(m in low for m in ("gemm", "cutlass", "xmma", "nvjet",
-                                    "cublas")):
-            groups["matmul"] += us
-        else:
-            groups["other"] += us
+        groups[kernel_group(key)] += us
     print(f"profile: one dispatch of {K_STEPS} steps, wall {wall_ms:.2f} "
           f"ms, device busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%}); "
-          + ", ".join(f"{g} {us / 1e3:.2f} ms" for g, us in groups.items())
+          + ", ".join(f"{g} {us / 1e3:.2f} ms ({us / 1e3 / busy_ms:.1%})"
+                      for g, us in groups.items())
           + f"; card {card}", flush=True)
-    # The 12 kernels with the most device time, then the flash kernels
-    # below them.
+    # The 12 kernels with the most device time, then the largest of each
+    # group below them and the flash kernels.
     top = sorted(rows, key=lambda r: -r[2])
-    for key, count, us in top[:12] + [r for r in top[12:]
-                                      if "rtt::flash" in r[0]]:
+    shown = {kernel_group(r[0]) for r in top[:12]}
+    below = []
+    for r in top[12:]:
+        group = kernel_group(r[0])
+        if group == "flash kernels" or group not in shown:
+            below.append(r)
+            shown.add(group)
+    for key, count, us in top[:12] + below:
         print(f"profile kernel {us / 1e3:9.3f} ms x{count:<5d} {key[:110]}",
               flush=True)
     return state
 
 
-def train_run(model, loss_fn, toks, tgts, timed: int,
-              profile_card: str | None = None) -> dict:
-    """Train ``model`` on the repeated batch through ``prefetch_to_device``
-    and ``make_multi_train_step`` with ``adamw(3e-4, weight_decay=0.1,
-    mu_dtype=bf16)``: one warm-up dispatch of K_STEPS steps, ``timed``
-    timed dispatches and, with ``profile_card``, one profiled dispatch
-    (after the launch counts are read). Peak memory is over the whole
-    run."""
+def lm_opt():
+    """The LM phases' optimizer: ``adamw(3e-4, weight_decay=0.1,
+    mu_dtype=bf16)`` (``bench.py:371``)."""
+    return adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
+
+
+def token_stack(toks, tgts) -> dict:
+    """One batch repeated K_STEPS times: a host stack for the prefetcher."""
+    return {"tokens": np.stack([toks] * K_STEPS),
+            "targets": np.stack([tgts] * K_STEPS)}
+
+
+def train_run(model, loss_fn, opt, stack, items: int, timed: int,
+              profile_card: str | None = None, place=None,
+              has_extra: bool = False) -> dict:
+    """Train ``model`` on the repeated batch ``stack`` (K_STEPS steps a
+    dispatch) through ``prefetch_to_device`` (placed by ``place`` when
+    given) and ``make_multi_train_step`` with ``opt``: one warm-up
+    dispatch, ``timed`` timed dispatches and, with ``profile_card``, one
+    profiled dispatch (after the launch counts are read). ``items`` is
+    what one step consumes (tokens or images). With ``has_extra`` the
+    model's buffers are the step's ``extra``. Peak memory is over the
+    whole run."""
     dev = next(model.parameters()).device
-    opt = adamw(3e-4, weight_decay=0.1, mu_dtype=torch.bfloat16)
-    state = init_train_state(model, opt)
-    step = make_multi_train_step(loss_fn, opt, grad_norm=False)
-    stack = {"tokens": np.stack([toks] * K_STEPS),
-             "targets": np.stack([tgts] * K_STEPS)}
+    state = init_train_state(model, opt, extra=(dict(model.named_buffers())
+                                                if has_extra else None))
+    step = make_multi_train_step(loss_fn, opt, has_extra=has_extra,
+                                 grad_norm=False)
     n_dispatch = 1 + timed + (profile_card is not None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with prefetch_to_device((stack for _ in range(n_dispatch)), dev) as pf:
+    with prefetch_to_device((stack for _ in range(n_dispatch)), dev,
+                            place=place) as pf:
         fa.reset_launch_counts()
         state, metrics = step(state, next(pf))     # warm-up dispatch
         loss_warm = float(metrics["loss"])
@@ -856,14 +951,13 @@ def train_run(model, loss_fn, toks, tgts, timed: int,
         counts = fa.launch_counts()
         if profile_card is not None:
             state = profile_dispatch(step, state, next(pf), profile_card)
-    b, t = toks.shape
     n_steps = (1 + timed) * K_STEPS
     check(state.step == n_dispatch * K_STEPS, "every step ran")
     check(np.isfinite(loss_final), "loss finite")
     return {"loss_warm": loss_warm, "loss_final": loss_final,
             "n_steps": n_steps, "counts": counts,
             "step_ms": dt / (timed * K_STEPS) * 1e3,
-            "tok_s": b * t * timed * K_STEPS / dt,
+            "tok_s": items * timed * K_STEPS / dt,
             "peak": torch.cuda.max_memory_allocated(), "stall_ms": stall * 1e3}
 
 
@@ -877,11 +971,12 @@ def check_counts(run: dict, per_step: dict[str, int], what: str) -> None:
               f"step ({got} for {n} steps)")
 
 
-def describe_run(what: str, run: dict, loss0: float, card: str) -> str:
+def describe_run(what: str, run: dict, loss0: float, card: str,
+                 unit: str = "tokens") -> str:
     return (f"train {what}, {run['n_steps']} steps: loss {loss0:.4f} -> "
             f"{run['loss_warm']:.4f} (step {K_STEPS}) -> "
             f"{run['loss_final']:.4f} (step {run['n_steps']}); step "
-            f"{run['step_ms']:.2f} ms, {run['tok_s']:.1f} tokens/s, peak "
+            f"{run['step_ms']:.2f} ms, {run['tok_s']:.1f} {unit}/s, peak "
             f"memory {run['peak']} B, input stall {run['stall_ms']:.3f} ms; "
             f"launches {run['counts']}; card {card}")
 
@@ -904,8 +999,9 @@ def train_phase(card: str) -> tuple[dict, float]:
           "step-0 loss matches the plain path")
     del batch0
 
-    run = train_run(model, gpt2_loss_fn(ce_chunk=2048), toks, tgts,
-                    TIMED_DISPATCHES, profile_card=card)
+    run = train_run(model, gpt2_loss_fn(ce_chunk=2048), lm_opt(),
+                    token_stack(toks, tgts), toks.size, TIMED_DISPATCHES,
+                    profile_card=card)
     print(describe_run(f"GPT-2 124M B={TRAIN_BATCH} T={TRAIN_SEQ} bf16", run,
                        loss_kernel, card), flush=True)
     check(run["loss_final"] < run["loss_warm"] < loss_kernel,
@@ -933,7 +1029,8 @@ def split_train_phase(n: int, loss_unsplit: float, card: str) -> dict:
         check(abs(loss0 - loss_unsplit) < STEP0_LOSS_TOL,
               f"split {n} step-0 loss matches the unsplit run's")
         del batch0
-        run = train_run(model, gpt2_loss_fn(ce_chunk=2048), toks, tgts,
+        run = train_run(model, gpt2_loss_fn(ce_chunk=2048), lm_opt(),
+                        token_stack(toks, tgts), toks.size,
                         SHORT_TIMED_DISPATCHES)
     print(describe_run(f"GPT-2 124M split {n} B={TRAIN_BATCH} T={TRAIN_SEQ} "
                        "bf16", run, loss0, card), flush=True)
@@ -979,7 +1076,8 @@ def remat_phase(base_peak: int, card: str) -> dict[str, dict]:
     runs = {}
     for policy in REMAT_POLICIES:
         cfg = GPT2Config.small(remat=True, remat_policy=policy)
-        run = train_run(GPT2(cfg, seed=0), loss_fn, toks, tgts,
+        run = train_run(GPT2(cfg, seed=0), loss_fn, lm_opt(),
+                        token_stack(toks, tgts), toks.size,
                         SHORT_TIMED_DISPATCHES)
         print(describe_run(f"GPT-2 124M remat {policy} B={TRAIN_BATCH} "
                            f"T={TRAIN_SEQ} bf16", run, loss0, card),
@@ -1027,7 +1125,8 @@ def llama_phase(card: str) -> dict[str, dict]:
     del batch0
     torch.cuda.empty_cache()
 
-    run = train_run(model, llama_loss_fn(ce_chunk=2048), toks, tgts,
+    run = train_run(model, llama_loss_fn(ce_chunk=2048), lm_opt(),
+                    token_stack(toks, tgts), toks.size,
                     SHORT_TIMED_DISPATCHES, profile_card=card)
     mfu = 6 * n_params * run["tok_s"] / PEAK_BF16_FLOPS
     print(describe_run(f"TinyLlama 1.1B ({n_params} params) B={LLAMA_BATCH} "
@@ -1038,6 +1137,183 @@ def llama_phase(card: str) -> dict[str, dict]:
           "TinyLlama: loss falls on a repeated batch")
     check_counts(run, {name: cfg.n_layer for name in SQUARE}, "TinyLlama")
     return rows
+
+
+def image_place(size: int, classes: int, dev, keys=("image", "label")):
+    """``place(seed)`` for ``prefetch_to_device``: one batch drawn on the
+    card from ``seed`` (``[B, size, size, 3]`` float32 normal images,
+    int32 labels) and repeated K_STEPS times as a ``[K_STEPS, ...]``
+    stack. It runs on the prefetcher's side stream, so the next stack is
+    drawn while a step runs (the on-device generator of ``bench.py``'s
+    ResNet-50 lane, ``bench.py:566-594``)."""
+    def place(batch_seed):
+        b, seed = batch_seed
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        image = torch.randn((b, size, size, 3), generator=gen, device=dev)
+        label = torch.randint(0, classes, (b,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        return {keys[0]: image.expand(K_STEPS, *image.shape),
+                keys[1]: label.expand(K_STEPS, b)}
+    return place
+
+
+def flops_per_step(model, loss, batch) -> float:
+    """FLOPs of one forward and backward of ``loss(model, batch)``, counted
+    by ``torch.utils.flop_counter`` from the shapes of each product and
+    convolution (the flash kernels are custom ops, which it does not
+    count)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        out = loss(model, batch)
+        out = out[0] if isinstance(out, tuple) else out
+        torch.autograd.grad(out, [p for p in model.parameters()
+                                  if p.requires_grad])
+    return float(counter.get_total_flops())
+
+
+def resnet_phase(card: str) -> dict:
+    """ResNet-50 (``ResNet50Config()``, 1000 classes, random weights from
+    seed 0) at batch 128, 224x224: step-0 logits against the float32 model
+    on the CPU, then training with ``sgd(0.1, momentum=0.9,
+    nesterov=True)`` and the BatchNorm statistics through the step
+    (``bench.py:537-549``), on images drawn on the card behind the
+    prefetcher."""
+    cfg = ResNet50Config()
+    model = ResNet(cfg, seed=0)
+    dev = next(model.parameters()).device
+    rng = np.random.default_rng(0)
+    image = rng.standard_normal((RESNET_CHECK_BATCH, IMAGE_SIZE, IMAGE_SIZE,
+                                 3)).astype(np.float32)
+    # The float32 reference runs on the CPU, so TF32 cannot touch it.
+    ref = ResNet(ResNet50Config(dtype=torch.float32), device="cpu", seed=0)
+    ref.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        got, _ = model(torch.from_numpy(image).to(dev), train=True)
+        want, _ = ref(torch.from_numpy(image), train=True)
+    del ref
+    rel = float(torch.linalg.vector_norm(got.cpu() - want)
+                / torch.linalg.vector_norm(want))
+    print(f"ResNet-50 step-0 logits (train mode, B={RESNET_CHECK_BATCH}): "
+          f"bf16 on the card vs float32 on the CPU, relative norm error "
+          f"{rel:.4g} (limit {RESNET_LOGIT_TOL}), largest |diff| "
+          f"{float((got.cpu() - want).abs().max()):.4g} of largest |logit| "
+          f"{float(want.abs().max()):.4g}", flush=True)
+    check(bool(torch.isfinite(got).all()) and rel < RESNET_LOGIT_TOL,
+          "ResNet-50 step-0 logits match the float32 model on the CPU")
+
+    place = image_place(IMAGE_SIZE, cfg.num_classes, dev)
+    batch0 = {k: v[0] for k, v in place((RESNET_BATCH, 0)).items()}
+    initial = {k: v.clone() for k, v in model.batch_stats().items()}
+    with torch.no_grad():
+        loss0 = float(resnet_loss_fn()(model, model.batch_stats(),
+                                       batch0)[0])
+    flops = flops_per_step(
+        model, lambda m, b: resnet_loss_fn()(m, m.batch_stats(), b), batch0)
+    del batch0
+    torch.cuda.empty_cache()
+
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True       # fixed shapes: autotune
+    try:
+        run = train_run(model, resnet_loss_fn(),
+                        sgd(0.1, momentum=0.9, nesterov=True),
+                        (RESNET_BATCH, 0), RESNET_BATCH,
+                        SHORT_TIMED_DISPATCHES, profile_card=card,
+                        place=place, has_extra=True)
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    share = flops * run["tok_s"] / RESNET_BATCH / PEAK_BF16_FLOPS
+    print(describe_run(f"ResNet-50 B={RESNET_BATCH} {IMAGE_SIZE}x"
+                       f"{IMAGE_SIZE} bf16 channels_last, SGD-Nesterov",
+                       run, loss0, card, unit="images")
+          + f"; {flops:.4g} FLOPs a step (convolutions and the classifier, "
+          f"forward and backward) = {share:.4f} of the bf16 peak", flush=True)
+    check(run["loss_final"] < run["loss_warm"] < loss0,
+          "ResNet-50: loss falls on a repeated batch")
+    check_counts(run, {}, "ResNet-50 (no flash kernel)")
+
+    stats = model.batch_stats()
+    moved = [float((v != initial[k]).float().mean()) for k, v in stats.items()]
+    print(f"ResNet-50 running statistics: {len(stats)} buffers, all finite: "
+          f"{all(bool(torch.isfinite(v).all()) for v in stats.values())}; "
+          f"share of entries moved from their initial value: least "
+          f"{min(moved):.4f}, mean {sum(moved) / len(moved):.4f}", flush=True)
+    check(all(bool(torch.isfinite(v).all()) for v in stats.values()),
+          "ResNet-50 running statistics finite")
+    check(all(not torch.equal(v, initial[k]) for k, v in stats.items()),
+          "every ResNet-50 running statistic moved from its initial value")
+    with torch.no_grad():
+        x = torch.from_numpy(image).to(dev)
+        eval_trained = model(x)
+        eval_initial = model(x, batch_stats=initial)
+    diff = float((eval_trained - eval_initial).abs().max())
+    print(f"ResNet-50 eval mode (B={RESNET_CHECK_BATCH}): logits finite "
+          f"{bool(torch.isfinite(eval_trained).all())}; largest change "
+          f"against the initial statistics {diff:.4g}", flush=True)
+    check(bool(torch.isfinite(eval_trained).all()) and diff > 0,
+          "ResNet-50 eval mode reads the trained running statistics")
+    return run
+
+
+def vit_phase(card: str) -> tuple[dict, dict]:
+    """ViT-B/16 (``ViTConfig.base()``, random weights from seed 0) at batch
+    128, 224x224 (T = 197), ``adamw(3e-3)``: the kernels with
+    ``causal=False`` on layers 0 and 11's own inputs and timed at that
+    shape, the step-0 loss against the plain attention, then training."""
+    cfg = ViTConfig.base()
+    model = ViT(cfg, seed=0)
+    dev = next(model.parameters()).device
+    t = cfg.num_patches + 1
+    place = image_place(cfg.image_size, cfg.num_classes, dev,
+                        keys=("images", "labels"))
+    batch0 = {k: v[0] for k, v in place((VIT_BATCH, 0)).items()}
+    loss = vit_loss_fn()
+    captured = layer_inputs(model, lambda m: loss(m, batch0),
+                            set(VIT_CHECK_LAYERS))
+    readings = {}
+    for i, xs in captured.items():
+        readings[i] = kernel_readings(*xs, causal=False)
+        print(f"agreement ViT-B/16 layer {i} (non-causal, BH="
+              f"{xs[0].shape[0]}, T={t}): {describe(readings[i])}",
+              flush=True)
+        check_readings(readings[i], f"on ViT-B/16 layer {i}'s inputs")
+    last = VIT_CHECK_LAYERS[-1]
+    rows = kernel_times(VIT_BATCH, *captured[last], readings[last],
+                        f"ViT-B/16 layer {last} B={VIT_BATCH} T={t} "
+                        f"H={cfg.n_head}", causal=False)
+    del captured
+    torch.cuda.empty_cache()
+
+    kernel_attn = model.attn_fn
+    with torch.no_grad():
+        loss_kernel = float(loss(model, batch0))
+        model.attn_fn = functools.partial(plain_attention, causal=False)
+        loss_plain = float(loss(model, batch0))
+    model.attn_fn = kernel_attn
+    print(f"ViT-B/16 step-0 loss: kernels {loss_kernel:.6f}, plain "
+          f"{loss_plain:.6f}, |diff| {abs(loss_kernel - loss_plain):.3g} "
+          f"(limit {VIT_STEP0_LOSS_TOL})", flush=True)
+    check(np.isfinite(loss_kernel)
+          and abs(loss_kernel - loss_plain) < VIT_STEP0_LOSS_TOL,
+          "ViT-B/16 step-0 loss matches the plain-attention path")
+    flops = flops_per_step(model, loss, batch0)
+    del batch0
+    torch.cuda.empty_cache()
+
+    run = train_run(model, loss, adamw(3e-3), (VIT_BATCH, 0), VIT_BATCH,
+                    SHORT_TIMED_DISPATCHES, profile_card=card, place=place)
+    share = flops * run["tok_s"] / VIT_BATCH / PEAK_BF16_FLOPS
+    print(describe_run(f"ViT-B/16 B={VIT_BATCH} {cfg.image_size}x"
+                       f"{cfg.image_size} (T={t}) bf16, adamw(3e-3)", run,
+                       loss_kernel, card, unit="images")
+          + f"; {flops:.4g} FLOPs a step in products and the patch "
+          f"convolution (attention not counted) = {share:.4f} of the bf16 "
+          "peak", flush=True)
+    check(run["loss_final"] < run["loss_warm"] < loss_kernel,
+          "ViT-B/16: loss falls on a repeated batch")
+    check_counts(run, {name: cfg.n_layer for name in SQUARE}, "ViT-B/16")
+    return rows, run
 
 
 def plant_fault(name: str) -> str:
@@ -1171,6 +1447,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     remat_phase(main_run["peak"], card)
     llama_phase(card)
+    torch.cuda.empty_cache()
+    resnet_phase(card)
+    torch.cuda.empty_cache()
+    vit_rows, vit_run = vit_phase(card)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
 
@@ -1183,6 +1463,13 @@ def main() -> int:
                  "replaces": REPLACES[name],
                  "launches": split_runs[SPLITS[0]]["counts"][name],
                  **band_rows[SPLITS[0]][name]} for name in BAND]
+    # The square kernels' non-causal route at ViT-B/16's shape, with the
+    # ViT run's launches (the JAX ViT calls jax.nn.dot_product_attention;
+    # the route is the causal=False arithmetic of the kernels replaced).
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "causal": False,
+                 "launches": vit_run["counts"][name], **vit_rows[name]}
+                for name in SQUARE]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

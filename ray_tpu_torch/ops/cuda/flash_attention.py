@@ -1,4 +1,5 @@
-"""Causal flash attention on hand-written CUDA kernels (fwd + bwd).
+"""Flash attention on hand-written CUDA kernels (fwd + bwd), causal for
+the language models and not (``causal=False``) for ViT.
 
 Counterpart of ``ray_tpu/ops/pallas/flash_attention.py``. Three kernels
 in ``csrc/`` cover the seven Pallas calls of the JAX package:

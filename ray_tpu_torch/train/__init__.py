@@ -1,7 +1,15 @@
-"""ray_tpu_torch.train — the train step, its optimizer and the input
+"""ray_tpu_torch.train — the train step, its optimizers and the input
 pipeline of the port (counterpart of ``ray_tpu.train``'s step layer)."""
 
-from ray_tpu_torch.train.optim import AdamW, AdamWState, adamw, global_norm
+from ray_tpu_torch.train.optim import (
+    SGD,
+    AdamW,
+    AdamWState,
+    SGDState,
+    adamw,
+    global_norm,
+    sgd,
+)
 from ray_tpu_torch.train.prefetch import DevicePrefetcher, prefetch_to_device
 from ray_tpu_torch.train.step import (
     TrainState,
@@ -12,6 +20,7 @@ from ray_tpu_torch.train.step import (
 
 __all__ = [
     "TrainState", "init_train_state", "make_train_step",
-    "make_multi_train_step", "AdamW", "AdamWState", "adamw", "global_norm",
-    "DevicePrefetcher", "prefetch_to_device",
+    "make_multi_train_step", "AdamW", "AdamWState", "adamw", "SGD",
+    "SGDState", "sgd", "global_norm", "DevicePrefetcher",
+    "prefetch_to_device",
 ]

@@ -1,4 +1,4 @@
-"""AdamW with optax's semantics, updating in place.
+"""AdamW and SGD with optax's semantics, updating in place.
 
 Counterpart of ``optax.adamw`` as the JAX package uses it
 (``optax.adamw(3e-4, weight_decay=0.1, mu_dtype=bf16)`` on the bench):
@@ -81,6 +81,56 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
           mu_dtype: torch.dtype | None = None) -> AdamW:
     """optax.adamw's defaults and semantics; see the module docstring."""
     return AdamW(lr, b1, b2, eps, weight_decay, mu_dtype)
+
+
+@dataclass
+class SGDState:
+    trace: list[torch.Tensor] | None
+
+
+class SGD:
+    """optax.sgd: ``chain(trace(momentum, nesterov), scale_by_learning_rate)``.
+
+    Per parameter ``p`` with gradient ``g`` and trace ``t`` (zeros at
+    first, in the parameter's type):
+
+        t = g + momentum * t
+        u = g + momentum * t   if nesterov, else t
+        p = p + (-lr) * u
+
+    Every parameter takes the update (optax has no mask here), BatchNorm
+    scale and bias included. Without momentum, ``u = g`` and no trace is
+    kept. Parameters and traces are updated in place."""
+
+    def __init__(self, lr: float, momentum: float | None, nesterov: bool):
+        self.lr = lr
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def init(self, params) -> SGDState:
+        if self.momentum is None:
+            return SGDState(trace=None)
+        return SGDState(trace=[torch.zeros_like(p) for p in _as_list(params)])
+
+    @torch.no_grad()
+    def update(self, grads, state: SGDState, params) -> None:
+        """One SGD step: updates ``params`` and ``state`` in place."""
+        params = _as_list(params)
+        traces = state.trace or [None] * len(params)
+        for p, g, t in zip(params, grads, traces):
+            if g is None:
+                g = torch.zeros_like(p)
+            u = g
+            if t is not None:
+                t.mul_(self.momentum).add_(g)
+                u = g + self.momentum * t if self.nesterov else t
+            p.add_(u, alpha=-self.lr)
+
+
+def sgd(lr: float, momentum: float | None = None,
+        nesterov: bool = False) -> SGD:
+    """optax.sgd's defaults and semantics; see :class:`SGD`."""
+    return SGD(lr, momentum, nesterov)
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -13,7 +13,10 @@ The band routes of the causal split (``flash_fwd_rect``,
 ``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) are held the same way at
 ragged ``(tq, tk)`` that cut the 128-row tiles, read in place from bands
 of a longer tensor, and through the split and remat paths of a small
-GPT-2. Two launches on the same inputs give the same bits.
+GPT-2. Two launches on the same inputs give the same bits. T = 197 is
+ViT-B/16's length; a small ViT trains through the non-causal route, and
+a tiny float32 ResNet's train-mode forward (cuDNN, ``channels_last``,
+TF32 off) is held against the same module on the CPU.
 
 Tolerances: ``flash_attention.agreement`` with the limits of
 ``AGREEMENT_TOL`` for the input type. Per element, |kernel - plain| is
@@ -61,8 +64,9 @@ def _inputs(bh, t, d, dtype, device, seed=0):
 @pytest.mark.parametrize("d", [64, 128])
 # T around the tiles of the kernels: 64 rows (dk/dv's key blocks, dq's key
 # tiles at D = 128), 128 rows (the forward's and dq's query and key tiles)
-# and their edges.
-@pytest.mark.parametrize("t", [1, 37, 64, 127, 128, 129, 130, 255, 256, 2048])
+# and their edges; 197 is ViT-B/16's (196 patches and the CLS token).
+@pytest.mark.parametrize("t", [1, 37, 64, 127, 128, 129, 130, 197, 255, 256,
+                               2048])
 def test_kernels_match_plain(cuda, t, d, causal, dtype):
     q, k, v, do = _inputs(3, t, d, dtype, cuda)
     scale = d ** -0.5
@@ -431,3 +435,87 @@ def test_gpt2_split_and_remat_grads_match_plain(cuda, route, monkeypatch):
         rel = float(torch.linalg.vector_norm(gk - gp)
                     / torch.linalg.vector_norm(gp))
         assert rel < 2e-2, (pname, rel)
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    """float32 products and convolutions in full float32 on the card."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("size", [32, 33])
+def test_resnet_train_forward_on_card_matches_cpu(no_tf32, size):
+    """A tiny float32 ResNet's train-mode forward on the card (cuDNN,
+    channels_last, TF32 off) against the same module on the CPU: logits
+    within 1e-4 absolute and each new running statistic within 1e-5 of its
+    layer's largest; only summation order differs. The buffers stay as
+    they were: the forward is functional."""
+    from ray_tpu_torch.models import ResNet, ResNet50Config
+
+    model = ResNet(ResNet50Config.tiny(dtype=torch.float32), device="cpu",
+                   seed=0)
+    rng = np.random.default_rng(6)
+    image = torch.from_numpy(
+        rng.standard_normal((4, size, size, 3)).astype(np.float32))
+    with torch.no_grad():
+        want, want_stats = model(image, train=True)
+        card = model.to(no_tf32)
+        before = {k: v.clone() for k, v in card.batch_stats().items()}
+        got, got_stats = card(image.to(no_tf32), train=True)
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) < 1e-4
+    assert sorted(got_stats) == sorted(want_stats)
+    for name, w in want_stats.items():
+        err = float((got_stats[name].cpu() - w).abs().max() / w.abs().max())
+        assert err < 1e-5, (name, err)
+        assert torch.equal(card.batch_stats()[name], before[name])
+
+
+def test_vit_train_step_on_card_matches_cpu(cuda):
+    """One adamw step of a small bf16 ViT (head_dim 64, T = 17) on the
+    card, through the kernels with causal=False, against the same step on
+    the CPU through the plain versions: loss within 1e-2 relative,
+    gradient norm within 5e-2, one launch of each square kernel per layer
+    and none of the band routes."""
+    from ray_tpu_torch.models import ViT, ViTConfig, vit_loss_fn
+    from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+
+    cfg = ViTConfig.tiny(n_embd=128, n_head=2)
+    rng = np.random.default_rng(7)
+    batch = {"images": torch.from_numpy(
+                 rng.standard_normal((4, 32, 32, 3)).astype(np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, 10, 4))}
+    metrics = {}
+    for dev in ("cpu", cuda):
+        model = ViT(cfg, device="cpu", seed=0).to(dev)
+        opt = adamw(3e-3)
+        step = make_train_step(vit_loss_fn(), opt)
+        fa.reset_launch_counts()
+        _, m = step(init_train_state(model, opt),
+                    {k: v.to(dev) for k, v in batch.items()})
+        metrics[str(dev)] = {k: float(v) for k, v in m.items()}
+        launched = fa.launch_counts()
+    assert launched == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                        "flash_fwd_rect": 0, "flash_bwd_dq_rect": 0,
+                        "flash_bwd_dkv_rect": 0}
+    cpu, card = metrics["cpu"], metrics[str(cuda)]
+    assert abs(card["loss"] - cpu["loss"]) < 1e-2 * cpu["loss"]
+    assert abs(card["grad_norm"] - cpu["grad_norm"]) < 5e-2 * cpu["grad_norm"]
+
+
+def test_vit_refuses_a_head_dim_the_kernels_do_not_take(cuda):
+    """ViTConfig.tiny() has head_dim 16: on the card its attention raises
+    and nothing falls back to another attention."""
+    from ray_tpu_torch.models import ViT, ViTConfig
+
+    model = ViT(ViTConfig.tiny(), device=cuda, seed=0)
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim"):
+        model(torch.zeros(2, 32, 32, 3, device=cuda))
+    assert sum(fa.launch_counts().values()) == 0

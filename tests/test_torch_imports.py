@@ -40,11 +40,14 @@ assert not leaked, leaked
 
 import torch
 from ray_tpu_torch.core.accelerator import default_device
-from ray_tpu_torch.models import GPT2, GPT2Config, Llama, LlamaConfig
+from ray_tpu_torch.models import (GPT2, GPT2Config, Llama, LlamaConfig,
+                                  ResNet, ResNet50Config, ViT, ViTConfig)
 from ray_tpu_torch.train import prefetch_to_device
 assert not torch.cuda.is_available()
 for entry in (default_device, lambda: GPT2(GPT2Config.tiny()),
               lambda: Llama(LlamaConfig.tiny()),
+              lambda: ResNet(ResNet50Config.tiny()),
+              lambda: ViT(ViTConfig.tiny()),
               lambda: prefetch_to_device([])):
     try:
         entry()
@@ -54,6 +57,8 @@ for entry in (default_device, lambda: GPT2(GPT2Config.tiny()),
         raise AssertionError("an entry point ran without a GPU")
 GPT2(GPT2Config.tiny(), device="cpu")
 Llama(LlamaConfig.tiny(), device="cpu")
+ResNet(ResNet50Config.tiny(), device="cpu")
+ViT(ViTConfig.tiny(), device="cpu")
 print("OK", len(names))
 """
 
@@ -66,7 +71,7 @@ def test_package_imports_without_jax_and_needs_a_gpu():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 13   # every module was walked
+    assert int(proc.stdout.split()[1]) >= 15   # every module was walked
 
 
 def test_no_import_statement_names_jax_or_ray_tpu():

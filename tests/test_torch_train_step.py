@@ -1,5 +1,5 @@
-"""The port's train step and AdamW against the JAX step and optax, and
-the port's DevicePrefetcher.
+"""The port's train step, AdamW and SGD against the JAX step and optax,
+the ``has_extra`` step, and the port's DevicePrefetcher.
 
 Trajectory: ``GPT2Config.tiny(dtype=float32)`` on shared weights, five
 numpy-seeded batches, ``make_multi_train_step`` (one step per dispatch,
@@ -13,7 +13,11 @@ to ~1e-7 relative at the same weights; Adam then divides each entry by
 its own running RMS, which turns those differences into larger update
 differences on entries whose gradient is small, and the weights drift
 apart step by step. Five steps at lr 1e-3 move entries by up to 5e-3;
-2e-4 is 4% of that. The prefetcher tests mirror
+2e-4 is 4% of that. SGD against optax on fixed gradients: parameters
+and traces within 1e-6 (float32 rounding of O(1) values). The
+``has_extra`` step (a tiny ResNet's BatchNorm statistics) is held to
+the formula ``0.9 * old + 0.1 * batch`` within 1e-6, once per step
+however often the forward runs. The prefetcher tests mirror
 ``tests/test_train_fused_step.py``'s.
 """
 
@@ -40,6 +44,8 @@ from ray_tpu.train import (  # noqa: E402
 )
 from ray_tpu_torch.models import GPT2, GPT2Config  # noqa: E402
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn  # noqa: E402
+from ray_tpu_torch.models import ResNet, ResNet50Config  # noqa: E402
+from ray_tpu_torch.models.resnet import resnet_loss_fn  # noqa: E402
 from ray_tpu_torch.train import (  # noqa: E402
     DevicePrefetcher,
     adamw,
@@ -47,6 +53,7 @@ from ray_tpu_torch.train import (  # noqa: E402
     make_multi_train_step,
     make_train_step,
     prefetch_to_device,
+    sgd,
 )
 
 N_STEPS = 5
@@ -209,6 +216,121 @@ def test_adamw_update_rule_by_hand():
         want = want - 0.1 * (u + 0.5 * want)
     assert st.count == 2
     np.testing.assert_allclose(p.numpy(), want.numpy(), rtol=1e-6)
+
+
+@pytest.mark.parametrize("momentum,nesterov", [(0.9, True), (0.9, False),
+                                                (None, False)])
+def test_sgd_matches_optax_on_fixed_gradients(momentum, nesterov):
+    """optax.sgd(0.1, momentum, nesterov) fed the same five gradients."""
+    rng = np.random.default_rng(11)
+    shapes = [(64, 32), (32,), (3, 5, 7)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    grads = [[rng.standard_normal(s).astype(np.float32) for s in shapes]
+             for _ in range(N_STEPS)]
+    jopt = optax.sgd(0.1, momentum=momentum, nesterov=nesterov)
+    jparams = [jnp.asarray(x) for x in init]
+    jstate = jopt.init(jparams)
+    opt = sgd(0.1, momentum=momentum, nesterov=nesterov)
+    params = [torch.tensor(x) for x in init]
+    state = opt.init(params)
+    for g in grads:
+        updates, jstate = jopt.update([jnp.asarray(x) for x in g], jstate,
+                                      jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.update([torch.tensor(x) for x in g], state, params)
+    for p, want in zip(params, jparams):
+        np.testing.assert_allclose(p.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+    if momentum is None:
+        assert state.trace is None
+        return
+    for t, want in zip(state.trace, jstate[0].trace):
+        np.testing.assert_allclose(t.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+
+
+def test_sgd_update_rule_by_hand():
+    """Nesterov: t = g + m t, p -= lr (g + m t); two steps in float64."""
+    p = torch.tensor([0.5, -1.0, 2.0], dtype=torch.float64)
+    opt = sgd(0.1, momentum=0.5, nesterov=True)
+    st = opt.init([p])
+    want = p.clone()
+    t = torch.zeros(3, dtype=torch.float64)
+    for g in (torch.tensor([1.0, -2.0, 0.5], dtype=torch.float64),
+              torch.tensor([-0.5, 1.0, 0.25], dtype=torch.float64)):
+        opt.update([g], st, [p])
+        t = g + 0.5 * t
+        want = want - 0.1 * (g + 0.5 * t)
+    assert torch.allclose(p, want, rtol=0, atol=1e-15)
+    assert torch.allclose(st.trace[0], t, rtol=0, atol=1e-15)
+
+
+def _tiny_resnet_state(seed: int = 0):
+    model = ResNet(ResNet50Config.tiny(dtype=torch.float32), device="cpu",
+                   seed=seed)
+    opt = sgd(0.1, momentum=0.9, nesterov=True)
+    return init_train_state(model, opt, extra=model.batch_stats()), opt
+
+
+def _image_batch(seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(
+                rng.standard_normal((2, 32, 32, 3)).astype(np.float32)),
+            "label": torch.from_numpy(rng.integers(0, 10, 2))}
+
+
+def _twice(module, extra, batch):
+    """The forward run twice in one step: the step must still write the
+    statistics once."""
+    resnet_loss_fn()(module, extra, batch)
+    return resnet_loss_fn()(module, extra, batch)
+
+
+def _recomputed(module, extra, batch):
+    """The forward under activation checkpointing, rerun in the
+    backward."""
+    return torch.utils.checkpoint.checkpoint(
+        resnet_loss_fn(), module, extra, batch, use_reentrant=False)
+
+
+@pytest.mark.parametrize("loss_fn", [resnet_loss_fn(), _twice, _recomputed],
+                         ids=["once", "twice", "recomputed"])
+def test_has_extra_step_writes_the_statistics_once(loss_fn):
+    state, opt = _tiny_resnet_state()
+    batch = _image_batch()
+    start = {k: v.clone() for k, v in state.extra.items()}
+    # The batch statistics of each BatchNorm at the step's weights.
+    with torch.no_grad():
+        _, once = state.params(batch["image"], train=True,
+                               batch_stats=start)
+    buffers = dict(state.params.named_buffers())
+    step = make_train_step(loss_fn, opt, has_extra=True, grad_norm=False)
+    state, m = step(state, batch)
+    assert state.step == 1 and np.isfinite(m["loss"].item())
+    for name, value in state.extra.items():
+        assert value is buffers[name]            # written in place
+        np.testing.assert_allclose(value.numpy(), once[name].numpy(),
+                                   rtol=0, atol=1e-6)
+        assert not torch.equal(value, start[name]), name
+
+
+def test_has_extra_multi_step_runs_each_step_on_the_new_statistics():
+    """Two steps in one dispatch equal two single steps, statistics
+    included."""
+    stack = [_image_batch(1), _image_batch(2)]
+    a, opt_a = _tiny_resnet_state(3)
+    step_a = make_train_step(resnet_loss_fn(), opt_a, has_extra=True)
+    for batch in stack:
+        a, _ = step_a(a, batch)
+    b, opt_b = _tiny_resnet_state(3)
+    step_b = make_multi_train_step(resnet_loss_fn(), opt_b, has_extra=True)
+    b, m = step_b(b, {k: torch.stack([x[k] for x in stack])
+                      for k in stack[0]})
+    assert b.step == 2 and "grad_norm" in m
+    for name in a.extra:
+        assert torch.equal(a.extra[name], b.extra[name]), name
+    for pa, pb in zip(a.params.parameters(), b.params.parameters()):
+        assert torch.equal(pa, pb)
 
 
 # ---------------------------------------------------------------------------
