@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``ray_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --eager                 (every train step eager)
     python3 chip_smoke.py --plant-fault KERNEL    (any kernel of FAULTS)
 
 Phases, each printed as it ends; any failed check raises and the script
@@ -81,6 +82,28 @@ exits non-zero without its result line:
    of the band routes. Prints the kernels' times at that shape beside their bound,
    plain versions and SDPA with no mask, and the run as for ResNet-50.
 
+11. MoE (``MoEConfig()``: GPT-2 small widths, 12 layers, 8 experts in
+   every 2nd block, capacity factor 2, 322 M parameters, random weights
+   from seed 0) at batch 32 and seq 1024, ``adamw(3e-4,
+   weight_decay=0.1, mu_dtype=bf16)`` and chunked CE. Checks: the square
+   kernels on MoE layers 1 and 11's own q, k, v and output gradient; the
+   step-0 loss against the plain attention within STEP0_LOSS_TOL; the
+   aux losses finite; on the first MoE layer's own first 4096 tokens the
+   index-form switch FFN against the one-hot einsum form (MOE_FORM_*);
+   the loss falling; 12 launches per step of each square kernel, none of
+   the bands. Prints step ms, tokens/s, FLOPs a step, the share of the
+   bf16 peak, peak bytes, the busy share, and each MoE layer's dropped
+   share and per-expert load at step 0 and at the end.
+
+Every train phase trains through the captured step (one CUDA graph,
+replayed; ``train.step``) and checks that it was captured once
+(``compile_count`` 1 after warm-up and after the timed dispatches) and
+updated the state in place (``buffers_donated``); its profiled dispatch
+cross-checks the launch counters against the flash kernels the profiler
+sees in the replay. GPT-2 and ResNet-50 also hold their first
+CAPTURE_STEPS losses against the same step under ``disable_capture()``
+from the same weights (CAPTURE_LOSS_RTOL).
+
 Then it prints the ``kernels`` JSON line (the ViT run's non-causal
 readings as entries with ``"causal": false``), the card line again, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
@@ -130,21 +153,35 @@ from ray_tpu_torch.models import (
     GPT2Config,
     Llama,
     LlamaConfig,
+    MoEBlock,
+    MoEConfig,
+    MoETransformer,
     ResNet,
     ResNet50Config,
     ViT,
     ViTConfig,
     llama_loss_fn,
+    moe_loss_fn,
     resnet_loss_fn,
     vit_loss_fn,
 )
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
 from ray_tpu_torch.ops.cuda import build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
+from ray_tpu_torch.ops.moe import (
+    capacity_for,
+    dense_switch_ffn_reference,
+    moe_ffn,
+    top1_route,
+)
 from ray_tpu_torch.train import (
     adamw,
+    buffers_donated,
+    compile_count,
+    disable_capture,
     init_train_state,
     make_multi_train_step,
+    make_train_step,
     prefetch_to_device,
     sgd,
 )
@@ -192,10 +229,29 @@ REMAT_GRAD_TOL = 1e-3
 # on the CPU); a window shifted by uneven SAME padding, a wrong layout or
 # statistics taken over the wrong axes move the logits by tens of percent.
 RESNET_LOGIT_TOL = 5e-2
+# The captured step against the same step run eagerly (disable_capture),
+# from the same weights on the same batch, over its first CAPTURE_STEPS
+# losses: the graph replays the kernels the eager step launches, on the
+# same inputs, so only a library product that picks another algorithm
+# inside a capture could move a loss, in its last places.
+CAPTURE_LOSS_RTOL = 1e-6
+CAPTURE_STEPS = 4
+# The index-form switch FFN (scatter, gather) against the one-hot einsum
+# form on one MoE layer's own tokens: each slot holds one token, so each
+# einsum sums one nonzero term and only the rounding of the bf16 products
+# may differ: the output within one bf16 unit of each element
+# (2^-8 |y|, or 2^-133 where y is 0), the router gradient (float32 sums of
+# those products) within 1e-3 relative norm.
+MOE_FORM_Y_RTOL = 2.0 ** -8
+MOE_FORM_GRAD_TOL = 1e-3
 
 # A spin of the card (~50 ms at the H100's clock) queued ahead of each
 # timed run, long enough for the host to queue every call of the run.
 HOLD_CYCLES = 100_000_000
+
+# False under --eager: every train phase runs its step eagerly
+# (disable_capture) and expects no capture.
+CAPTURE = True
 
 H, D = 12, 64
 SHAPES = ((32, 1024), (8, 2048))   # (batch, seq)
@@ -210,6 +266,8 @@ RESNET_BATCH = 128                 # bench.py's ResNet-50 batch per chip
 RESNET_CHECK_BATCH = 8             # step-0 logits against the CPU
 VIT_BATCH = 128                    # DeiT's 1024 over 8 GPUs
 VIT_CHECK_LAYERS = (0, 11)
+MOE_CHECK_LAYERS = (1, 11)         # MoE blocks sit at odd layers
+MOE_FORM_TOKENS = 4096             # where the [T, E, C] one-hot fits
 K_STEPS = 2                        # optimizer steps per dispatch
 TIMED_DISPATCHES = 3
 SHORT_TIMED_DISPATCHES = 2         # split, remat and TinyLlama phases
@@ -858,20 +916,37 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
+# The CUDA kernel behind each launch counter (both routes of a kernel run
+# the same function).
+KERNEL_NAMES = {"flash_fwd": "flash_fwd_kernel",
+                "flash_bwd_dq": "flash_bwd_dq_kernel",
+                "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+
+
 def profile_dispatch(step, state, batch, card: str):
-    """Run one dispatch under torch.profiler and print where the device
-    time goes: the busy share of the wall time, the kernels with the most
-    device time and every flash kernel. Informational: a profiler that
-    records no device time prints "not measured" and fails nothing."""
+    """Run one dispatch (a replay of the captured step) under
+    torch.profiler and print where the device time goes: the busy share of
+    the wall time, the kernels with the most device time and every flash
+    kernel. Cross-checks the launch counters against the flash kernels the
+    profiler saw in the dispatch and fails where they differ. A profiler
+    that records no device time prints "not measured" and fails nothing.
+    Returns the state and the busy share (None when not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    fa.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # One small kernel, waited for, before the dispatch: an eager
+        # dispatch's first kernels, issued while the profiler was still
+        # starting, went unrecorded (4 of 96 band forwards in one run).
+        torch.zeros(1, device=next(state.params.parameters()).device)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         float(metrics["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
+    counted = fa.launch_counts()
     rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0))
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
@@ -879,7 +954,16 @@ def profile_dispatch(step, state, batch, card: str):
     busy_ms = sum(r[2] for r in rows) / 1e3
     if busy_ms == 0:
         print("profile: no device time recorded (not measured)", flush=True)
-        return state
+        return state, None
+    seen = {name: sum(count for key, count, _ in rows if fn in key)
+            for name, fn in KERNEL_NAMES.items()}
+    want = {name: counted[name] + counted[f"{name}_rect"]
+            for name in KERNEL_NAMES}
+    print(f"profile: flash kernels the profiler saw in the replayed "
+          f"dispatch {seen}; launch counters (both routes) {want}",
+          flush=True)
+    check(seen == want, "the launch counters match the flash kernels the "
+          f"profiler saw in one replayed dispatch ({want} vs {seen})")
     groups = {"flash kernels": 0.0, "convolution": 0.0, "matmul": 0.0,
               "reductions": 0.0, "other": 0.0}
     for key, _, us in rows:
@@ -902,7 +986,7 @@ def profile_dispatch(step, state, batch, card: str):
     for key, count, us in top[:12] + below:
         print(f"profile kernel {us / 1e3:9.3f} ms x{count:<5d} {key[:110]}",
               flush=True)
-    return state
+    return state, busy_ms / wall_ms
 
 
 def lm_opt():
@@ -922,18 +1006,23 @@ def train_run(model, loss_fn, opt, stack, items: int, timed: int,
               has_extra: bool = False) -> dict:
     """Train ``model`` on the repeated batch ``stack`` (K_STEPS steps a
     dispatch) through ``prefetch_to_device`` (placed by ``place`` when
-    given) and ``make_multi_train_step`` with ``opt``: one warm-up
-    dispatch, ``timed`` timed dispatches and, with ``profile_card``, one
-    profiled dispatch (after the launch counts are read). ``items`` is
-    what one step consumes (tokens or images). With ``has_extra`` the
-    model's buffers are the step's ``extra``. Peak memory is over the
-    whole run."""
+    given) and ``make_multi_train_step`` with ``opt``, captured as a CUDA
+    graph: one warm-up dispatch (the eager warm-up step, the capture and
+    a replay), ``timed`` timed dispatches and, with ``profile_card``, one
+    profiled dispatch (after the launch counts are read). Checks that the
+    step was captured once and stayed so (``compile_count``) and that it
+    updated the state in place (``buffers_donated``). ``items`` is what
+    one step consumes (tokens or images). With ``has_extra`` the model's
+    buffers are the step's ``extra``. Peak memory is over the whole
+    run."""
     dev = next(model.parameters()).device
     state = init_train_state(model, opt, extra=(dict(model.named_buffers())
                                                 if has_extra else None))
     step = make_multi_train_step(loss_fn, opt, has_extra=has_extra,
                                  grad_norm=False)
     n_dispatch = 1 + timed + (profile_card is not None)
+    want_captures = 1 if CAPTURE else None
+    busy = None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with prefetch_to_device((stack for _ in range(n_dispatch)), dev,
@@ -941,6 +1030,7 @@ def train_run(model, loss_fn, opt, stack, items: int, timed: int,
         fa.reset_launch_counts()
         state, metrics = step(state, next(pf))     # warm-up dispatch
         loss_warm = float(metrics["loss"])
+        captures = compile_count(step)
         stall0 = pf.stall_s
         t0 = time.perf_counter()
         for _ in range(timed):
@@ -949,16 +1039,60 @@ def train_run(model, loss_fn, opt, stack, items: int, timed: int,
         dt = time.perf_counter() - t0
         stall = pf.stall_s - stall0
         counts = fa.launch_counts()
+        check(captures == want_captures
+              and compile_count(step) == want_captures,
+              f"the step was captured {want_captures} times, at warm-up, "
+              f"and not again (compile_count {captures} after warm-up, "
+              f"{compile_count(step)} after the timed dispatches)")
         if profile_card is not None:
-            state = profile_dispatch(step, state, next(pf), profile_card)
+            state, busy = profile_dispatch(step, state, next(pf),
+                                           profile_card)
     n_steps = (1 + timed) * K_STEPS
     check(state.step == n_dispatch * K_STEPS, "every step ran")
+    check(compile_count(step) == want_captures,
+          f"compile_count stays {want_captures}")
+    check(buffers_donated(step, state), "the step updated every parameter "
+          "and optimizer-state tensor in place (buffers_donated)")
     check(np.isfinite(loss_final), "loss finite")
     return {"loss_warm": loss_warm, "loss_final": loss_final,
             "n_steps": n_steps, "counts": counts,
             "step_ms": dt / (timed * K_STEPS) * 1e3,
-            "tok_s": items * timed * K_STEPS / dt,
+            "tok_s": items * timed * K_STEPS / dt, "busy": busy,
+            "compile_count": compile_count(step),
             "peak": torch.cuda.max_memory_allocated(), "stall_ms": stall * 1e3}
+
+
+def capture_vs_eager(make_model, loss_fn, make_opt, batch, what: str,
+                     has_extra: bool = False) -> None:
+    """The first CAPTURE_STEPS losses of the captured step against those of
+    the same step under ``disable_capture()``, each from a fresh model of
+    the same seed on ``batch``, repeated; within CAPTURE_LOSS_RTOL. Not
+    under ``--eager``, which runs no capture."""
+    if not CAPTURE:
+        return
+    losses = {}
+    for captured in (True, False):
+        model = make_model()
+        opt = make_opt()
+        state = init_train_state(model, opt, extra=(
+            dict(model.named_buffers()) if has_extra else None))
+        step = make_train_step(loss_fn, opt, has_extra=has_extra,
+                               grad_norm=False)
+        with contextlib.nullcontext() if captured else disable_capture():
+            losses[captured] = [float(step(state, batch)[1]["loss"])
+                                for _ in range(CAPTURE_STEPS)]
+        check(compile_count(step) == (1 if captured else None),
+              f"{what}: compile_count {compile_count(step)}")
+        del model, opt, state, step
+        torch.cuda.empty_cache()
+    got, want = losses[True], losses[False]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"{what} captured vs eager, first {CAPTURE_STEPS} losses: captured "
+          f"{got}, eager {want}; largest relative difference {rel:.3g} "
+          f"(limit {CAPTURE_LOSS_RTOL}); bit-equal: {got == want}",
+          flush=True)
+    check(rel <= CAPTURE_LOSS_RTOL,
+          f"{what}: the captured step's losses match the eager step's")
 
 
 def check_counts(run: dict, per_step: dict[str, int], what: str) -> None:
@@ -973,11 +1107,15 @@ def check_counts(run: dict, per_step: dict[str, int], what: str) -> None:
 
 def describe_run(what: str, run: dict, loss0: float, card: str,
                  unit: str = "tokens") -> str:
+    busy = "not measured" if run["busy"] is None else f"{run['busy']:.1%}"
     return (f"train {what}, {run['n_steps']} steps: loss {loss0:.4f} -> "
             f"{run['loss_warm']:.4f} (step {K_STEPS}) -> "
             f"{run['loss_final']:.4f} (step {run['n_steps']}); step "
             f"{run['step_ms']:.2f} ms, {run['tok_s']:.1f} {unit}/s, peak "
             f"memory {run['peak']} B, input stall {run['stall_ms']:.3f} ms; "
+            f"{'captured' if CAPTURE else 'eager'} step: compile_count "
+            f"{run['compile_count']}, buffers donated, busy {busy} (one "
+            f"profiled dispatch); "
             f"launches {run['counts']}; card {card}")
 
 
@@ -997,6 +1135,8 @@ def train_phase(card: str) -> tuple[dict, float]:
     check(np.isfinite(loss_kernel), "step-0 loss finite")
     check(abs(loss_kernel - loss_plain) < STEP0_LOSS_TOL,
           "step-0 loss matches the plain path")
+    capture_vs_eager(lambda: GPT2(cfg, seed=0), gpt2_loss_fn(ce_chunk=2048),
+                     lm_opt, batch0, "GPT-2 124M")
     del batch0
 
     run = train_run(model, gpt2_loss_fn(ce_chunk=2048), lm_opt(),
@@ -1031,7 +1171,7 @@ def split_train_phase(n: int, loss_unsplit: float, card: str) -> dict:
         del batch0
         run = train_run(model, gpt2_loss_fn(ce_chunk=2048), lm_opt(),
                         token_stack(toks, tgts), toks.size,
-                        SHORT_TIMED_DISPATCHES)
+                        SHORT_TIMED_DISPATCHES, profile_card=card)
     print(describe_run(f"GPT-2 124M split {n} B={TRAIN_BATCH} T={TRAIN_SEQ} "
                        "bf16", run, loss0, card), flush=True)
     check(run["loss_final"] < run["loss_warm"] < loss0,
@@ -1078,7 +1218,7 @@ def remat_phase(base_peak: int, card: str) -> dict[str, dict]:
         cfg = GPT2Config.small(remat=True, remat_policy=policy)
         run = train_run(GPT2(cfg, seed=0), loss_fn, lm_opt(),
                         token_stack(toks, tgts), toks.size,
-                        SHORT_TIMED_DISPATCHES)
+                        SHORT_TIMED_DISPATCHES, profile_card=card)
         print(describe_run(f"GPT-2 124M remat {policy} B={TRAIN_BATCH} "
                            f"T={TRAIN_SEQ} bf16", run, loss0, card),
               flush=True)
@@ -1210,6 +1350,9 @@ def resnet_phase(card: str) -> dict:
                                        batch0)[0])
     flops = flops_per_step(
         model, lambda m, b: resnet_loss_fn()(m, m.batch_stats(), b), batch0)
+    capture_vs_eager(lambda: ResNet(cfg, seed=0), resnet_loss_fn(),
+                     lambda: sgd(0.1, momentum=0.9, nesterov=True), batch0,
+                     "ResNet-50", has_extra=True)
     del batch0
     torch.cuda.empty_cache()
 
@@ -1316,6 +1459,123 @@ def vit_phase(card: str) -> tuple[dict, dict]:
     return rows, run
 
 
+def moe_layer_inputs(model, batch) -> dict[int, torch.Tensor]:
+    """{layer: the tokens ``[B·T, D]`` its SwitchFFN takes} of every MoE
+    layer, at the model's weights on ``batch``."""
+    seen = {}
+    hooks = [blk.moe.register_forward_pre_hook(
+        lambda m, args, i=i: seen.__setitem__(
+            i, args[0].detach().reshape(-1, args[0].shape[-1])))
+        for i, blk in enumerate(model.h) if isinstance(blk, MoEBlock)]
+    try:
+        with torch.no_grad():
+            moe_loss_fn()(model, batch)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return dict(sorted(seen.items()))
+
+
+def moe_routing(model, batch) -> str:
+    """Each MoE layer's routing on ``batch``: the share of tokens dropped
+    past capacity and each expert's share of the tokens (its load)."""
+    cfg = model.config
+    parts = []
+    for i, x in moe_layer_inputs(model, batch).items():
+        ffn = model.h[i].moe
+        cap = capacity_for(x.shape[0], cfg.num_experts, cfg.capacity_factor)
+        route = top1_route(x.float() @ ffn.router.float(), cfg.num_experts,
+                           cap)
+        load = torch.bincount(route.expert, minlength=cfg.num_experts)
+        dropped = float((route.slot == cfg.num_experts * cap).float().mean())
+        parts.append(f"layer {i} dropped {dropped:.4f}, load " + "/".join(
+            f"{v:.3f}" for v in (load.float() / x.shape[0]).tolist()))
+    return "; ".join(parts)
+
+
+def moe_form_check(model, batch) -> None:
+    """The index-form switch FFN (``moe_ffn``) against the one-hot einsum
+    form (``dense_switch_ffn_reference``) on the first MOE_FORM_TOKENS
+    tokens the first MoE layer takes, with that layer's weights: outputs,
+    aux and router gradients."""
+    cfg = model.config
+    first, x = next(iter(moe_layer_inputs(model, batch).items()))
+    x = x[:MOE_FORM_TOKENS]
+    ffn = model.h[first].moe
+    outs = {}
+    for name, fn in (("index", moe_ffn), ("one-hot",
+                                          dense_switch_ffn_reference)):
+        router = ffn.router.detach().clone().requires_grad_()
+        y, aux = fn(x, router, ffn.w_up.detach(), ffn.w_down.detach(),
+                    capacity_factor=cfg.capacity_factor, dtype=cfg.dtype)
+        grad, = torch.autograd.grad((y.float() ** 2).sum() + aux, router)
+        outs[name] = (y.detach().float(), aux.detach(), grad)
+    (y, aux, g), (y_ref, aux_ref, g_ref) = outs["index"], outs["one-hot"]
+    y_ok = bool(((y - y_ref).abs()
+                 <= MOE_FORM_Y_RTOL * y_ref.abs() + 2.0 ** -133).all())
+    g_rel = float(torch.linalg.vector_norm(g - g_ref)
+                  / torch.linalg.vector_norm(g_ref))
+    print(f"MoE layer {first}, first {MOE_FORM_TOKENS} tokens: index form "
+          f"vs one-hot einsum form: output bit-equal {torch.equal(y, y_ref)} "
+          f"(largest |diff| {float((y - y_ref).abs().max()):.3g}, limit one "
+          f"bf16 unit), aux {float(aux):.6f} vs {float(aux_ref):.6f}; router "
+          f"gradient bit-equal {torch.equal(g, g_ref)}, relative norm error "
+          f"{g_rel:.3g} (limit {MOE_FORM_GRAD_TOL})", flush=True)
+    check(y_ok and abs(float(aux) - float(aux_ref)) <= 1e-6 * abs(
+        float(aux_ref)) and g_rel <= MOE_FORM_GRAD_TOL,
+        "the index-form switch FFN matches the one-hot einsum form")
+
+
+def moe_phase(card: str) -> dict:
+    """The switch-MoE transformer (``MoEConfig()``: GPT-2 small widths, 8
+    experts every 2nd block, capacity factor 2, random weights from seed
+    0) at batch 32 x 1024, ``adamw(3e-4, weight_decay=0.1,
+    mu_dtype=bf16)`` and chunked CE, through the captured step."""
+    cfg = MoEConfig()
+    model = MoETransformer(cfg, seed=0)
+    dev = next(model.parameters()).device
+    n_params = sum(p.numel() for p in model.parameters())
+    toks, tgts = train_batch(cfg.vocab_size)
+    batch0 = device_batch(toks, tgts, dev)
+    loss = moe_loss_fn(ce_chunk=2048)
+    captured = layer_inputs(model, lambda m: loss(m, batch0),
+                            set(MOE_CHECK_LAYERS))
+    for i, xs in captured.items():
+        readings = kernel_readings(*xs)
+        print(f"agreement MoE layer {i}: {describe(readings)}", flush=True)
+        check_readings(readings, f"on MoE layer {i}'s inputs")
+    del captured
+    loss_kernel, loss_plain = step0_losses(model, batch0, moe_loss_fn)
+    check(np.isfinite(loss_kernel), "MoE step-0 loss finite")
+    check(abs(loss_kernel - loss_plain) < STEP0_LOSS_TOL,
+          "MoE step-0 loss matches the plain-attention path")
+    with torch.no_grad():
+        _, aux = model(batch0["tokens"], return_hidden=True)
+    print(f"MoE step-0 aux losses per MoE layer {aux.tolist()}", flush=True)
+    check(bool(torch.isfinite(aux).all()) and aux.numel() == cfg.n_layer // 2,
+          "MoE aux losses finite, one per MoE layer")
+    moe_form_check(model, batch0)
+    routing0 = moe_routing(model, batch0)
+    flops = flops_per_step(model, loss, batch0)
+    torch.cuda.empty_cache()
+
+    run = train_run(model, loss, lm_opt(), token_stack(toks, tgts), toks.size,
+                    SHORT_TIMED_DISPATCHES, profile_card=card)
+    share = flops * run["tok_s"] / toks.size / PEAK_BF16_FLOPS
+    print(describe_run(f"MoE ({n_params} params, {cfg.num_experts} experts "
+                       f"every {cfg.moe_every}nd block) B={TRAIN_BATCH} "
+                       f"T={TRAIN_SEQ} bf16", run, loss_kernel, card)
+          + f"; {flops:.4g} FLOPs a step in products (attention not "
+          f"counted) = {share:.4f} of the bf16 peak", flush=True)
+    print(f"MoE routing at step 0: {routing0}", flush=True)
+    print(f"MoE routing after {run['n_steps'] + K_STEPS} steps: "
+          f"{moe_routing(model, batch0)}", flush=True)
+    check(run["loss_final"] < run["loss_warm"] < loss_kernel,
+          "MoE: loss falls on a repeated batch")
+    check_counts(run, {name: cfg.n_layer for name in SQUARE}, "MoE")
+    return run
+
+
 def plant_fault(name: str) -> str:
     """Build kernel ``name``'s source with the fault of FAULTS, under the
     build directory, and bind that kernel's wrapper (and only it) to it.
@@ -1417,6 +1677,9 @@ def fault_main(name: str, dev) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plant-fault", choices=sorted(FAULTS))
+    parser.add_argument("--eager", action="store_true",
+                        help="run every train step eagerly "
+                        "(disable_capture), for the captured-vs-eager A/B")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1426,7 +1689,17 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
+    if args.eager:
+        global CAPTURE
+        CAPTURE = False
+        with disable_capture():
+            return run_all(dev, card)
+    return run_all(dev, card)
 
+
+def run_all(dev, card: str) -> int:
+    """Every phase, then the kernels line, the card line and the result
+    line."""
     t0 = time.perf_counter()
     build.ensure_built()
     print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1451,6 +1724,8 @@ def main() -> int:
     resnet_phase(card)
     torch.cuda.empty_cache()
     vit_rows, vit_run = vit_phase(card)
+    torch.cuda.empty_cache()
+    moe_phase(card)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
 

@@ -259,6 +259,39 @@ class Block(nn.Module):
         x = x + self.attn(self.ln_1(x), attn_fn)
         return x + self.mlp(self.ln_2(x))
 
+    @torch.no_grad()
+    def load_jax_params(self, p: dict) -> None:
+        """This block's flax params (``params["h_{i}"]``)."""
+        load_norms_and_attention(self, p)
+        for name in ("fc", "proj"):
+            lin = getattr(self.mlp, name)
+            put_param(lin.weight, p["mlp"][name]["kernel"], transpose=True)
+            put_param(lin.bias, p["mlp"][name]["bias"])
+
+
+def put_param(dst: torch.Tensor, src, transpose: bool = False) -> None:
+    """Copy one flax param (a numpy array) into ``dst``, transposed first
+    when asked; ValueError when the shapes differ."""
+    src = torch.from_numpy(np.array(src, dtype=np.float32))
+    if transpose:
+        src = src.t()
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"shape {tuple(src.shape)} does not fit "
+                         f"parameter {tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(src)
+
+
+def load_norms_and_attention(block: nn.Module, p: dict) -> None:
+    """A pre-LN block's ``ln_1``, ``ln_2`` and ``attn`` from its flax
+    params: what GPT-2's blocks and the MoE blocks share."""
+    for name in ("ln_1", "ln_2"):
+        ln = getattr(block, name)
+        put_param(ln.scale, p[name]["scale"])
+        put_param(ln.bias, p[name]["bias"])
+    for name in ("qkv_kernel", "qkv_bias", "proj_kernel", "proj_bias"):
+        put_param(getattr(block.attn, name), p["attn"][name])
+
 
 class GPT2(nn.Module):
     """GPT-2 LM. ``forward(tokens) -> logits``; wte is tied to the LM head.
@@ -314,32 +347,12 @@ class GPT2(nn.Module):
         """Copy the JAX package's flax params (a nested dict of numpy
         arrays, as ``ray_tpu.models.GPT2.init_params`` gives them after
         ``np.asarray``) into this module."""
-        def put(dst: torch.Tensor, src, transpose: bool = False):
-            src = torch.from_numpy(np.array(src, dtype=np.float32))
-            if transpose:
-                src = src.t()
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"shape {tuple(src.shape)} does not fit "
-                                 f"parameter {tuple(dst.shape)}")
-            dst.copy_(src)
-
-        put(self.wte.weight, params["wte"]["embedding"])
-        put(self.wpe.weight, params["wpe"]["embedding"])
+        put_param(self.wte.weight, params["wte"]["embedding"])
+        put_param(self.wpe.weight, params["wpe"]["embedding"])
         for i, block in enumerate(self.h):
-            p = params[f"h_{i}"]
-            for name in ("ln_1", "ln_2"):
-                ln = getattr(block, name)
-                put(ln.scale, p[name]["scale"])
-                put(ln.bias, p[name]["bias"])
-            for name in ("qkv_kernel", "qkv_bias", "proj_kernel",
-                         "proj_bias"):
-                put(getattr(block.attn, name), p["attn"][name])
-            for name in ("fc", "proj"):
-                lin = getattr(block.mlp, name)
-                put(lin.weight, p["mlp"][name]["kernel"], transpose=True)
-                put(lin.bias, p["mlp"][name]["bias"])
-        put(self.ln_f.scale, params["ln_f"]["scale"])
-        put(self.ln_f.bias, params["ln_f"]["bias"])
+            block.load_jax_params(params[f"h_{i}"])
+        put_param(self.ln_f.scale, params["ln_f"]["scale"])
+        put_param(self.ln_f.bias, params["ln_f"]["bias"])
 
 
 def cross_entropy_loss(logits, targets, ignore_index: int = -1):

@@ -40,12 +40,16 @@ tensors. Each wrapper runs as a ``torch.library`` custom op, so that
 selective activation checkpointing (models' ``remat_policy``) sees one
 op it can save or recompute, never the launch inside it. Each kernel
 counts its launches per route (:func:`launch_counts`: ``flash_fwd`` and
-``flash_fwd_rect`` and so on). :func:`agreement` is the measure by which
-a kernel is held against its plain version.
+``flash_fwd_rect`` and so on). A launch captured into a CUDA graph runs
+only when the graph replays, so it is counted then: the capture records
+it (:func:`record_launches`) and each replay adds what its graph holds
+(:func:`count_replay`). :func:`agreement` is the measure by which a
+kernel is held against its plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 
@@ -67,7 +71,8 @@ _MAPS = ctypes.POINTER(ctypes.c_uint64)
 class _Kernel:
     """One kernel of ``csrc/``: its C entry point and its launch count."""
 
-    def __init__(self, source: str, symbol: str, argtypes: list):
+    def __init__(self, name: str, source: str, symbol: str, argtypes: list):
+        self.name = name
         self.source = source
         self.symbol = symbol
         self.argtypes = argtypes
@@ -81,17 +86,34 @@ class _Kernel:
             fn.restype = _I
             self._fn = fn
         if device.index == torch.cuda.current_device():
-            rc = self._fn(*args, _P(torch.cuda.current_stream().cuda_stream))
+            rc = self._launch_on_current_stream(args)
         else:
             with torch.cuda.device(device):
-                stream = torch.cuda.current_stream(device).cuda_stream
-                rc = self._fn(*args, _P(stream))
+                rc = self._launch_on_current_stream(args)
         if rc < 0:
             raise RuntimeError(f"{self.symbol}: cuTensorMapEncodeTiled failed: "
                                f"CUresult {-rc}")
         if rc != 0:
             raise RuntimeError(f"{self.symbol} launch failed: cudaError_t {rc}")
-        self.launches += 1
+
+    def _launch_on_current_stream(self, args) -> int:
+        """Launch on the current stream and count the launch: now, or, when
+        the stream is capturing a CUDA graph, in the innermost
+        :func:`record_launches` (raising outside one, before the launch)."""
+        tally = None
+        if torch.cuda.is_current_stream_capturing():
+            if not _CAPTURES:
+                raise RuntimeError(
+                    f"{self.name} launched into a CUDA graph outside "
+                    "record_launches(): its replays would not be counted")
+            tally = _CAPTURES[-1]
+        rc = self._fn(*args, _P(torch.cuda.current_stream().cuda_stream))
+        if rc == 0:
+            if tally is None:
+                self.launches += 1
+            else:
+                tally[self.name] = tally.get(self.name, 0) + 1
+        return rc
 
 
 # Each route of a kernel (square, band: ``*_rect``) counts its launches
@@ -101,16 +123,19 @@ class _Kernel:
 _FWD_ARGS = [_MAPS, _P, _P] + [_I] * 5 + [_F, _I, _I, _P]
 _DQ_ARGS = [_MAPS] + [_P] * 3 + [_I] * 5 + [_F, _I, _I, _P]
 _DKV_ARGS = [_MAPS] + [_P] * 4 + [_I] * 5 + [_F, _I, _I, _P]
-_KERNELS = {
-    "flash_fwd": _Kernel("flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
-    "flash_bwd_dq": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq", _DQ_ARGS),
-    "flash_bwd_dkv": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv", _DKV_ARGS),
-    "flash_fwd_rect": _Kernel("flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
-    "flash_bwd_dq_rect": _Kernel("flash_bwd_dq", "rtt_flash_bwd_dq",
-                                 _DQ_ARGS),
-    "flash_bwd_dkv_rect": _Kernel("flash_bwd_dkv", "rtt_flash_bwd_dkv",
-                                  _DKV_ARGS),
-}
+_KERNELS = {k.name: k for k in (
+    _Kernel("flash_fwd", "flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
+    _Kernel("flash_bwd_dq", "flash_bwd_dq", "rtt_flash_bwd_dq", _DQ_ARGS),
+    _Kernel("flash_bwd_dkv", "flash_bwd_dkv", "rtt_flash_bwd_dkv", _DKV_ARGS),
+    _Kernel("flash_fwd_rect", "flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
+    _Kernel("flash_bwd_dq_rect", "flash_bwd_dq", "rtt_flash_bwd_dq",
+            _DQ_ARGS),
+    _Kernel("flash_bwd_dkv_rect", "flash_bwd_dkv", "rtt_flash_bwd_dkv",
+            _DKV_ARGS),
+)}
+# The launches each CUDA graph under capture holds, innermost capture last
+# (see record_launches).
+_CAPTURES: list[dict[str, int]] = []
 
 # Rows of one tensor-map box: the tiles of csrc/flash_fwd.cu (kFwdBQ,
 # kFwdBK), csrc/flash_bwd_dq.cu (kDqBQ, DqSmem::kBK) and
@@ -131,6 +156,27 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _KERNELS.values():
         k.launches = 0
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Around the capture of a CUDA graph: yields ``{kernel: launches}``,
+    the launches the graph holds, which the capture records in place of
+    counting them (a captured launch does not run). Pass it to
+    :func:`count_replay` at each replay."""
+    tally: dict[str, int] = {}
+    _CAPTURES.append(tally)
+    try:
+        yield tally
+    finally:
+        _CAPTURES.pop()          # captures nest: this one is innermost
+
+
+def count_replay(tally: dict[str, int], times: int = 1) -> None:
+    """Count the launches of ``times`` replays of a graph whose capture
+    recorded ``tally``."""
+    for name, n in tally.items():
+        _KERNELS[name].launches += n * times
 
 
 def flash_attention_available() -> bool:

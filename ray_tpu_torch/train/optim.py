@@ -16,22 +16,25 @@ rate at another point. So, per parameter ``p`` with gradient ``g``:
     p     = p + (-lr) * u
     mu    stored in mu_dtype (rounded after the update used it in f32)
 
-The bias corrections are computed in float32, as optax computes them.
-Parameters, ``mu`` and ``nu`` are updated in place: the port's
-counterpart of the JAX step's buffer donation.
+The step count and both bias corrections are float32 tensors on the
+parameters' device, computed there as optax computes them in float32:
+a step captured as a CUDA graph (``train.step``) replays them with the
+count it reads at each replay, where a value computed on the host would
+be frozen at its capture-time value. Parameters, ``mu`` and ``nu`` are
+updated in place: the port's counterpart of the JAX step's buffer
+donation.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 
 @dataclass
 class AdamWState:
-    count: int
+    count: torch.Tensor           # float32 scalar on the parameters' device
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
 
@@ -49,8 +52,9 @@ class AdamW:
     def init(self, params) -> AdamWState:
         """Zero moments for ``params`` (a module or a list of tensors)."""
         params = _as_list(params)
+        device = params[0].device if params else None
         return AdamWState(
-            count=0,
+            count=torch.zeros((), dtype=torch.float32, device=device),
             mu=[torch.zeros_like(p, dtype=self.mu_dtype or p.dtype)
                 for p in params],
             nu=[torch.zeros_like(p) for p in params])
@@ -60,10 +64,10 @@ class AdamW:
         """One AdamW step: updates ``params`` and ``state`` in place."""
         params = _as_list(params)
         b1, b2 = self.b1, self.b2
-        state.count += 1
-        # 1 - decay**count in float32, as optax computes it.
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.int32(state.count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.int32(state.count))
+        state.count.add_(1)
+        # 1 - decay**count in float32 on the device, as optax computes it.
+        bc1 = 1 - torch.pow(b1, state.count)
+        bc2 = 1 - torch.pow(b2, state.count)
         for p, g, mu, nu in zip(params, grads, state.mu, state.nu):
             if g is None:
                 g = torch.zeros_like(p)
@@ -100,7 +104,9 @@ class SGD:
 
     Every parameter takes the update (optax has no mask here), BatchNorm
     scale and bias included. Without momentum, ``u = g`` and no trace is
-    kept. Parameters and traces are updated in place."""
+    kept. Parameters and traces are updated in place. Nothing depends on
+    the step count, so no host-side value changes from step to step and a
+    captured step replays it as it is."""
 
     def __init__(self, lr: float, momentum: float | None, nesterov: bool):
         self.lr = lr

@@ -1,12 +1,32 @@
 """Train-step machinery: the counterpart of ``ray_tpu/train/step.py``.
 
 The JAX step is one compiled program (forward, backward, optimizer
-update) with the parameter and optimizer buffers donated. PyTorch runs
-eagerly, so here a step is forward, ``backward()`` and an in-place
-optimizer update; the in-place update is the counterpart of donation,
-and a Python loop over a leading ``[K, ...]`` batch stack is the
-counterpart of the ``lax.scan`` of :func:`make_multi_train_step`.
-Metrics stay on the device until the caller reads them.
+update) with the parameter and optimizer buffers donated. The port's
+counterpart of ``jax.jit`` is a CUDA graph: on the card, a step is
+captured once as one graph and replayed on every later call.
+
+- The first call for a new input signature (the batch's shapes, dtypes
+  and devices, and the addresses of the state's tensors) runs the step
+  eagerly on a side stream as warm-up; that is a real optimizer step.
+  Then it captures the step, which runs nothing. Each later call copies
+  the batch into the graph's static input buffers and replays it, so N
+  calls make N updates. A new signature captures again, as ``jit``
+  retraces; :func:`compile_count` counts the captures.
+- The captured body reads no value from the host: the optimizer keeps
+  its count on the device (``train.optim``), gradients are set to None
+  before the capture, and nothing in the step synchronises. The flash
+  kernels' launch counters record the launches a capture holds and add
+  them at each replay (``flash_attention.record_launches``).
+- On the CPU, and under :func:`disable_capture` (the counterpart of
+  ``jax.disable_jit``), the step runs eagerly.
+
+Parameters, optimizer state and ``extra`` are updated in place, which
+is the counterpart of donation; :func:`buffers_donated` proves it. A
+Python loop over a leading ``[K, ...]`` batch stack, replaying the
+single-step graph K times, is the counterpart of the ``lax.scan`` of
+:func:`make_multi_train_step`. Metrics stay on the device until the
+caller reads them; a replay returns copies, never the graph's own
+output buffers, which the next replay overwrites.
 
 ``has_extra`` carries model state that is not trained, such as
 BatchNorm's running statistics, through the step: the loss returns the
@@ -17,12 +37,18 @@ however often the forward runs.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
 
+from ray_tpu_torch.ops.cuda import flash_attention as fa
 from ray_tpu_torch.train.optim import global_norm
+
+# > 0 inside disable_capture(): steps run eagerly on the card too.
+_capture_disabled = 0
 
 
 @dataclass
@@ -46,19 +72,24 @@ def init_train_state(params: torch.nn.Module, optimizer,
                       extra=extra)
 
 
-def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,
-                    grad_norm: bool = True) -> Callable:
-    """``step(state, batch) -> (state, metrics)``: forward, backward and
-    the optimizer update, in place on ``state``.
+@contextlib.contextmanager
+def disable_capture():
+    """Run every train step eagerly inside the block, on the card too: the
+    counterpart of ``jax.disable_jit``."""
+    global _capture_disabled
+    _capture_disabled += 1
+    try:
+        yield
+    finally:
+        _capture_disabled -= 1
 
-    loss_fn: (module, batch) -> scalar loss                 (has_extra=False)
-             (module, extra, batch) -> (loss, new_extra)    (has_extra=True)
-    With ``has_extra`` each tensor of ``new_extra`` is copied into the
-    tensor of ``state.extra`` of the same name after the update.
-    ``metrics`` holds ``loss`` and, unless ``grad_norm=False``, the
-    global gradient norm (a read of every gradient)."""
 
-    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
+               grad_norm: bool) -> Callable:
+    """``body(state, batch) -> metrics``: forward, backward and the
+    optimizer update, in place on ``state``; what a capture records."""
+
+    def body(state: TrainState, batch) -> dict:
         params = list(state.params.parameters())
         for p in params:
             p.grad = None
@@ -78,9 +109,114 @@ def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,
             with torch.no_grad():
                 for name, value in new_extra.items():
                     state.extra[name].copy_(value)
-        state.step += 1
+        return metrics
+    return body
+
+
+class _Graph:
+    """One capture of the step body: its static batch, output metrics and
+    the flash-kernel launches it holds."""
+
+    def __init__(self, body: Callable, batch, device: torch.device):
+        self.batch = _tree_map(
+            lambda x: torch.empty_like(x, device=device), batch)
+        self.graph = torch.cuda.CUDAGraph()
+        self.metrics: dict = {}
+        self.launches: dict[str, int] = {}
+        self._body = body
+        self._device = device
+
+    def warm_up_and_capture(self, state: TrainState, batch) -> dict:
+        """The warm-up step (eager, on a side stream, a real update), then
+        the capture (which runs nothing). Returns the warm-up's metrics."""
+        current = torch.cuda.current_stream(self._device)
+        _tree_copy(self.batch, batch)
+        side = torch.cuda.Stream(self._device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = self._body(state, self.batch)
+        current.wait_stream(side)
+        for value in metrics.values():
+            value.record_stream(current)
+        # thread_local: other threads (the prefetcher's copies) may go on
+        # calling CUDA while this one captures.
+        with fa.record_launches() as launches, torch.cuda.graph(
+                self.graph, capture_error_mode="thread_local"):
+            self.metrics = self._body(state, self.batch)
+        self.launches = launches
+        return metrics
+
+    def replay(self, batch) -> dict:
+        _tree_copy(self.batch, batch)
+        self.graph.replay()
+        fa.count_replay(self.launches)
+        return {k: v.clone() for k, v in self.metrics.items()}
+
+
+class _Step:
+    """A train step: captured and replayed on the card, eager on the CPU
+    and under :func:`disable_capture`. ``multi`` takes a ``[K, ...]``
+    batch stack and makes K steps."""
+
+    def __init__(self, body: Callable, multi: bool):
+        self._body = body
+        self._multi = multi
+        self._graphs: dict[Any, _Graph] = {}
+        # The addresses of the state's tensors when the step first ran
+        # (buffers_donated), and the number of captures, None until the
+        # step has run captured (compile_count).
+        self.addresses: tuple[int, ...] | None = None
+        self.captures: int | None = None
+
+    def __call__(self, state: TrainState, batch) -> tuple[TrainState, dict]:
+        if not self._multi:
+            return state, self._one(state, batch)
+        metrics = None
+        for i in range(_leading_dim(batch)):
+            metrics = self._one(state, _index(batch, i))
         return state, metrics
-    return step
+
+    def _one(self, state: TrainState, batch) -> dict:
+        tensors = _state_tensors(state)
+        addresses = tuple(t.data_ptr() for t in tensors)
+        if self.addresses is None:
+            self.addresses = addresses
+        device = tensors[0].device
+        if _capture_disabled or device.type != "cuda":
+            metrics = self._body(state, batch)
+        else:
+            metrics = self._captured(state, batch, addresses, device)
+        state.step += 1
+        return metrics
+
+    def _captured(self, state: TrainState, batch, addresses, device) -> dict:
+        # A graph writes the tensors it was captured on: a state whose
+        # tensors moved is a new signature, as a new batch layout is.
+        key = (_signature(batch), addresses)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph.replay(batch)
+        graph = _Graph(self._body, batch, device)
+        metrics = graph.warm_up_and_capture(state, batch)
+        self._graphs[key] = graph
+        self.captures = len(self._graphs)
+        return metrics
+
+
+def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,
+                    grad_norm: bool = True) -> Callable:
+    """``step(state, batch) -> (state, metrics)``: forward, backward and
+    the optimizer update, in place on ``state``, captured as one CUDA
+    graph on the card (see the module docstring).
+
+    loss_fn: (module, batch) -> scalar loss                 (has_extra=False)
+             (module, extra, batch) -> (loss, new_extra)    (has_extra=True)
+    With ``has_extra`` each tensor of ``new_extra`` is copied into the
+    tensor of ``state.extra`` of the same name after the update.
+    ``metrics`` holds ``loss`` and, unless ``grad_norm=False``, the
+    global gradient norm (a read of every gradient)."""
+    return _Step(_step_body(loss_fn, optimizer, has_extra, grad_norm),
+                 multi=False)
 
 
 def make_multi_train_step(loss_fn: Callable, optimizer,
@@ -88,16 +224,98 @@ def make_multi_train_step(loss_fn: Callable, optimizer,
                           grad_norm: bool = True) -> Callable:
     """``multi(state, batches) -> (state, metrics_of_last_step)``: K
     optimizer steps over a batch stack whose leaves carry a leading
-    ``[K, ...]`` axis, the same math as K calls of the single step."""
-    body = make_train_step(loss_fn, optimizer, has_extra, grad_norm)
+    ``[K, ...]`` axis, the same math as K calls of the single step; on
+    the card, K replays of the single step's graph."""
+    return _Step(_step_body(loss_fn, optimizer, has_extra, grad_norm),
+                 multi=True)
 
-    def multi(state: TrainState, batches) -> tuple[TrainState, dict]:
-        metrics = None
-        for i in range(_leading_dim(batches)):
-            state, metrics = body(state, _index(batches, i))
-        return state, metrics
 
-    return multi
+def compile_count(step_fn: Callable) -> int | None:
+    """Number of CUDA-graph captures of a step from
+    :func:`make_train_step` or :func:`make_multi_train_step`; ``None``
+    for a step that has only run eagerly (on the CPU, or under
+    :func:`disable_capture`), as the JAX version returns ``None`` when it
+    cannot tell.
+
+    The contract after warm-up is a STABLE count: one capture for the
+    input signature, and a new one only when the batch's shapes, dtypes
+    or devices, or the state's tensors, change; a count that grows with
+    steps means every call pays a warm-up and a capture."""
+    return getattr(step_fn, "captures", None)
+
+
+def buffers_donated(step_fn: Callable, state: TrainState) -> bool:
+    """True when every parameter, optimizer-state tensor and ``extra``
+    tensor of ``state`` lies at the address it had when ``step_fn`` first
+    ran on it: the step, its captured graph included, updated the state
+    in place, the port's counterpart of donation.
+
+    The argument is the step and the state, not the state alone as in
+    the JAX version: a jax array that a donating dispatch consumed is
+    marked deleted, but a torch tensor that a step updated in place looks
+    like one it never touched, and one that a step replaced looks like
+    any other. So the proof compares the addresses the step recorded
+    before its first update, which its graph writes, with the addresses
+    of the state's tensors now."""
+    recorded = getattr(step_fn, "addresses", None)
+    if not recorded:
+        return False
+    return recorded == tuple(t.data_ptr() for t in _state_tensors(state))
+
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a step updates: parameters, optimizer state, extra."""
+    return (list(state.params.parameters())
+            + list(_tensors(state.opt_state))
+            + list((state.extra or {}).values()))
+
+
+def _tensors(tree: Any):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            yield from _tensors(getattr(tree, f.name))
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def _signature(tree: Any) -> Any:
+    """What a capture depends on in a batch: the structure, and each
+    tensor's shape, dtype and device (other leaves by value)."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, dict):
+        return tuple((k, _signature(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree), tuple(_signature(v) for v in tree))
+    return tree
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return tree
+
+
+def _tree_copy(dst: Any, src: Any) -> None:
+    """Copy every tensor leaf of ``src`` into the same leaf of ``dst``."""
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src, non_blocking=True)
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            _tree_copy(v, src[k])
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _tree_copy(d, s)
 
 
 def _leading_dim(tree: Any) -> int:

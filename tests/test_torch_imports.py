@@ -41,13 +41,15 @@ assert not leaked, leaked
 import torch
 from ray_tpu_torch.core.accelerator import default_device
 from ray_tpu_torch.models import (GPT2, GPT2Config, Llama, LlamaConfig,
-                                  ResNet, ResNet50Config, ViT, ViTConfig)
+                                  MoEConfig, MoETransformer, ResNet,
+                                  ResNet50Config, ViT, ViTConfig)
 from ray_tpu_torch.train import prefetch_to_device
 assert not torch.cuda.is_available()
 for entry in (default_device, lambda: GPT2(GPT2Config.tiny()),
               lambda: Llama(LlamaConfig.tiny()),
               lambda: ResNet(ResNet50Config.tiny()),
               lambda: ViT(ViTConfig.tiny()),
+              lambda: MoETransformer(MoEConfig.tiny()),
               lambda: prefetch_to_device([])):
     try:
         entry()
@@ -59,6 +61,7 @@ GPT2(GPT2Config.tiny(), device="cpu")
 Llama(LlamaConfig.tiny(), device="cpu")
 ResNet(ResNet50Config.tiny(), device="cpu")
 ViT(ViTConfig.tiny(), device="cpu")
+MoETransformer(MoEConfig.tiny(), device="cpu")
 print("OK", len(names))
 """
 

@@ -65,12 +65,15 @@ DTYPES = {"f32": (jnp.float32, torch.float32),
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Tier-1 runs six test processes on one host: keep torch's CPU
-    kernels to two threads here so timing-sensitive runtime tests in the
-    other processes are not starved."""
+def _one_torch_thread():
+    """One torch thread for the module. Tier-1 runs six test processes on
+    one host, so more threads would only starve timing-sensitive runtime
+    tests in the others; and a second OpenMP thread's first ``exp`` in a
+    process has come out at reduced precision on an AMX CPU with
+    torch 2.13 (ROADMAP §3), so the plain versions run on the main thread
+    only."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 

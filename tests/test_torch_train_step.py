@@ -49,6 +49,9 @@ from ray_tpu_torch.models.resnet import resnet_loss_fn  # noqa: E402
 from ray_tpu_torch.train import (  # noqa: E402
     DevicePrefetcher,
     adamw,
+    buffers_donated,
+    compile_count,
+    disable_capture,
     init_train_state,
     make_multi_train_step,
     make_train_step,
@@ -61,12 +64,15 @@ LR, WD = 1e-3, 0.1
 
 
 @pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Tier-1 runs six test processes on one host: keep torch's CPU
-    kernels to two threads here so timing-sensitive runtime tests in the
-    other processes are not starved."""
+def _one_torch_thread():
+    """One torch thread for the module. Tier-1 runs six test processes on
+    one host, so more threads would only starve timing-sensitive runtime
+    tests in the others; and a second OpenMP thread's first ``exp`` in a
+    process has come out at reduced precision on an AMX CPU with
+    torch 2.13 (ROADMAP §3), so the plain versions run on the main thread
+    only."""
     n = torch.get_num_threads()
-    torch.set_num_threads(2)
+    torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
 
@@ -198,6 +204,32 @@ def test_adamw_matches_optax_on_fixed_gradients():
             mu.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
+def test_adamw_count_and_bias_corrections_live_on_the_device():
+    """The step count is a float32 tensor beside the parameters, and the
+    bias corrections come from it at each update (a captured step replays
+    them): five updates through the port's AdamW match optax's, the
+    count included, at the fixed-gradient test's tolerance."""
+    rng = np.random.default_rng(8)
+    init = rng.standard_normal((16, 8)).astype(np.float32)
+    grads = [rng.standard_normal((16, 8)).astype(np.float32)
+             for _ in range(N_STEPS)]
+    jopt = optax.adamw(LR, weight_decay=WD, mu_dtype=jnp.bfloat16)
+    jparams = [jnp.asarray(init)]
+    jstate = jopt.init(jparams)
+    opt = adamw(LR, weight_decay=WD, mu_dtype=torch.bfloat16)
+    params = [torch.tensor(init)]
+    state = opt.init(params)
+    assert state.count.dtype == torch.float32
+    assert state.count.device == params[0].device and state.count.dim() == 0
+    for g in grads:
+        updates, jstate = jopt.update([jnp.asarray(g)], jstate, jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        opt.update([torch.tensor(g)], state, params)
+    assert float(state.count) == float(jstate[0].count) == N_STEPS
+    np.testing.assert_allclose(params[0].numpy(), np.asarray(jparams[0]),
+                               rtol=0, atol=1e-6)
+
+
 def test_adamw_update_rule_by_hand():
     """One parameter, two steps, against the formula written out."""
     p = torch.tensor([0.5, -1.0, 2.0])
@@ -263,6 +295,65 @@ def test_sgd_update_rule_by_hand():
         want = want - 0.1 * (g + 0.5 * t)
     assert torch.allclose(p, want, rtol=0, atol=1e-15)
     assert torch.allclose(st.trace[0], t, rtol=0, atol=1e-15)
+
+
+def test_eager_step_has_no_compile_count():
+    """On the CPU the step runs eagerly: no capture, so ``compile_count``
+    is None, as the JAX version's is when it cannot tell."""
+    jparams_np = jax.tree_util.tree_map(
+        np.array,
+        JaxGPT2(JaxGPT2Config.tiny()).init_params(jax.random.key(4)))
+    state, opt = _port_setup(jparams_np)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=64), opt, grad_norm=False)
+    multi = make_multi_train_step(gpt2_loss_fn(ce_chunk=64), opt)
+    assert compile_count(step) is None and compile_count(multi) is None
+    batch = _stacks(1, k=2, seed=4)[0]
+    state, _ = step(state, _torch({k: v[0] for k, v in batch.items()}))
+    with disable_capture():
+        state, _ = multi(state, _torch(batch))
+    assert compile_count(step) is None and compile_count(multi) is None
+    assert state.step == 3
+    assert compile_count(lambda state, batch: None) is None
+
+
+@pytest.mark.parametrize("replace", ["none", "parameter", "moment",
+                                     "count"])
+def test_buffers_donated_holds_and_fails_a_replaced_tensor(replace):
+    """Every parameter, moment and the count stay where they were across
+    steps; a tensor that was replaced (as an out-of-place update would
+    replace it) fails the check."""
+    jparams_np = jax.tree_util.tree_map(
+        np.array,
+        JaxGPT2(JaxGPT2Config.tiny()).init_params(jax.random.key(5)))
+    state, opt = _port_setup(jparams_np)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=64), opt)
+    assert not buffers_donated(step, state)       # the step has not run
+    batch = _torch({k: v[0] for k, v in _stacks(1, seed=5)[0].items()})
+    w0 = state.params.wte.weight.detach().clone()
+    for _ in range(2):
+        state, _ = step(state, batch)
+    assert not torch.equal(state.params.wte.weight, w0)
+    with torch.no_grad():
+        if replace == "parameter":
+            state.params.wte.weight.data = state.params.wte.weight.clone()
+        elif replace == "moment":
+            state.opt_state.nu[3] = state.opt_state.nu[3].clone()
+        elif replace == "count":
+            state.opt_state.count = state.opt_state.count.clone()
+    assert buffers_donated(step, state) == (replace == "none")
+
+
+def test_buffers_donated_covers_extra_and_sgd_traces():
+    state, opt = _tiny_resnet_state(4)
+    step = make_train_step(resnet_loss_fn(), opt, has_extra=True)
+    state, _ = step(state, _image_batch(4))
+    assert buffers_donated(step, state)
+    name = next(iter(state.extra))
+    state.extra[name] = state.extra[name].clone()
+    assert not buffers_donated(step, state)
+    state, _ = _tiny_resnet_state(4)
+    state, _ = step(state, _image_batch(4))        # another state's tensors
+    assert not buffers_donated(step, state)
 
 
 def _tiny_resnet_state(seed: int = 0):
