@@ -95,6 +95,30 @@ exits non-zero without its result line:
    bf16 peak, peak bytes, the busy share, and each MoE layer's dropped
    share and per-expert load at step 0 and at the end.
 
+12. Mesh, on a one-rank NCCL group (``parallel.initialize``) and a mesh
+   whose axes all have one rank. (a) GPT-2 124M at batch 32 x 1024 on
+   ``dp = 1`` through ``init_train_state(mesh=)``, ``shard_batch`` and the
+   captured step, the gradient all-reduce inside its graph. Checks: the
+   first CAPTURE_STEPS losses against the mesh-less captured step's from
+   the same weights (CAPTURE_LOSS_RTOL), ``compile_count`` 1 and buffers
+   donated, 12 launches per kernel per step; step ms over
+   MESH_TIMED_STEPS steps beside the mesh-less step's and phase 4's.
+   (b) The same under FSDP2 (``fsdp = 1``, forced): parameters sharded,
+   the step eager by rule (``compile_count`` None), the step-0 loss
+   against (a)'s. (c) Ring attention's hops at ``sp = 4`` (RING_SP) at
+   GPT-2's (B 32, T 1024, H 12) and TinyLlama's (B 8, T 2048, H 32)
+   attention shapes, every rank's in this process through the functions
+   ``ring_attention`` calls: o, lse, dq, dk and dv of the whole against
+   the plain whole causal attention by ``agreement``, 1 + r launches of
+   each kernel on rank r; the hops' summed kernel time beside the
+   unsplit kernels'. (d) Ulysses over the ``sp`` group at world 1 equal
+   to ``causal_attention`` bit for bit (output and gradients), and
+   ``moe_ffn`` over the ``ep`` group within one bf16 unit of the one-hot
+   einsum form at ``MoEConfig()``'s width on 4096 tokens. (e)
+   ``dryrun_multichip(1)`` with no device named: one spawned NCCL rank on
+   ``cuda:0`` takes a GPT-2 tiny train step (head dim 64) through the
+   kernels, a finite loss.
+
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
 (``compile_count`` 1 after warm-up and after the timed dispatches) and
@@ -145,7 +169,9 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch.core.accelerator import default_device
 from ray_tpu_torch.models import (
@@ -166,6 +192,14 @@ from ray_tpu_torch.models import (
     vit_loss_fn,
 )
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+from ray_tpu_torch.ops.attention import (
+    causal_attention,
+    ring_finish,
+    ring_hop_backward,
+    ring_hop_forward,
+    ring_merge,
+    ulysses_attention,
+)
 from ray_tpu_torch.ops.cuda import build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
 from ray_tpu_torch.ops.moe import (
@@ -174,6 +208,9 @@ from ray_tpu_torch.ops.moe import (
     moe_ffn,
     top1_route,
 )
+from ray_tpu_torch.parallel import initialize, make_mesh
+from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+from ray_tpu_torch.parallel.sharding import _place_fsdp2
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -184,6 +221,7 @@ from ray_tpu_torch.train import (
     make_train_step,
     prefetch_to_device,
     sgd,
+    shard_batch,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core
@@ -271,6 +309,9 @@ MOE_FORM_TOKENS = 4096             # where the [T, E, C] one-hot fits
 K_STEPS = 2                        # optimizer steps per dispatch
 TIMED_DISPATCHES = 3
 SHORT_TIMED_DISPATCHES = 2         # split, remat and TinyLlama phases
+MESH_TIMED_STEPS = 4               # single steps timed in the mesh phase
+RING_SP = 4                        # ranks of the ring whose hops run here
+RING_SHAPES = ((32, 1024, 12), (8, 2048, 32))  # GPT-2 small, TinyLlama
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BAND = ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")
@@ -1576,6 +1617,262 @@ def moe_phase(card: str) -> dict:
     return run
 
 
+def mesh_train(mesh, fsdp2: bool, host_batch, what: str) -> dict:
+    """GPT-2 124M from seed 0 with the LM optimizer through
+    ``make_train_step``: off a mesh (``mesh`` None), or placed on ``mesh``
+    by ``init_train_state`` (FSDP2 first where ``fsdp2``) with its batch
+    from ``shard_batch``. CAPTURE_STEPS steps on the batch give the
+    losses and the launch counts (counts set to 0 just before, read just
+    after); MESH_TIMED_STEPS more are timed."""
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0, mesh=mesh)
+    dev = next(model.parameters()).device
+    if fsdp2:
+        _place_fsdp2(model, mesh)
+    opt = lm_opt()
+    state = init_train_state(model, opt, mesh=mesh)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt, grad_norm=False)
+    batch = (device_batch(*host_batch, dev) if mesh is None else
+             shard_batch({"tokens": host_batch[0], "targets": host_batch[1]},
+                         mesh))
+    fa.reset_launch_counts()
+    losses = [float(step(state, batch)[1]["loss"])
+              for _ in range(CAPTURE_STEPS)]
+    counts = fa.launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MESH_TIMED_STEPS):
+        state, metrics = step(state, batch)
+    float(metrics["loss"])
+    dt = (time.perf_counter() - t0) / MESH_TIMED_STEPS
+    params = list(model.parameters())
+    run = {"losses": losses, "counts": counts, "step_ms": dt * 1e3,
+           "tok_s": host_batch[0].size / dt,
+           "compile_count": compile_count(step),
+           "donated": buffers_donated(step, state),
+           "sharded": sum(isinstance(p, DTensor) for p in params)}
+    print(f"mesh {what}: {run['sharded']} of {len(params)} parameters "
+          f"sharded by FSDP2; first {CAPTURE_STEPS} losses {losses}; step "
+          f"{run['step_ms']:.2f} ms, {run['tok_s']:.1f} tokens/s over "
+          f"{MESH_TIMED_STEPS} single steps; compile_count "
+          f"{run['compile_count']} "
+          f"({'captured' if run['compile_count'] else 'eager'}), buffers "
+          f"donated {run['donated']}; launches {counts}", flush=True)
+    del model, opt, state, step, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def ring_check(b: int, t: int, h: int, dev, card: str) -> None:
+    """All RING_SP ranks' hops of ring attention at ``[B*H, T, D]``, in this
+    process, through the functions ``ring_attention`` calls: rank r's
+    queries against each block src <= r (ring_hop_forward, ring_merge,
+    ring_finish), then the backward hops with the merged lse
+    (ring_hop_backward), the dk and dv of each block summed over the ranks
+    that saw it. o, lse, dq, dk and dv of the whole are held against the
+    plain whole causal attention by ``agreement``; each rank launches
+    1 + r hops of each kernel. Then the ring's kernels, summed over the
+    ranks' hops, are timed beside the unsplit kernels."""
+    gen = torch.Generator(device=dev).manual_seed(t + h)
+    q, k, v, do = (torch.randn(b * h, t, D, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    s = t // RING_SP
+    qs, ks, vs, dos = ([x[:, r * s:(r + 1) * s].contiguous()
+                        for r in range(RING_SP)] for x in (q, k, v, do))
+    outs, lses, deltas, dqs = [], [], [], []
+    dks = [torch.zeros(b * h, s, D, device=dev) for _ in range(RING_SP)]
+    dvs = [torch.zeros_like(x) for x in dks]
+    for r in range(RING_SP):
+        fa.reset_launch_counts()
+        state = None
+        for i in range(RING_SP):
+            src = (r - i) % RING_SP
+            part = ring_hop_forward(qs[r], ks[src], vs[src], src, r, scale)
+            if part is not None:
+                state = ring_merge(state, part)
+        o_r, lse_r = ring_finish(state, q.dtype)
+        delta = (o_r.float() * dos[r].float()).sum(-1)
+        dq = torch.zeros(b * h, s, D, device=dev)
+        for i in range(RING_SP):
+            src = (r - i) % RING_SP
+            part = ring_hop_backward(qs[r], ks[src], vs[src], dos[r], lse_r,
+                                     delta, src, r, scale)
+            if part is not None:
+                dq += part[0].float()
+                dks[src] += part[1].float()
+                dvs[src] += part[2].float()
+        counts = fa.launch_counts()
+        check(all(counts[n] == r + 1 for n in SQUARE)
+              and not any(counts[n] for n in BAND),
+              f"ring rank {r}: {r + 1} launches of each square kernel "
+              f"(got {counts})")
+        outs.append(o_r)
+        lses.append(lse_r)
+        deltas.append(delta)
+        dqs.append(dq.to(q.dtype))
+    got = {"o": torch.cat(outs, 1), "dq": torch.cat(dqs, 1),
+           "dk": torch.cat(dks, 1).to(q.dtype),
+           "dv": torch.cat(dvs, 1).to(q.dtype)}
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, True)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, o_ref, lse_ref,
+                                                    do, scale, True)
+    want = {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref}
+    readings = {"ring": {n: fa.agreement(got[n], want[n]) for n in got}}
+    lse_err = float((torch.cat(lses, 1) - lse_ref).abs().max())
+    readings["ring"]["lse"] = {"max_abs_err": lse_err, "ok": lse_err < LSE_TOL}
+    print(f"ring sp={RING_SP} B={b} T={t} H={h}: {describe(readings)}",
+          flush=True)
+    check_readings(readings, f"for the ring at B={b} T={t} H={h}")
+    del o_ref, dq_ref, dk_ref, dv_ref, want
+    torch.cuda.empty_cache()
+
+    hops = [(r, src) for r in range(RING_SP) for src in range(r + 1)]
+    lse_w, delta_w = torch.cat(lses, 1), torch.cat(deltas, 1)
+    iters = 5
+    ring = {
+        "flash_fwd": lambda: [fa.flash_fwd(qs[r], ks[c], vs[c], scale, c == r)
+                              for r, c in hops],
+        "flash_bwd_dq": lambda: [
+            fa.flash_bwd_dq(qs[r], ks[c], vs[c], dos[r], lses[r], deltas[r],
+                            scale, c == r) for r, c in hops],
+        "flash_bwd_dkv": lambda: [
+            fa.flash_bwd_dkv(qs[r], ks[c], vs[c], dos[r], lses[r], deltas[r],
+                             scale, c == r) for r, c in hops],
+    }
+    whole = {
+        "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse_w, delta_w,
+                                                scale, True),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse_w, delta_w,
+                                                  scale, True),
+    }
+    times = {n: (cuda_ms(ring[n], iters), cuda_ms(whole[n], iters))
+             for n in SQUARE}
+    total = [sum(t_[i] for t_ in times.values()) for i in (0, 1)]
+    print(f"ring sp={RING_SP} B={b} T={t} H={h} kernel time, the "
+          f"{len(hops)} hops of the {RING_SP} ranks summed vs the unsplit "
+          f"kernel: " + "; ".join(f"{n} {a:.3f} ms vs {w:.3f} ms"
+                                  for n, (a, w) in times.items())
+          + f"; all {total[0]:.3f} ms vs {total[1]:.3f} ms "
+          f"({total[0] / total[1]:.3f}x); card {card}", flush=True)
+
+
+def exchange_check(mesh, dev) -> None:
+    """The exchange ops at world 1: Ulysses (all_to_all over the mesh's
+    ``sp`` group, then causal_attention) equal to causal_attention bit for
+    bit, forward and gradients, at GPT-2's attention shape; ``moe_ffn``
+    over the ``ep`` group equal to the one-hot einsum form within one bf16
+    unit, at ``MoEConfig()``'s width on MOE_FORM_TOKENS tokens."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, H, D)
+    q, k, v, dy = (torch.randn(shape, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    outs = {}
+    for name, fn in (("ulysses", functools.partial(ulysses_attention,
+                                                   mesh=mesh)),
+                     ("causal", causal_attention)):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        y = fn(*leaves)
+        y.backward(dy)
+        outs[name] = [y.detach()] + [x.grad for x in leaves]
+    same = [torch.equal(a, b) for a, b in zip(outs["ulysses"],
+                                              outs["causal"])]
+    print(f"Ulysses at world 1 vs causal_attention, B={TRAIN_BATCH} "
+          f"T={TRAIN_SEQ} H={H}: bit-equal (out, dq, dk, dv) {same}",
+          flush=True)
+    check(all(same), "Ulysses at world 1 equals causal_attention bit for bit")
+
+    cfg = MoEConfig()
+    d, e = cfg.n_embd, cfg.num_experts
+    x = torch.randn(MOE_FORM_TOKENS, d, device=dev, generator=gen) \
+        .to(cfg.dtype)
+    router, w_up, w_down = (
+        torch.empty(shape_, device=dev).normal_(0.0, 0.02, generator=gen)
+        for shape_ in ((d, e), (e, d, 4 * d), (e, 4 * d, d)))
+    y, aux = moe_ffn(x, router, w_up, w_down, group=mesh.group("ep"),
+                     capacity_factor=cfg.capacity_factor, dtype=cfg.dtype)
+    y_ref, aux_ref = dense_switch_ffn_reference(
+        x, router, w_up, w_down, capacity_factor=cfg.capacity_factor,
+        dtype=cfg.dtype)
+    y, y_ref = y.float(), y_ref.float()
+    y_ok = bool(((y - y_ref).abs()
+                 <= MOE_FORM_Y_RTOL * y_ref.abs() + 2.0 ** -133).all())
+    print(f"moe_ffn over an ep group of 1 vs the one-hot einsum form, "
+          f"{MOE_FORM_TOKENS} tokens x {d}, {e} experts: bit-equal "
+          f"{torch.equal(y, y_ref)}, largest |diff| "
+          f"{float((y - y_ref).abs().max()):.3g} (limit one bf16 unit), aux "
+          f"{float(aux):.6f} vs {float(aux_ref):.6f}", flush=True)
+    check(y_ok and abs(float(aux) - float(aux_ref))
+          <= 1e-6 * abs(float(aux_ref)),
+          "moe_ffn at ep = 1 matches the one-hot einsum form")
+
+
+def mesh_phase(main_run: dict, card: str) -> None:
+    """The port's mesh on one card: a one-rank NCCL group and a mesh with
+    every axis of size 1. (a) GPT-2 124M on ``dp = 1`` through
+    ``init_train_state(mesh=)``, ``shard_batch`` and the captured step,
+    the gradient all-reduce inside the graph, against the same step off
+    the mesh; (b) the same under FSDP2 (``fsdp = 1``); (c) ring attention's
+    hops through the kernels at GPT-2's and TinyLlama's attention shapes;
+    (d) Ulysses and ``moe_ffn`` over their groups at world 1; (e) the
+    multi-rank dry run on its default device, one NCCL rank."""
+    dev = initialize()
+    mesh = make_mesh({"dp": 1})
+    print(f"mesh: {mesh} over a {dist.get_backend()} group of "
+          f"{dist.get_world_size()}", flush=True)
+    host = train_batch(GPT2Config.small().vocab_size)
+    plain = mesh_train(None, False, host, "off (mesh-less captured step)")
+    dp = mesh_train(mesh, False, host, "dp=1 (gradient all-reduce in the "
+                    "step)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"],
+                                                  plain["losses"]))
+    overhead = dp["step_ms"] / plain["step_ms"] - 1
+    over_phase4 = dp["step_ms"] / main_run["step_ms"] - 1
+    print(f"mesh dp=1 vs mesh-less: first {CAPTURE_STEPS} losses bit-equal "
+          f"{dp['losses'] == plain['losses']}, largest relative difference "
+          f"{rel:.3g} (limit {CAPTURE_LOSS_RTOL}); step {dp['step_ms']:.2f} "
+          f"ms vs {plain['step_ms']:.2f} ms ({overhead:+.2%}); phase 4's "
+          f"step {main_run['step_ms']:.2f} ms, {main_run['tok_s']:.1f} "
+          f"tokens/s (dp=1 {over_phase4:+.2%} over it); card {card}",
+          flush=True)
+    check(rel <= CAPTURE_LOSS_RTOL, "mesh dp=1: the first losses match the "
+          "mesh-less step's")
+    want_captures = 1 if CAPTURE else None
+    check(dp["compile_count"] == want_captures and dp["donated"],
+          f"mesh dp=1: captured {want_captures} time(s), buffers donated")
+    n = GPT2Config.small().n_layer
+    check_counts({"n_steps": CAPTURE_STEPS, "counts": dp["counts"]},
+                 {name: n for name in SQUARE}, "mesh dp=1")
+
+    fsdp = mesh_train(mesh, True, host, "fsdp=1 (FSDP2)")
+    rel0 = abs(fsdp["losses"][0] - dp["losses"][0]) / abs(dp["losses"][0])
+    print(f"mesh fsdp=1: step-0 loss {fsdp['losses'][0]} vs dp=1 "
+          f"{dp['losses'][0]}, relative difference {rel0:.3g} (limit "
+          f"{CAPTURE_LOSS_RTOL}); the step was "
+          f"{'captured' if fsdp['compile_count'] else 'run eagerly'} "
+          "(FSDP2 steps run eagerly by rule)", flush=True)
+    check(rel0 <= CAPTURE_LOSS_RTOL, "mesh fsdp=1: step-0 loss matches dp=1")
+    check(fsdp["sharded"] > 0 and fsdp["compile_count"] is None,
+          "mesh fsdp=1: FSDP2 sharded parameters and compile_count is None "
+          "(the FSDP2 step runs eagerly by rule)")
+    check_counts({"n_steps": CAPTURE_STEPS, "counts": fsdp["counts"]},
+                 {name: n for name in SQUARE}, "mesh fsdp=1")
+
+    for b, t, h in RING_SHAPES:
+        ring_check(b, t, h, dev, card)
+    exchange_check(mesh, dev)
+    dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(1)
+    print(f"mesh dryrun_multichip(1), no device named: {ranks} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(len(ranks) == 1 and ranks[0]["device"] == "cuda:0"
+          and np.isfinite(ranks[0]["loss"]),
+          "dryrun_multichip(1) runs one NCCL rank on the card by default")
+
+
 def plant_fault(name: str) -> str:
     """Build kernel ``name``'s source with the fault of FAULTS, under the
     build directory, and bind that kernel's wrapper (and only it) to it.
@@ -1726,6 +2023,8 @@ def run_all(dev, card: str) -> int:
     vit_rows, vit_run = vit_phase(card)
     torch.cuda.empty_cache()
     moe_phase(card)
+    torch.cuda.empty_cache()
+    mesh_phase(main_run, card)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
 

@@ -25,6 +25,10 @@ def default_device() -> torch.device:
     return torch.device("cuda", 0)
 
 
-def resolve_device(device: str | torch.device | None) -> torch.device:
-    """The caller's ``device``, or :func:`default_device` when None."""
-    return default_device() if device is None else torch.device(device)
+def resolve_device(device: str | torch.device | None,
+                   mesh=None) -> torch.device:
+    """The caller's ``device``; else the device of ``mesh`` (this rank's,
+    ``parallel.mesh.Mesh``); else :func:`default_device`."""
+    if device is not None:
+        return torch.device(device)
+    return mesh.device if mesh is not None else default_device()

@@ -24,6 +24,14 @@ Attention is pluggable (``attn_fn``) and defaults to
 ``ops.attention.causal_attention``: the CUDA flash kernels for CUDA
 tensors, their plain versions for CPU tensors.
 
+``GPT2(config, mesh=mesh)`` runs on a mesh (``parallel.mesh``), as the JAX
+model does: each rank holds its block of the batch (over ``dp`` and
+``fsdp``) and, on a real ``sp`` axis, its block of the sequence, and
+attention comes from ``ops.attention.make_sharded_causal_attention``
+(``config.attn_impl``: ring or Ulysses over ``config.sp_axis``). A
+sequence block takes the position embeddings of its own rows. The loss
+(:func:`gpt2_loss_fn`) is the mean over every rank's tokens.
+
 ``GPT2Config.remat`` runs each block under activation checkpointing
 (``torch.utils.checkpoint``, non-reentrant), the counterpart of
 ``nn.remat`` per block; ``remat_policy`` names what the forward may keep,
@@ -43,6 +51,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
@@ -53,7 +62,11 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.core.accelerator import resolve_device
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.ops.attention import (
+    causal_attention,
+    make_sharded_causal_attention,
+)
+from ray_tpu_torch.parallel.mesh import loss_group
 
 
 @dataclass(frozen=True)
@@ -72,6 +85,8 @@ class GPT2Config:
     # matrix-product outputs, "everything" keeps all and recomputes
     # nothing (the block runs without a checkpoint).
     remat_policy: str = "nothing"
+    attn_impl: str = "auto"          # "auto" | "dense" | "ring" | "ulysses"
+    sp_axis: str = "sp"
 
     @staticmethod
     def small(**kw) -> "GPT2Config":
@@ -293,24 +308,46 @@ def load_norms_and_attention(block: nn.Module, p: dict) -> None:
         put_param(getattr(block.attn, name), p["attn"][name])
 
 
+def mesh_attention(mesh, attn_impl: str, sp_axis: str) -> Callable:
+    """The attention of a model on ``mesh`` (JAX's ``_attn_fn``): the
+    sharded attention where an axis of the activations holds more than
+    one rank, else ``causal_attention``."""
+    if mesh is not None and any(mesh.shape.get(a, 1) > 1
+                                for a in ("dp", "fsdp", "tp", sp_axis)):
+        return make_sharded_causal_attention(mesh, seq_axis=sp_axis,
+                                             impl=attn_impl)
+    return causal_attention
+
+
+def seq_offset(mesh, sp_axis: str, t: int) -> int:
+    """The first absolute position of this rank's ``t`` rows: its index
+    along ``sp_axis`` times ``t`` (0 off a mesh)."""
+    if mesh is None or mesh.shape.get(sp_axis, 1) == 1:
+        return 0
+    return mesh.axis_index(sp_axis) * t
+
+
 class GPT2(nn.Module):
     """GPT-2 LM. ``forward(tokens) -> logits``; wte is tied to the LM head.
 
     ``device`` defaults to the card (``core.accelerator.default_device``,
-    which raises without one); pass ``device="cpu"`` to run on the CPU.
-    Weights are random from ``seed`` on a ``torch.Generator`` of that
-    device."""
+    which raises without one), or to ``mesh.device``; pass
+    ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
+    on a ``torch.Generator`` of that device. ``attn_fn`` defaults to the
+    mesh's attention (:func:`mesh_attention`)."""
 
     def __init__(self, config: GPT2Config, *, device=None, seed: int = 0,
-                 attn_fn: Callable = causal_attention):
+                 attn_fn: Callable | None = None, mesh=None):
         super().__init__()
         if config.dropout > 0:
             raise NotImplementedError("dropout > 0 is not ported yet")
         if config.remat:
             remat_policy(config.remat_policy)   # unknown names raise here
         self.config = config
-        self.attn_fn = attn_fn
-        device = resolve_device(device)
+        self.mesh = mesh
+        self.attn_fn = attn_fn or mesh_attention(mesh, config.attn_impl,
+                                                 config.sp_axis)
+        device = resolve_device(device, mesh)
         gen = torch.Generator(device=device).manual_seed(seed)
         c = config
         self.wte = skip_init(nn.Embedding, c.vocab_size, c.n_embd,
@@ -326,8 +363,9 @@ class GPT2(nn.Module):
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
         dt = self.config.dtype
         b, t = tokens.shape
+        pos0 = seq_offset(self.mesh, self.config.sp_axis, t)
         x = F.embedding(tokens, self.wte.weight.to(dt)) \
-            + self.wpe.weight[:t].to(dt)
+            + self.wpe.weight[pos0:pos0 + t].to(dt)
         for block in self.h:
             if self.config.remat:
                 x = remat_call(block, x, self.attn_fn,
@@ -355,14 +393,30 @@ class GPT2(nn.Module):
         put_param(self.ln_f.bias, params["ln_f"]["bias"])
 
 
-def cross_entropy_loss(logits, targets, ignore_index: int = -1):
-    """Mean token cross-entropy; positions == ignore_index are masked."""
+def _token_count(mask_sum: torch.Tensor, group) -> tuple:
+    """(the count of tokens the mean divides by, the factor a rank's sum
+    takes): this rank's own count, or, over the ranks of ``group``, the
+    count of all of them with each rank's sum scaled by the group's size,
+    so that the mean of the ranks' losses is the mean over every token
+    (local counts differ where ``ignore_index`` masks unevenly)."""
+    if group is None:
+        return mask_sum, 1
+    total = mask_sum.clone()
+    dist.all_reduce(total, group=group)
+    return total, dist.get_world_size(group)
+
+
+def cross_entropy_loss(logits, targets, ignore_index: int = -1, group=None):
+    """Mean token cross-entropy; positions == ignore_index are masked.
+    With ``group``, this rank's share of the mean over the group's tokens
+    (see :func:`chunked_cross_entropy`)."""
     logp = torch.log_softmax(logits, dim=-1)
     mask = targets != ignore_index
     safe = torch.where(mask, targets, 0).long()
     nll = -logp.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(mask, nll, 0.0)
-    return nll.sum() / mask.sum().clamp_min(1)
+    cnt, n = _token_count(mask.sum(), group)
+    return nll.sum() * n / cnt.clamp_min(1)
 
 
 class ChunkedCrossEntropyFn(torch.autograd.Function):
@@ -374,7 +428,7 @@ class ChunkedCrossEntropyFn(torch.autograd.Function):
     returned in the embedding's type, as the reference does."""
 
     @staticmethod
-    def forward(ctx, rows_c, emb, tgt_c, ignore_index):
+    def forward(ctx, rows_c, emb, tgt_c, ignore_index, group):
         n = rows_c.shape[0]
         emb_t = emb.t()
         tot = torch.zeros((), dtype=torch.float32, device=rows_c.device)
@@ -390,14 +444,15 @@ class ChunkedCrossEntropyFn(torch.autograd.Function):
             tot += torch.where(mask, lse - picked, 0.0).sum()
             cnt += mask.sum()
             lse_c[i] = lse
+        cnt, ranks = _token_count(cnt, group)
         ctx.save_for_backward(rows_c, emb, tgt_c, lse_c, cnt)
-        ctx.ignore_index = ignore_index
-        return tot / cnt.clamp_min(1).float()
+        ctx.ignore_index, ctx.ranks = ignore_index, ranks
+        return tot * ranks / cnt.clamp_min(1).float()
 
     @staticmethod
     def backward(ctx, g):
         rows_c, emb, tgt_c, lse_c, cnt = ctx.saved_tensors
-        scale = g / cnt.clamp_min(1).float()
+        scale = g * ctx.ranks / cnt.clamp_min(1).float()
         emb_t = emb.t()
         demb = torch.zeros(emb.shape, dtype=torch.float32, device=emb.device)
         dx = torch.empty_like(rows_c)
@@ -410,17 +465,23 @@ class ChunkedCrossEntropyFn(torch.autograd.Function):
             dlb = (p * (scale * mask)[:, None]).to(emb.dtype)
             dx[i] = dlb @ emb
             demb += matmul_f32(dlb.t(), rows_c[i])
-        return dx, demb.to(emb.dtype), None, None
+        return dx, demb.to(emb.dtype), None, None, None
 
 
 def chunked_cross_entropy(hidden, embedding, targets,
                           ignore_index: int = -1,
-                          chunk_size: int = 2048):
+                          chunk_size: int = 2048, group=None):
     """Cross-entropy that never materializes the full (B, S, vocab)
     logits: the tied LM head and the loss run per row chunk, with a
     hand-written backward that recomputes each chunk's logits and reuses
     the saved per-row log-sum-exp. Rows that do not fill the last chunk
-    are padded with zeros and ``ignore_index`` targets."""
+    are padded with zeros and ``ignore_index`` targets.
+
+    With ``group`` (a process group whose ranks hold other tokens) the
+    token count is summed over the group and this rank's loss is its sum
+    times the group's size over that count: the mean of the ranks'
+    losses, which the train step takes, is the mean over every token, and
+    so are the gradients the step averages."""
     b, s, e = hidden.shape
     n_rows = b * s
     rows = hidden.reshape(n_rows, e)
@@ -434,7 +495,7 @@ def chunked_cross_entropy(hidden, embedding, targets,
     # Cast the tied embedding ONCE (fwd and bwd both use the copy).
     return ChunkedCrossEntropyFn.apply(
         rows.reshape(n, chunk, e), embedding.to(hidden.dtype),
-        tgt.reshape(n, chunk), ignore_index)
+        tgt.reshape(n, chunk), ignore_index, group)
 
 
 def gpt2_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
@@ -442,16 +503,20 @@ def gpt2_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
 
     The JAX counterpart takes ``(params, batch)`` with the flax module
     bound outside; here the ``GPT2`` module holds its parameters and is
-    the first argument. ``fused_ce`` (default) uses the chunked LM-head
-    + cross-entropy path; False materializes full float32 logits (not
+    the first argument. On a mesh of more than one rank the loss is this
+    rank's share of the mean over every rank's tokens (the ``group`` of
+    :func:`chunked_cross_entropy`). ``fused_ce`` (default) uses the
+    chunked LM-head + cross-entropy path; False materializes full float32 logits (not
     differentiable on the card: an evaluation path)."""
 
     def loss_fn(model: GPT2, batch):
+        group = loss_group(model.mesh)
         if fused_ce:
             h = model(batch["tokens"], return_hidden=True)
             return chunked_cross_entropy(h, model.wte.weight,
                                          batch["targets"],
-                                         chunk_size=ce_chunk)
-        return cross_entropy_loss(model(batch["tokens"]), batch["targets"])
+                                         chunk_size=ce_chunk, group=group)
+        return cross_entropy_loss(model(batch["tokens"]), batch["targets"],
+                                  group=group)
 
     return loss_fn

@@ -27,9 +27,10 @@ Attention is pluggable (``attn_fn``), by default
 ``ops.attention.causal_attention`` (the CUDA flash kernels for CUDA
 tensors). ``remat=True`` runs each block under activation checkpointing
 with the ``"nothing"`` policy, as the reference's ``nn.remat`` with
-``nothing_saveable`` does. The reference's mesh fields (``attn_impl``,
-``sp_axis``) belong to multi-device attention, which the port does not
-have yet; they are left out.
+``nothing_saveable`` does. ``Llama(config, mesh=mesh)`` runs on a mesh as
+``models/gpt2.py`` describes: a sequence block's RoPE angles are those of
+its own rows, and GQA repeats k and v before the exchange of ring or
+Ulysses attention, as the JAX model does.
 """
 
 from __future__ import annotations
@@ -48,9 +49,11 @@ from ray_tpu_torch.models.gpt2 import (
     chunked_cross_entropy,
     cross_entropy_loss,
     matmul_f32,
+    mesh_attention,
     remat_call,
+    seq_offset,
 )
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.parallel.mesh import loss_group
 
 
 @dataclass(frozen=True)
@@ -67,6 +70,8 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = False
+    attn_impl: str = "auto"          # auto | dense | ring | ulysses
+    sp_axis: str = "sp"
     tie_embeddings: bool = True
 
     @staticmethod
@@ -163,14 +168,15 @@ class LlamaAttention(nn.Module):
         self.proj = _linear(c.n_head * hd, e, c, device, gen)
 
     def forward(self, x, attn_fn: Callable, angles):
+        """``angles``: ``[T, D/2]``, those of this block's rows."""
         c = self.config
         dt, hd = c.dtype, c.head_dim
         b, t, _ = x.shape
         q = _dense(self.q, x, dt).view(b, t, c.n_head, hd)
         k = _dense(self.k, x, dt).view(b, t, c.n_kv_head, hd)
         v = _dense(self.v, x, dt).view(b, t, c.n_kv_head, hd)
-        q = apply_rope(q, angles[:t])
-        k = apply_rope(k, angles[:t])
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
         # GQA: each kv head repeated in place, as jnp.repeat(axis=2).
         rep = c.n_head // c.n_kv_head
         if rep > 1:
@@ -215,16 +221,19 @@ class Llama(nn.Module):
     """Llama-style decoder LM. ``forward(tokens) -> logits``.
 
     ``device`` defaults to the card (``core.accelerator.default_device``,
-    which raises without one); pass ``device="cpu"`` to run on the CPU.
-    Weights are random from ``seed`` on a ``torch.Generator`` of that
-    device."""
+    which raises without one), or to ``mesh.device``; pass
+    ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
+    on a ``torch.Generator`` of that device. ``attn_fn`` defaults to the
+    mesh's attention (``models.gpt2.mesh_attention``)."""
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0,
-                 attn_fn: Callable = causal_attention):
+                 attn_fn: Callable | None = None, mesh=None):
         super().__init__()
         self.config = config
-        self.attn_fn = attn_fn
-        device = resolve_device(device)
+        self.mesh = mesh
+        self.attn_fn = attn_fn or mesh_attention(mesh, config.attn_impl,
+                                                 config.sp_axis)
+        device = resolve_device(device, mesh)
         gen = torch.Generator(device=device).manual_seed(seed)
         c = config
         self.wte = skip_init(nn.Embedding, c.vocab_size, c.n_embd,
@@ -253,13 +262,15 @@ class Llama(nn.Module):
         c = self.config
         dt = c.dtype
         b, t = tokens.shape
+        pos0 = seq_offset(self.mesh, c.sp_axis, t)
+        angles = self.angles[pos0:pos0 + t]
         x = F.embedding(tokens, self.wte.weight.to(dt))
         for block in self.h:
             if c.remat:
-                x = remat_call(block, x, self.attn_fn, self.angles,
+                x = remat_call(block, x, self.attn_fn, angles,
                                policy="nothing")
             else:
-                x = block(x, self.attn_fn, self.angles)
+                x = block(x, self.attn_fn, angles)
         x = self.norm_f(x)
         if return_hidden:
             # Final hidden states for the chunked LM-head loss.
@@ -309,15 +320,18 @@ def llama_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
     ``models/gpt2.py`` on the tied embedding, or on ``lm_head``'s weight
     (the transpose of the flax kernel, as the reference passes it) when
     the head is untied; False materializes full float32 logits (an
-    evaluation path on the card, as for GPT-2)."""
+    evaluation path on the card, as for GPT-2). On a mesh the loss is the
+    mean over every rank's tokens, as ``models.gpt2.gpt2_loss_fn``'s."""
 
     def loss_fn(model: Llama, batch):
+        group = loss_group(model.mesh)
         if fused_ce:
             h = model(batch["tokens"], return_hidden=True)
             head = (model.wte.weight if model.config.tie_embeddings
                     else model.lm_head.weight)
             return chunked_cross_entropy(h, head, batch["targets"],
-                                         chunk_size=ce_chunk)
-        return cross_entropy_loss(model(batch["tokens"]), batch["targets"])
+                                         chunk_size=ce_chunk, group=group)
+        return cross_entropy_loss(model(batch["tokens"]), batch["targets"],
+                                  group=group)
 
     return loss_fn

@@ -18,7 +18,12 @@ takes their mean.
 
 ``MoEConfig.remat`` is kept with the JAX config's fields but read
 nowhere, as ``MoETransformer`` in the JAX package never reads it. The
-mesh fields (``attn_impl``, ``sp_axis``) come with multi-GPU.
+mesh fields (``attn_impl``, ``sp_axis``, ``MoETransformer(mesh=)``) are
+those of the JAX model; a mesh of more than one rank raises
+NotImplementedError for now: through ``SwitchFFN`` the JAX model routes
+the GLOBAL tokens of the batch, which needs the experts and the routing
+on a mesh (ROADMAP §1). ``ops.moe.moe_ffn`` over an ``ep`` group is the
+expert-parallel layer that will carry it.
 """
 
 from __future__ import annotations
@@ -63,6 +68,8 @@ class MoEConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = False              # never read, as in the JAX package
+    attn_impl: str = "auto"
+    sp_axis: str = "sp"
 
     @staticmethod
     def tiny(**kw) -> "MoEConfig":
@@ -78,7 +85,8 @@ class MoEConfig:
         return GPT2Config(
             vocab_size=self.vocab_size, n_layer=self.n_layer,
             n_head=self.n_head, n_embd=self.n_embd, seq_len=self.seq_len,
-            dtype=self.dtype, param_dtype=self.param_dtype)
+            dtype=self.dtype, param_dtype=self.param_dtype,
+            attn_impl=self.attn_impl, sp_axis=self.sp_axis)
 
     def is_moe(self, i: int) -> bool:
         """Whether block ``i`` is a MoE block (``models/moe.py:150``)."""
@@ -144,12 +152,18 @@ class MoETransformer(nn.Module):
     device."""
 
     def __init__(self, config: MoEConfig, *, device=None, seed: int = 0,
-                 attn_fn: Callable = causal_attention):
+                 attn_fn: Callable = causal_attention, mesh=None):
         super().__init__()
+        if mesh is not None and mesh.size > 1:
+            raise NotImplementedError(
+                "MoETransformer on a mesh of more than one rank (global "
+                "routing through SwitchFFN) is not in the port yet "
+                "(ROADMAP §1)")
         c = config
         self.config = c
+        self.mesh = mesh
         self.attn_fn = attn_fn
-        device = resolve_device(device)
+        device = resolve_device(device, mesh)
         gen = torch.Generator(device=device).manual_seed(seed)
         self.wte = skip_init(nn.Embedding, c.vocab_size, c.n_embd,
                              dtype=c.param_dtype, device=device)

@@ -31,6 +31,13 @@ ways that do not show in the output's shape:
   nothing. The train step writes the statistics
   (``train.make_train_step(has_extra=True)``), as the JAX step carries
   ``batch_stats`` in ``TrainState.extra``.
+- On a ``dp``/``fsdp`` mesh (``ResNet(config, mesh=mesh)``) the batch
+  statistics are those of the GLOBAL batch, as under the JAX step, where
+  ``jit`` reduces across the sharded batch axis: each BatchNorm sums
+  ``x`` and ``x²`` over its rows, allreduces the sums over the batch
+  ranks (differentiably: the backward allreduces their gradients) and
+  divides by the global count, so the running statistics are equal on
+  every rank too.
 - The residual branch is projected where its shape differs from the
   block's output, so stage 0's first block projects at stride 1.
 - The global mean over H and W takes a float32 sum and rounds to the
@@ -52,9 +59,11 @@ from typing import Mapping
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ray_tpu_torch.collective.device import allreduce
 from ray_tpu_torch.core.accelerator import resolve_device
 
 BN_MOMENTUM = 0.9
@@ -146,13 +155,25 @@ def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
 
 class _Norms:
     """What the BatchNorm layers of one forward share: the mode, the
-    running statistics they read (``{buffer name: tensor}``) and, in
-    training, the new ones they return."""
+    running statistics they read (``{buffer name: tensor}``), in training
+    the new ones they return, and the process group of the batch ranks
+    whose rows the statistics span (None: this rank's rows)."""
 
-    def __init__(self, train: bool, stats: Mapping[str, torch.Tensor]):
+    def __init__(self, train: bool, stats: Mapping[str, torch.Tensor],
+                 group=None):
         self.train = train
         self.stats = stats
+        self.group = group
         self.new_stats: dict[str, torch.Tensor] = {}
+
+    def moments(self, xf: torch.Tensor):
+        """Per-channel mean and E[x²] of the rows ``[N, C]``: this rank's,
+        or the global batch's over ``group``."""
+        if self.group is None:
+            return xf.mean(0), (xf * xf).mean(0)
+        sums = allreduce(torch.stack([xf.sum(0), (xf * xf).sum(0)]),
+                         self.group)
+        return sums / (xf.shape[0] * dist.get_world_size(self.group))
 
 
 class BatchNorm(nn.Module):
@@ -183,8 +204,8 @@ class BatchNorm(nn.Module):
         n, c, h, w = x.shape
         xf = x.permute(0, 2, 3, 1).reshape(-1, c).float()
         if norms.train:
-            mean = xf.mean(0)
-            var = ((xf * xf).mean(0) - mean * mean).clamp_min(0.0)
+            mean, mean_sq = norms.moments(xf)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 norms.new_stats[f"{self.path}.mean"] = (
                     BN_MOMENTUM * ra_mean + (1 - BN_MOMENTUM) * mean)
@@ -239,15 +260,26 @@ class ResNet(nn.Module):
     with ``train=True``, ``(logits, new running statistics)``.
 
     ``device`` defaults to the card (``core.accelerator.default_device``,
-    which raises without one); pass ``device="cpu"`` to run on the CPU.
-    Weights are random from ``seed`` on a ``torch.Generator`` of that
-    device."""
+    which raises without one), or to ``mesh.device``; pass
+    ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
+    on a ``torch.Generator`` of that device. On ``mesh`` the batch
+    statistics span the ``dp`` and ``fsdp`` ranks; sequence and tensor
+    axes are not in the port's ResNet (NotImplementedError)."""
 
     def __init__(self, config: ResNet50Config = ResNet50Config(), *,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, mesh=None):
         super().__init__()
+        for axis in ("sp", "tp"):
+            if mesh is not None and mesh.shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"ResNet on a mesh with {axis}={mesh.shape[axis]} is "
+                    "not in the port yet (ROADMAP §1)")
         self.config = c = config
-        device = resolve_device(device)
+        self.mesh = mesh
+        self._bn_group = None
+        if mesh is not None and mesh.axis_size(("dp", "fsdp")) > 1:
+            self._bn_group = mesh.group(("dp", "fsdp"))
+        device = resolve_device(device, mesh)
         gen = torch.Generator(device=device).manual_seed(seed)
         dt, pd = c.dtype, c.param_dtype
         self.conv_init = Conv(3, c.width, 7, 2, dt, pd, device, gen)
@@ -285,7 +317,7 @@ class ResNet(nn.Module):
         averages into the ones it returns."""
         c = self.config
         norms = _Norms(train, self.batch_stats() if batch_stats is None
-                       else batch_stats)
+                       else batch_stats, self._bn_group)
         # [B, H, W, 3] memory seen as NCHW: the channels_last format.
         x = image.to(c.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn_init(self.conv_init(x), norms))

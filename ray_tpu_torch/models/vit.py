@@ -22,6 +22,12 @@ Images are ``[B, H, W, 3]`` float32, as in JAX; the patch convolution
 reads them as ``channels_last`` NCHW (see ``models/resnet.py``).
 ``ViTConfig.remat`` runs each block under activation checkpointing with
 the ``"nothing"`` policy, the counterpart of ``nn.remat`` with no policy.
+
+``ViT(config, mesh=mesh)`` runs on a ``dp``/``fsdp`` mesh: each rank
+holds its block of the batch, and attention needs nothing from the other
+ranks. The JAX model also names the ``sp`` axis, where XLA gathers the
+sequence for its dense attention; a ViT over sequence or tensor ranks is
+not in the port yet (ROADMAP §1) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -134,16 +140,22 @@ class ViT(nn.Module):
     """``forward(images [B, H, W, 3]) -> logits [B, num_classes]``.
 
     ``device`` defaults to the card (``core.accelerator.default_device``,
-    which raises without one); pass ``device="cpu"`` to run on the CPU.
-    Weights are random from ``seed`` on a ``torch.Generator`` of that
-    device."""
+    which raises without one), or to ``mesh.device``; pass
+    ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
+    on a ``torch.Generator`` of that device."""
 
     def __init__(self, config: ViTConfig, *, device=None, seed: int = 0,
-                 attn_fn: Callable = _attention):
+                 attn_fn: Callable = _attention, mesh=None):
         super().__init__()
+        for axis in ("sp", "tp"):
+            if mesh is not None and mesh.shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"ViT on a mesh with {axis}={mesh.shape[axis]} is not "
+                    "in the port yet (ROADMAP §1)")
         self.config = c = config
+        self.mesh = mesh
         self.attn_fn = attn_fn
-        device = resolve_device(device)
+        device = resolve_device(device, mesh)
         gen = torch.Generator(device=device).manual_seed(seed)
         e, pd = c.n_embd, c.param_dtype
         self.patch_embed = Conv(3, e, c.patch_size, c.patch_size, c.dtype,

@@ -28,7 +28,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from ray_tpu_torch.collective.device import all_to_all
 
 
 def top1_dispatch(router_logits: torch.Tensor, num_experts: int,
@@ -113,30 +116,42 @@ def _router_logits(x: torch.Tensor, router_w: torch.Tensor) -> torch.Tensor:
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor, group=None, capacity_factor: float = 2.0,
             dtype: torch.dtype | None = None):
-    """Switch FFN on one card, routed by index; ``(y [T, D], aux)``.
+    """Switch FFN routed by index, its experts split over the ranks of
+    ``group`` (the counterpart of the JAX version's ``ep`` axis; None is
+    one rank); ``(y [T, D], aux)``.
 
-    x: [T, D]; router_w: [D, E]; w_up: [E, D, H]; w_down: [E, H, D]. All
-    experts are local: ``group``, the counterpart of the JAX version's
-    ``ep`` axis, must be None or of size 1 (the all_to_all of the expert
-    queues comes with multi-GPU). ``dtype`` is the compute type that
+    x: [T, D], this rank's own tokens; router_w: [D, E], replicated;
+    w_up: [E_local, D, H] and w_down: [E_local, H, D], this rank's experts,
+    ``E = E_local · ep``. Routing is local, as in JAX: the capacity comes
+    from this rank's T, queue positions count its own tokens, and the
+    choice spans all E experts. The ``[ep, E_local, C, D]`` queues go to
+    their experts' ranks by ``all_to_all`` and come back by the inverse
+    exchange; both are differentiable. ``dtype`` is the compute type that
     ``SwitchFFN`` casts tokens, weights and the combine weights to (its
     ``cfg.dtype``); None computes in ``x``'s type, as the JAX function
     does. The router logits are float32 either way."""
-    if group is not None and group.size() > 1:
-        raise NotImplementedError(
-            "moe_ffn over an expert-parallel group of more than one rank "
-            "is not ported yet")
+    ep = 1 if group is None else dist.get_world_size(group)
     dt = dtype or x.dtype
     t, d = x.shape
-    num_experts = w_up.shape[0]
+    e_local = w_up.shape[0]
+    num_experts = e_local * ep
     capacity = capacity_for(t, num_experts, capacity_factor)
     route = top1_route(_router_logits(x, router_w), num_experts, capacity)
     # Dispatch: each kept token's row into its slot, dropped ones into the
     # dump row, which the experts never see.
     rows = x.new_zeros((num_experts * capacity + 1, d), dtype=dt)
     rows = rows.index_put((route.slot,), x.to(dt))
-    out = expert_mlp(rows[:-1].view(num_experts, capacity, d), w_up.to(dt),
-                     w_down.to(dt)).view(num_experts * capacity, d)
+    queues = rows[:-1].view(ep, e_local, capacity, d)
+    if ep > 1:
+        # [ep_dst, e_local, C, D] -> [ep_src, e_local, C, D]: each local
+        # expert takes the queues of every source rank.
+        queues = all_to_all(queues, group, 0, 0)
+    expert_in = queues.transpose(0, 1).reshape(e_local, ep * capacity, d)
+    out = expert_mlp(expert_in, w_up.to(dt), w_down.to(dt))
+    out = out.view(e_local, ep, capacity, d).transpose(0, 1)
+    if ep > 1:
+        out = all_to_all(out.contiguous(), group, 0, 0)
+    out = out.reshape(num_experts * capacity, d)
     # Combine: a dropped token gathers the zero dump row, and its gate is 0.
     # The product of the rounded gate and the row is exact in float32 and
     # rounded once, as the einsum's single term is. index_select's

@@ -14,16 +14,19 @@ from ray_tpu_torch.train.optim import (
 from ray_tpu_torch.train.prefetch import DevicePrefetcher, prefetch_to_device
 from ray_tpu_torch.train.step import (
     TrainState,
+    batch_spec,
     buffers_donated,
     compile_count,
     disable_capture,
     init_train_state,
     make_multi_train_step,
     make_train_step,
+    shard_batch,
 )
 
 __all__ = [
-    "TrainState", "init_train_state", "make_train_step",
+    "TrainState", "init_train_state", "make_train_step", "batch_spec",
+    "shard_batch",
     "make_multi_train_step", "compile_count", "buffers_donated",
     "disable_capture", "AdamW", "AdamWState", "adamw", "SGD",
     "SGDState", "sgd", "global_norm", "DevicePrefetcher",

@@ -31,6 +31,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ray_tpu_torch.parallel.sharding import local
+
 
 @dataclass
 class AdamWState:
@@ -63,6 +65,7 @@ class AdamW:
     def update(self, grads, state: AdamWState, params) -> None:
         """One AdamW step: updates ``params`` and ``state`` in place."""
         params = _as_list(params)
+        grads = [local(g) for g in grads]
         b1, b2 = self.b1, self.b2
         state.count.add_(1)
         # 1 - decay**count in float32 on the device, as optax computes it.
@@ -122,6 +125,7 @@ class SGD:
     def update(self, grads, state: SGDState, params) -> None:
         """One SGD step: updates ``params`` and ``state`` in place."""
         params = _as_list(params)
+        grads = [local(g) for g in grads]
         traces = state.trace or [None] * len(params)
         for p, g, t in zip(params, grads, traces):
             if g is None:
@@ -140,8 +144,10 @@ def sgd(lr: float, momentum: float | None = None,
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    norms = [torch.linalg.vector_norm(t.float()) for t in tensors
+    """sqrt of the sum of squares of every element (optax.global_norm),
+    over each tensor's local part (``collective.device.global_norm``
+    takes a norm over shards)."""
+    norms = [torch.linalg.vector_norm(local(t).float()) for t in tensors
              if t is not None]
     return torch.linalg.vector_norm(torch.stack(norms))
 
@@ -154,6 +160,9 @@ def _round_to(x: float, dtype: torch.dtype) -> float:
 
 
 def _as_list(params) -> list[torch.Tensor]:
+    """The tensors to update: a module's parameters, or a list; each
+    parameter that FSDP2 shards is its local shard (what this rank
+    updates)."""
     if isinstance(params, torch.nn.Module):
-        return list(params.parameters())
-    return list(params)
+        params = params.parameters()
+    return [local(p) for p in params]

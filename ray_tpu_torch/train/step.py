@@ -33,6 +33,29 @@ BatchNorm's running statistics, through the step: the loss returns the
 new state beside the loss, and the step writes it into
 ``TrainState.extra`` in place. Only the step writes it, once per step,
 however often the forward runs.
+
+On a mesh (``init_train_state(..., mesh=mesh)``, which places the
+parameters by ``parallel.sharding.place_params``) the step makes
+explicit the reductions that XLA's sharding propagation inserts into the
+JAX step:
+
+- the gradient of every replicated parameter is averaged over every rank
+  of the mesh (``dp × fsdp × sp``, and ``ep``, whose ranks see the same
+  tokens): the ``sp`` ranks saw other tokens of the same weights, so
+  leaving them out would be wrong without a sign of it. FSDP2
+  reduce-scatters the gradients of the parameters it shards;
+- ``loss`` is the mean over every rank's tokens: each rank's loss is its
+  share of that mean (the models' loss functions sum the token count
+  over the ranks), and the metric is their mean;
+- ``grad_norm`` is the norm of the whole gradient, the shards of FSDP2's
+  parameters included (``collective.device.global_norm``).
+
+On the card these collectives are captured into the step's CUDA graph
+with the rest. The one rule that runs a step eagerly on the card: a
+state whose parameters FSDP2 shards. Its hooks all-gather and free
+parameters and wait on streams of their own between the modules, which a
+capture does not hold; such a step runs eagerly, and
+:func:`compile_count` stays None to say so.
 """
 
 from __future__ import annotations
@@ -42,9 +65,14 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
+from ray_tpu_torch.collective import device as coll
 from ray_tpu_torch.ops.cuda import flash_attention as fa
+from ray_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SP
+from ray_tpu_torch.parallel.sharding import is_sharded, local, place_params
 from ray_tpu_torch.train.optim import global_norm
 
 # > 0 inside disable_capture(): steps run eagerly on the card too.
@@ -57,19 +85,27 @@ class TrainState:
     params: torch.nn.Module
     opt_state: Any
     extra: dict[str, torch.Tensor] | None = None   # e.g. BatchNorm statistics
+    mesh: Any = None
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.params.parameters())
 
 
-def init_train_state(params: torch.nn.Module, optimizer,
-                     extra: dict[str, torch.Tensor] | None = None
-                     ) -> TrainState:
+def init_train_state(params: torch.nn.Module, optimizer, mesh=None,
+                     extra: dict[str, torch.Tensor] | None = None,
+                     patterns=None) -> TrainState:
     """Wrap a module, fresh optimizer state for it (``adamw`` or ``sgd``)
     and the state ``extra`` that a ``has_extra`` step updates (e.g.
-    ``ResNet.batch_stats()``, the module's own buffers)."""
+    ``ResNet.batch_stats()``, the module's own buffers).
+
+    With ``mesh`` the parameters are first placed by the rule table
+    (``parallel.sharding.place_params`` with ``patterns``), so the optimizer state of a parameter FSDP2 shards
+    is sharded with it: the ZeRO counterpart that JAX gets by propagating
+    the parameters' shardings into the moments."""
+    if mesh is not None:
+        place_params(params, mesh, patterns)
     return TrainState(step=0, params=params, opt_state=optimizer.init(params),
-                      extra=extra)
+                      extra=extra, mesh=mesh)
 
 
 @contextlib.contextmanager
@@ -100,8 +136,10 @@ def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
         loss.backward()
         grads = [p.grad for p in params]
         metrics = {"loss": loss.detach()}
+        if state.mesh is not None:
+            metrics["loss"] = _reduce(grads, metrics["loss"], state.mesh)
         if grad_norm:
-            metrics["grad_norm"] = global_norm(grads)
+            metrics["grad_norm"] = _grad_norm(grads, state.mesh)
         optimizer.update(grads, state.opt_state, params)
         for p in params:
             p.grad = None
@@ -111,6 +149,62 @@ def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
                     state.extra[name].copy_(value)
         return metrics
     return body
+
+
+# Elements in one all-reduce of the step's gradients (128 MiB of
+# float32): few collectives a step, and a bounded flat copy for each.
+BUCKET_ELEMS = 1 << 25
+
+
+def _buckets(tensors: list) -> list[list]:
+    """``tensors`` in runs of one dtype, each run of at most
+    :data:`BUCKET_ELEMS` elements unless one tensor alone is larger."""
+    runs: list[list] = []
+    size = 0
+    for t in tensors:
+        if (not runs or runs[-1][0].dtype != t.dtype
+                or size + t.numel() > BUCKET_ELEMS):
+            runs.append([])
+            size = 0
+        runs[-1].append(t)
+        size += t.numel()
+    return runs
+
+
+def _reduce(grads: list, loss: torch.Tensor, mesh) -> torch.Tensor:
+    """Average, over every rank of ``mesh``, the gradients FSDP2 does not
+    reduce (those of replicated parameters), in place, and return the
+    mean of the ranks' losses. The gradients and the loss go in flat
+    buckets (:func:`_buckets`), one all-reduce each, after the whole
+    backward."""
+    n = mesh.size
+    loss = loss.reshape(1).clone()
+    plain = [g for g in grads if g is not None and not is_sharded(g)]
+    # A stable sort: one run of tensors for each dtype, the loss last in
+    # its own dtype's.
+    tensors = sorted(plain + [loss], key=lambda t: str(t.dtype))
+    for bucket in _buckets(tensors):
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=dist.group.WORLD)
+        if n > 1:
+            flat /= n
+        torch._foreach_copy_(bucket, [
+            part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in bucket]), bucket)])
+    return loss.reshape(())
+
+
+def _grad_norm(grads: list, mesh) -> torch.Tensor:
+    """The global gradient norm: local squares of whole (replicated)
+    gradients, and those of FSDP2's shards summed over ``fsdp``."""
+    if mesh is None:
+        return global_norm(grads)
+    whole = [g for g in grads if g is not None and not is_sharded(g)]
+    shards = [local(g) for g in grads if g is not None and is_sharded(g)]
+    sq = global_norm(whole).square() if whole else 0.0
+    if shards:
+        sq = sq + coll.global_norm(shards, AXIS_FSDP, mesh).square()
+    return torch.sqrt(torch.as_tensor(sq, device=mesh.device))
 
 
 class _Graph:
@@ -182,7 +276,9 @@ class _Step:
         if self.addresses is None:
             self.addresses = addresses
         device = tensors[0].device
-        if _capture_disabled or device.type != "cuda":
+        if (_capture_disabled or device.type != "cuda"
+                or any(is_sharded(p) for p in state.params.parameters())):
+            # FSDP2-sharded parameters: eager by rule (module docstring).
             metrics = self._body(state, batch)
         else:
             metrics = self._captured(state, batch, addresses, device)
@@ -201,6 +297,56 @@ class _Step:
         self._graphs[key] = graph
         self.captures = len(self._graphs)
         return metrics
+
+
+def batch_spec(mesh, *, seq_sharded: bool = False,
+               batch_dim: int = 0) -> tuple:
+    """The mesh axes of each dimension of a ``[..., batch, seq, ...]``
+    array (as the JAX package's ``PartitionSpec``): batch over ``dp`` and
+    ``fsdp``, the sequence over ``sp`` when ``seq_sharded``;
+    ``batch_dim`` leading axes (a multi-step stack) stay whole."""
+    batch_axes = tuple(a for a in ("dp", "fsdp")
+                       if mesh.shape.get(a, 1) > 1)
+    first = batch_axes if batch_axes else None
+    lead = (None,) * batch_dim
+    if seq_sharded and mesh.shape.get(AXIS_SP, 1) > 1:
+        return (*lead, first, AXIS_SP)
+    return (*lead, first)
+
+
+def shard_batch(batch, mesh, seq_sharded: bool = False,
+                batch_dim: int = 0):
+    """This rank's block of a global host batch (the same batch on every
+    rank: numpy arrays or tensors), on ``mesh.device``: the batch
+    dimension split over ``dp`` and ``fsdp``, the sequence over ``sp``
+    when ``seq_sharded`` (for ring or Ulysses attention), as
+    :func:`batch_spec` says. ``batch_dim`` marks how many leading axes
+    precede the batch axis. ValueError when a split does not divide."""
+
+    def put(x):
+        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(x))
+        spec = batch_spec(mesh, seq_sharded=seq_sharded
+                          and x.dim() >= 2 + batch_dim, batch_dim=batch_dim)
+        for dim, axes in enumerate(spec):
+            if axes is None:
+                continue
+            n = mesh.axis_size(axes)
+            if x.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of {tuple(x.shape)} does "
+                                 f"not split over {axes} ({n} ranks)")
+            size = x.shape[dim] // n
+            x = x.narrow(dim, mesh.axis_index(axes) * size, size)
+        return x.contiguous().to(mesh.device)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v) for v in tree)
+        return put(tree)
+
+    return walk(batch)
 
 
 def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,
@@ -264,8 +410,9 @@ def buffers_donated(step_fn: Callable, state: TrainState) -> bool:
 
 
 def _state_tensors(state: TrainState) -> list[torch.Tensor]:
-    """Every tensor a step updates: parameters, optimizer state, extra."""
-    return (list(state.params.parameters())
+    """Every tensor a step updates: parameters (a shard's local part),
+    optimizer state, extra."""
+    return ([local(p) for p in state.params.parameters()]
             + list(_tensors(state.opt_state))
             + list((state.extra or {}).values()))
 

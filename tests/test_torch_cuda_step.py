@@ -16,6 +16,18 @@ Tolerances: the captured step runs the same kernels on the same inputs
 as the eager one, so losses agree within 1e-6 relative (a library
 product may pick another algorithm inside a capture) and the float32
 regression's parameters within 1e-6.
+
+The mesh tests run on a one-rank NCCL group (``parallel.initialize``)
+and a mesh whose axes are all of size 1: the step on ``dp = 1`` keeps
+its gradient all-reduce inside the captured graph and matches the
+mesh-less step within 1e-6; FSDP2 (``fsdp = 1``) runs eagerly by rule,
+``compile_count`` None, with the same step-0 loss; ring attention's hops
+at ``sp = 4``, run in this process, agree with the plain whole attention
+by ``flash_attention.agreement`` and launch 1 + r hops on rank r;
+Ulysses at world 1 is ``causal_attention`` bit for bit, and ``moe_ffn``
+over an ``ep`` group of one rank matches the one-hot einsum form within
+one bf16 unit. ``dryrun_multichip(1)`` with no device named spawns one
+NCCL rank on ``cuda:0``.
 """
 
 from __future__ import annotations
@@ -28,7 +40,12 @@ import torch
 
 from ray_tpu_torch.models import GPT2, GPT2Config
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.ops.cuda import flash_attention as fa
+from ray_tpu_torch.ops.moe import dense_switch_ffn_reference, moe_ffn
+from ray_tpu_torch.parallel import initialize, make_mesh
+from ray_tpu_torch.parallel.dryrun import dryrun_multichip
+from ray_tpu_torch.parallel.sharding import _place_fsdp2
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -38,6 +55,7 @@ from ray_tpu_torch.train import (
     make_multi_train_step,
     make_train_step,
     prefetch_to_device,
+    shard_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -213,3 +231,119 @@ def test_captured_step_behind_the_prefetcher(cuda):
             state, m = step(state, batch)
             got.append(float(m["loss"]))
     np.testing.assert_allclose(got, eager, rtol=LOSS_RTOL)
+
+
+@pytest.fixture
+def mesh(cuda):
+    """A mesh of size-1 axes over a one-rank NCCL group (made once)."""
+    global _MESH
+    if _MESH is None:
+        initialize()
+        _MESH = make_mesh({"dp": 1})
+    return _MESH
+
+
+_MESH = None
+
+
+def _mesh_losses(cuda, mesh, fsdp2=False):
+    model = GPT2(GPT2Config.tiny(n_embd=256, n_head=4, seq_len=256),
+                 device=cuda, seed=0, mesh=mesh)
+    if fsdp2:
+        _place_fsdp2(model, mesh)
+    opt = adamw(1e-3, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    state = init_train_state(model, opt, mesh=mesh)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=512), opt)
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, 256, (4, 256))
+    host = {"tokens": toks, "targets": np.roll(toks, -1, 1)}
+    batch = ({k: torch.from_numpy(v).to(cuda) for k, v in host.items()}
+             if mesh is None else shard_batch(host, mesh))
+    fa.reset_launch_counts()
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(N_STEPS)]
+    return losses, step, state, fa.launch_counts()
+
+
+def test_mesh_dp1_step_is_captured_and_equals_the_mesh_less_step(cuda, mesh):
+    want, _, _, _ = _mesh_losses(cuda, None)
+    got, step, state, counts = _mesh_losses(cuda, mesh)
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert compile_count(step) == 1
+    assert buffers_donated(step, state)
+    assert all(counts[n] == 2 * N_STEPS for n in
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+def test_mesh_fsdp1_runs_eagerly_by_rule(cuda, mesh):
+    want, _, _, _ = _mesh_losses(cuda, mesh)
+    got, step, _, _ = _mesh_losses(cuda, mesh, fsdp2=True)
+    np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
+    assert compile_count(step) is None
+
+
+def test_ring_hops_agree_with_the_whole_attention(cuda):
+    sp, bh, t, d = 4, 8, 512, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v, do = (torch.randn(bh, t, d, device=cuda, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    s = t // sp
+    qs, ks, vs, dos = ([x[:, r * s:(r + 1) * s].contiguous()
+                        for r in range(sp)] for x in (q, k, v, do))
+    outs, dqs = [], []
+    dks = [torch.zeros(bh, s, d, device=cuda) for _ in range(sp)]
+    dvs = [torch.zeros_like(x) for x in dks]
+    for r in range(sp):
+        fa.reset_launch_counts()
+        state = None
+        for src in range(r + 1):
+            state = attn.ring_merge(state, attn.ring_hop_forward(
+                qs[r], ks[src], vs[src], src, r, scale))
+        assert attn.ring_hop_forward(qs[r], ks[0], vs[0], r + 1, r,
+                                     scale) is None
+        o, lse = attn.ring_finish(state, q.dtype)
+        delta = (o.float() * dos[r].float()).sum(-1)
+        dq = torch.zeros(bh, s, d, device=cuda)
+        for src in range(r + 1):
+            g = attn.ring_hop_backward(qs[r], ks[src], vs[src], dos[r], lse,
+                                       delta, src, r, scale)
+            dq += g[0].float()
+            dks[src] += g[1].float()
+            dvs[src] += g[2].float()
+        counts = fa.launch_counts()
+        assert all(counts[n] == r + 1 for n in
+                   ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")), counts
+        outs.append(o)
+        dqs.append(dq.to(q.dtype))
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, True)
+    refs = fa.flash_bwd_reference(q, k, v, o_ref, lse_ref, do, scale, True)
+    got = (torch.cat(outs, 1), torch.cat(dqs, 1),
+           torch.cat(dks, 1).to(q.dtype), torch.cat(dvs, 1).to(q.dtype))
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, (o_ref, *refs)):
+        assert fa.agreement(g, w)["ok"], (name, fa.agreement(g, w))
+
+
+def test_ulysses_and_moe_ffn_at_world_1(cuda, mesh):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, 256, 4, 64, device=cuda, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    assert torch.equal(attn.ulysses_attention(q, k, v, mesh=mesh),
+                       attn.causal_attention(q, k, v))
+    x = torch.randn(512, 256, device=cuda, generator=gen).to(torch.bfloat16)
+    router, w_up, w_down = (
+        torch.empty(shape, device=cuda).normal_(0.0, 0.02, generator=gen)
+        for shape in ((256, 4), (4, 256, 1024), (4, 1024, 256)))
+    y, aux = moe_ffn(x, router, w_up, w_down, group=mesh.group("ep"),
+                     dtype=torch.bfloat16)
+    y_ref, aux_ref = dense_switch_ffn_reference(x, router, w_up, w_down,
+                                                dtype=torch.bfloat16)
+    y, y_ref = y.float(), y_ref.float()
+    assert bool(((y - y_ref).abs() <= 2.0 ** -8 * y_ref.abs()
+                 + 2.0 ** -133).all())
+    np.testing.assert_allclose(float(aux), float(aux_ref), rtol=1e-6)
+
+
+def test_dryrun_multichip_runs_on_the_card_by_default(cuda):
+    ranks = dryrun_multichip(1)
+    assert len(ranks) == 1 and ranks[0]["device"] == "cuda:0"
+    assert np.isfinite(ranks[0]["loss"])

@@ -34,6 +34,10 @@ names = [m.name for m in pkgutil.walk_packages(ray_tpu_torch.__path__,
                                                "ray_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
+           "ray_tpu_torch.parallel.dryrun",
+           "ray_tpu_torch.collective.device"} - set(names)
+assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -43,9 +47,13 @@ from ray_tpu_torch.core.accelerator import default_device
 from ray_tpu_torch.models import (GPT2, GPT2Config, Llama, LlamaConfig,
                                   MoEConfig, MoETransformer, ResNet,
                                   ResNet50Config, ViT, ViTConfig)
+from ray_tpu_torch.parallel import initialize, make_mesh
+from ray_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
 from ray_tpu_torch.train import prefetch_to_device
 assert not torch.cuda.is_available()
-for entry in (default_device, lambda: GPT2(GPT2Config.tiny()),
+for entry in (default_device, initialize, make_mesh,
+              lambda: spawn(print, 2), lambda: dryrun_multichip(2),
+              lambda: GPT2(GPT2Config.tiny()),
               lambda: Llama(LlamaConfig.tiny()),
               lambda: ResNet(ResNet50Config.tiny()),
               lambda: ViT(ViTConfig.tiny()),
@@ -74,7 +82,7 @@ def test_package_imports_without_jax_and_needs_a_gpu():
         capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("OK")
-    assert int(proc.stdout.split()[1]) >= 15   # every module was walked
+    assert int(proc.stdout.split()[1]) >= 20   # every module was walked
 
 
 def test_no_import_statement_names_jax_or_ray_tpu():

@@ -124,8 +124,6 @@ def test_config_presets_match():
         for field in ("dtype", "param_dtype"):
             ours.pop(field)
             ref.pop(field)
-        ref.pop("attn_impl")
-        ref.pop("sp_axis")
         assert ours == ref, name
     assert LlamaConfig.tinyllama_1b().head_dim == 64
 

@@ -169,13 +169,21 @@ def test_moe_ffn_matches_jax_dense_reference():
 
 
 def test_moe_ffn_refuses_an_expert_parallel_group():
-    class Group:
-        def size(self):
-            return 2
+    """An expert-parallel group is no longer refused: ``moe_ffn`` spreads
+    the experts over its ranks (held against JAX's on four gloo ranks in
+    ``tests/test_torch_mesh_train.py``). Over a group of one rank it is
+    the function without a group, bit for bit."""
+    import torch.distributed as dist
 
-    ws = map(torch.from_numpy, _ffn_weights(8, 8, 16, 4))
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        moe_ffn(*ws, group=Group())
+    ws = [torch.from_numpy(a) for a in _ffn_weights(8, 8, 16, 4)]
+    y_ref, aux_ref = moe_ffn(*ws)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        y, aux = moe_ffn(*ws, group=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(y, y_ref) and torch.equal(aux, aux_ref)
 
 
 @pytest.mark.parametrize("capacity_factor", [2.0, 0.5])

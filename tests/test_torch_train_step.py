@@ -513,3 +513,40 @@ def test_prefetcher_feeds_train_step():
     assert pf.batches == 3
     assert state.step == 6
     assert np.isfinite(m["loss"].item())
+
+
+def test_gradient_all_reduce_packs_flat_buckets(monkeypatch):
+    """A mesh step all-reduces replicated gradients in flat runs of one
+    dtype, each of at most ``BUCKET_ELEMS`` elements (one tensor alone may
+    exceed it), the loss last in its dtype's run; each flat run is
+    unpacked back into its own gradients. On a one-rank group the
+    all-reduce is a copy, so every gradient and the loss come back bit
+    for bit."""
+    import torch.distributed as dist
+    from ray_tpu_torch.parallel import make_mesh
+    from ray_tpu_torch.train import step as step_mod
+
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setattr(step_mod, "BUCKET_ELEMS", 10)
+    gen = torch.Generator().manual_seed(0)
+    grads = [torch.randn(shape, generator=gen).to(dtype) for shape, dtype in
+             (((2, 2), torch.float32), ((4,), torch.bfloat16),
+              ((3,), torch.float32), ((20,), torch.float32),
+              ((2,), torch.bfloat16), ((1,), torch.float32))]
+    loss = torch.tensor(2.5)
+    runs = step_mod._buckets(sorted(grads + [loss.reshape(1)],
+                                    key=lambda t: str(t.dtype)))
+    assert [[t.numel() for t in run] for run in runs] == [
+        [4, 2], [4, 3], [20], [1, 1]]
+    assert [run[0].dtype for run in runs] == [
+        torch.bfloat16, torch.float32, torch.float32, torch.float32]
+    want = [g.clone() for g in grads]
+    mesh = make_mesh({"dp": 1}, device="cpu")
+    try:
+        got = step_mod._reduce(grads, loss, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert got.shape == () and float(got) == 2.5
+    for g, w in zip(grads, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
