@@ -115,9 +115,39 @@ exits non-zero without its result line:
    to ``causal_attention`` bit for bit (output and gradients), and
    ``moe_ffn`` over the ``ep`` group within one bf16 unit of the one-hot
    einsum form at ``MoEConfig()``'s width on 4096 tokens. (e)
-   ``dryrun_multichip(1)`` with no device named: one spawned NCCL rank on
-   ``cuda:0`` takes a GPT-2 tiny train step (head dim 64) through the
-   kernels, a finite loss.
+   ``dryrun_multichip(1)`` with no device named, run at the end of phase
+   13 (its (g)): one spawned NCCL rank on ``cuda:0`` takes a GPT-2 tiny
+   train step (head dim 64) through the kernels on the JAX dry run's
+   ``dp × sp × tp`` factors (all 1), a finite loss.
+
+13. Tensor and pipeline parallelism, the MoE transformer over ``ep`` and
+   checkpoints, on phase 12's one-rank NCCL mesh at full width. (a) GPT-2
+   124M at batch 32 x 1024 with the tp route forced on the one-rank
+   ``tp`` axis (``sharding._place_forced``, as phase 12 forces FSDP2):
+   every tp collective (``copy_to``, ``reduce_from``), the vocab-parallel
+   lookup and cross-entropy run, captured. Checks: the first
+   CAPTURE_STEPS losses against phase 12's mesh-less captured step's
+   (CAPTURE_LOSS_RTOL), ``compile_count`` 1, buffers donated, 12 launches
+   per kernel per step; step ms beside the mesh-less step's. (b)
+   TinyLlama 1.1B at batch 8 x 2048 the same way: the step-0 loss against
+   the mesh-less step's, 22 launches per kernel. (c) ``MoETransformer
+   (MoEConfig())`` at batch 32 x 1024 on ``dp 1 × ep 1`` through the
+   global routing (``ops.moe.top1_route`` over the batch's tokens) and
+   the ep route forced:
+   the first losses against the mesh-less MoE step's, and each MoE
+   layer's dropped share at step 0 equal to the mesh-less routing's. (d)
+   The square kernels at the head counts a tp rank runs (TP_KERNEL_SHAPES:
+   GPT-2's shape at 6 and 3 heads, TinyLlama's at 8 q heads on 1 kv head,
+   its tp 4) by ``agreement``, timed beside their bound, plain versions
+   and SDPA. (e) ``spmd_pipeline`` at ``pp = 1``, GPT-2 124M's 12 blocks
+   as the stage, PIPE_MICROBATCHES microbatches of 8 x 1024: the loss
+   within PIPE_LOSS_RTOL of the plain block stack's, the block gradients
+   within PIPE_GRAD_RTOL relative norm of the plain stack on the same
+   microbatches and within PIPE_WHOLE_GRAD_RTOL of the whole batch's, 4
+   launches per kernel per block. (f) Checkpoint: (a)'s
+   state saved after 2 steps (``train.checkpoint.save_train_state``) and
+   restored into a fresh state of other weights; the next 2 losses equal
+   to the uninterrupted run's bit for bit. (g) Phase 12 (e).
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -191,7 +221,7 @@ from ray_tpu_torch.models import (
     resnet_loss_fn,
     vit_loss_fn,
 )
-from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+from ray_tpu_torch.models.gpt2 import chunked_cross_entropy, gpt2_loss_fn
 from ray_tpu_torch.ops.attention import (
     causal_attention,
     ring_finish,
@@ -210,7 +240,9 @@ from ray_tpu_torch.ops.moe import (
 )
 from ray_tpu_torch.parallel import initialize, make_mesh
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip
-from ray_tpu_torch.parallel.sharding import _place_fsdp2
+from ray_tpu_torch.parallel.mesh import DATA_AXES
+from ray_tpu_torch.parallel.pipeline import spmd_pipeline
+from ray_tpu_torch.parallel.sharding import _place_forced
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -222,6 +254,10 @@ from ray_tpu_torch.train import (
     prefetch_to_device,
     sgd,
     shard_batch,
+)
+from ray_tpu_torch.train.checkpoint import (
+    restore_train_state,
+    save_train_state,
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core
@@ -281,7 +317,21 @@ CAPTURE_STEPS = 4
 # (2^-8 |y|, or 2^-133 where y is 0), the router gradient (float32 sums of
 # those products) within 1e-3 relative norm.
 MOE_FORM_Y_RTOL = 2.0 ** -8
+# spmd_pipeline at pp = 1 against the plain block stack: the loss against
+# the whole batch's (the blocks act on each row alone, so only a product
+# that picks another algorithm for 8 rows could move it); the block
+# gradients against the plain stack on the same microbatches, since each
+# microbatch's bf16 weight gradient is rounded before the sum (2.6e-3
+# relative against the whole batch's read on an H100), and against the
+# whole batch's within PIPE_WHOLE_GRAD_RTOL, so that a fault shared by both
+# microbatched runs still shows.
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD_RTOL = 1e-3
+PIPE_WHOLE_GRAD_RTOL = 1e-2
 MOE_FORM_GRAD_TOL = 1e-3
+
+# The host's wait on each side of a profiled dispatch (profile_dispatch).
+PROFILE_MARGIN_S = 0.1
 
 # A spin of the card (~50 ms at the H100's clock) queued ahead of each
 # timed run, long enough for the host to queue every call of the run.
@@ -312,6 +362,12 @@ SHORT_TIMED_DISPATCHES = 2         # split, remat and TinyLlama phases
 MESH_TIMED_STEPS = 4               # single steps timed in the mesh phase
 RING_SP = 4                        # ranks of the ring whose hops run here
 RING_SHAPES = ((32, 1024, 12), (8, 2048, 32))  # GPT-2 small, TinyLlama
+# (B, T, q heads, kv heads, what): the attention a tp rank runs.
+TP_KERNEL_SHAPES = ((32, 1024, 6, 6, "GPT-2 at tp 2 (6 heads)"),
+                    (32, 1024, 3, 3, "GPT-2 at tp 4 (3 heads)"),
+                    (8, 2048, 8, 1, "TinyLlama at tp 4 (8 q heads on 1 kv "
+                     "head)"))
+PIPE_MICROBATCHES = 4
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BAND = ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")
@@ -978,15 +1034,21 @@ def profile_dispatch(step, state, batch, card: str):
     torch.cuda.synchronize()
     fa.reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        # One small kernel, waited for, before the dispatch: an eager
-        # dispatch's first kernels, issued while the profiler was still
-        # starting, went unrecorded (4 of 96 band forwards in one run).
-        torch.zeros(1, device=next(state.params.parameters()).device)
-        torch.cuda.synchronize()
+        # The profiler keeps only the device records that fall inside its
+        # window on the host's clock, to which it maps the card's
+        # timestamps. With the dispatch at the window's start, the first
+        # flash forwards of a dispatch late in this script fell outside
+        # now and then (1 or 4 of them). The host waits PROFILE_MARGIN_S
+        # on each side of the dispatch.
+        opened = time.perf_counter()
+        time.sleep(PROFILE_MARGIN_S)
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         float(metrics["loss"])
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
+        window_ms = (time.perf_counter() - opened) * 1e3
     counted = fa.launch_counts()
     rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0))
             for e in prof.key_averages()
@@ -996,6 +1058,14 @@ def profile_dispatch(step, state, batch, card: str):
     if busy_ms == 0:
         print("profile: no device time recorded (not measured)", flush=True)
         return state, None
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    head = min(r.start for r in spans) / 1e3
+    tail = window_ms - max(r.end for r in spans) / 1e3
+    print(f"profile window: the first device record starts {head:.3f} ms "
+          f"after the profiler's start, the last ends {tail:.3f} ms before "
+          f"the host left it (the host waits {PROFILE_MARGIN_S * 1e3:.0f} "
+          "ms on each side of the dispatch)", flush=True)
     seen = {name: sum(count for key, count, _ in rows if fn in key)
             for name, fn in KERNEL_NAMES.items()}
     want = {name: counted[name] + counted[f"{name}_rect"]
@@ -1517,20 +1587,32 @@ def moe_layer_inputs(model, batch) -> dict[int, torch.Tensor]:
     return dict(sorted(seen.items()))
 
 
+def moe_routes(model, batch) -> dict:
+    """{layer: its Route} of every MoE layer on ``batch`` at the model's
+    weights: the routing its ``SwitchFFN`` runs (``top1_route``, over the
+    batch's tokens on a mesh)."""
+    cfg, mesh = model.config, model.mesh
+    ranks = 1 if mesh is None else mesh.axis_size(DATA_AXES)
+    routes = {}
+    for i, x in moe_layer_inputs(model, batch).items():
+        cap = capacity_for(x.shape[0] * ranks, cfg.num_experts,
+                           cfg.capacity_factor)
+        routes[i] = top1_route(x.float() @ model.h[i].moe.router.float(),
+                               cfg.num_experts, cap, mesh,
+                               batch["tokens"].shape[0])
+    return routes
+
+
 def moe_routing(model, batch) -> str:
     """Each MoE layer's routing on ``batch``: the share of tokens dropped
     past capacity and each expert's share of the tokens (its load)."""
     cfg = model.config
     parts = []
-    for i, x in moe_layer_inputs(model, batch).items():
-        ffn = model.h[i].moe
-        cap = capacity_for(x.shape[0], cfg.num_experts, cfg.capacity_factor)
-        route = top1_route(x.float() @ ffn.router.float(), cfg.num_experts,
-                           cap)
+    for i, route in moe_routes(model, batch).items():
         load = torch.bincount(route.expert, minlength=cfg.num_experts)
-        dropped = float((route.slot == cfg.num_experts * cap).float().mean())
+        dropped = 1.0 - float(route.kept.float().mean())
         parts.append(f"layer {i} dropped {dropped:.4f}, load " + "/".join(
-            f"{v:.3f}" for v in (load.float() / x.shape[0]).tolist()))
+            f"{v:.3f}" for v in (load.float() / load.sum()).tolist()))
     return "; ".join(parts)
 
 
@@ -1617,44 +1699,54 @@ def moe_phase(card: str) -> dict:
     return run
 
 
-def mesh_train(mesh, fsdp2: bool, host_batch, what: str) -> dict:
-    """GPT-2 124M from seed 0 with the LM optimizer through
-    ``make_train_step``: off a mesh (``mesh`` None), or placed on ``mesh``
-    by ``init_train_state`` (FSDP2 first where ``fsdp2``) with its batch
-    from ``shard_batch``. CAPTURE_STEPS steps on the batch give the
-    losses and the launch counts (counts set to 0 just before, read just
-    after); MESH_TIMED_STEPS more are timed."""
-    cfg = GPT2Config.small()
-    model = GPT2(cfg, seed=0, mesh=mesh)
+def gpt2_small(mesh):
+    return GPT2(GPT2Config.small(), seed=0, mesh=mesh)
+
+
+def mesh_train(mesh, forced: tuple[str, ...], host_batch, what: str,
+               make_model=gpt2_small, loss_fn=None, steps: int = CAPTURE_STEPS,
+               timed: int = MESH_TIMED_STEPS, before=None) -> dict:
+    """``make_model(mesh)`` (GPT-2 124M from seed 0 by default) with the
+    LM optimizer through ``make_train_step``: off a mesh (``mesh`` None),
+    or placed on ``mesh`` by ``init_train_state`` (after
+    ``sharding._place_forced`` over ``forced``: FSDP2, the tp route or the
+    ep route on a one-rank axis) with its batch from ``shard_batch``.
+    ``before(model, batch)`` runs first, its result kept. ``steps`` steps
+    on the batch give the losses and the launch counts (counts set to 0
+    just before, read just after); ``timed`` more are timed."""
+    model = make_model(mesh)
     dev = next(model.parameters()).device
-    if fsdp2:
-        _place_fsdp2(model, mesh)
+    if forced:
+        _place_forced(model, mesh, forced)
     opt = lm_opt()
     state = init_train_state(model, opt, mesh=mesh)
-    step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt, grad_norm=False)
+    step = make_train_step(loss_fn or gpt2_loss_fn(ce_chunk=2048), opt,
+                           grad_norm=False)
     batch = (device_batch(*host_batch, dev) if mesh is None else
              shard_batch({"tokens": host_batch[0], "targets": host_batch[1]},
                          mesh))
+    seen = before(model, batch) if before else None
     fa.reset_launch_counts()
-    losses = [float(step(state, batch)[1]["loss"])
-              for _ in range(CAPTURE_STEPS)]
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
     counts = fa.launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(MESH_TIMED_STEPS):
+    for _ in range(timed):
         state, metrics = step(state, batch)
-    float(metrics["loss"])
-    dt = (time.perf_counter() - t0) / MESH_TIMED_STEPS
+    if timed:
+        float(metrics["loss"])
+    dt = (time.perf_counter() - t0) / max(timed, 1)
     params = list(model.parameters())
     run = {"losses": losses, "counts": counts, "step_ms": dt * 1e3,
            "tok_s": host_batch[0].size / dt,
            "compile_count": compile_count(step),
            "donated": buffers_donated(step, state),
-           "sharded": sum(isinstance(p, DTensor) for p in params)}
+           "sharded": sum(isinstance(p, DTensor) for p in params),
+           "before": seen}
     print(f"mesh {what}: {run['sharded']} of {len(params)} parameters "
-          f"sharded by FSDP2; first {CAPTURE_STEPS} losses {losses}; step "
+          f"sharded by FSDP2; first {steps} losses {losses}; step "
           f"{run['step_ms']:.2f} ms, {run['tok_s']:.1f} tokens/s over "
-          f"{MESH_TIMED_STEPS} single steps; compile_count "
+          f"{timed} single steps; compile_count "
           f"{run['compile_count']} "
           f"({'captured' if run['compile_count'] else 'eager'}), buffers "
           f"donated {run['donated']}; launches {counts}", flush=True)
@@ -1808,7 +1900,7 @@ def exchange_check(mesh, dev) -> None:
           "moe_ffn at ep = 1 matches the one-hot einsum form")
 
 
-def mesh_phase(main_run: dict, card: str) -> None:
+def mesh_phase(main_run: dict, card: str) -> tuple:
     """The port's mesh on one card: a one-rank NCCL group and a mesh with
     every axis of size 1. (a) GPT-2 124M on ``dp = 1`` through
     ``init_train_state(mesh=)``, ``shard_batch`` and the captured step,
@@ -1816,14 +1908,15 @@ def mesh_phase(main_run: dict, card: str) -> None:
     the mesh; (b) the same under FSDP2 (``fsdp = 1``); (c) ring attention's
     hops through the kernels at GPT-2's and TinyLlama's attention shapes;
     (d) Ulysses and ``moe_ffn`` over their groups at world 1; (e) the
-    multi-rank dry run on its default device, one NCCL rank."""
+    multi-rank dry run, which :func:`tp_phase` runs last. Returns the mesh
+    and the mesh-less run."""
     dev = initialize()
     mesh = make_mesh({"dp": 1})
     print(f"mesh: {mesh} over a {dist.get_backend()} group of "
           f"{dist.get_world_size()}", flush=True)
     host = train_batch(GPT2Config.small().vocab_size)
-    plain = mesh_train(None, False, host, "off (mesh-less captured step)")
-    dp = mesh_train(mesh, False, host, "dp=1 (gradient all-reduce in the "
+    plain = mesh_train(None, (), host, "off (mesh-less captured step)")
+    dp = mesh_train(mesh, (), host, "dp=1 (gradient all-reduce in the "
                     "step)")
     rel = max(abs(a - b) / abs(b) for a, b in zip(dp["losses"],
                                                   plain["losses"]))
@@ -1845,7 +1938,7 @@ def mesh_phase(main_run: dict, card: str) -> None:
     check_counts({"n_steps": CAPTURE_STEPS, "counts": dp["counts"]},
                  {name: n for name in SQUARE}, "mesh dp=1")
 
-    fsdp = mesh_train(mesh, True, host, "fsdp=1 (FSDP2)")
+    fsdp = mesh_train(mesh, ("fsdp",), host, "fsdp=1 (FSDP2)")
     rel0 = abs(fsdp["losses"][0] - dp["losses"][0]) / abs(dp["losses"][0])
     print(f"mesh fsdp=1: step-0 loss {fsdp['losses'][0]} vs dp=1 "
           f"{dp['losses'][0]}, relative difference {rel0:.3g} (limit "
@@ -1862,15 +1955,238 @@ def mesh_phase(main_run: dict, card: str) -> None:
     for b, t, h in RING_SHAPES:
         ring_check(b, t, h, dev, card)
     exchange_check(mesh, dev)
+    return mesh, plain
+
+
+def check_losses(got: dict, want: dict, what: str) -> float:
+    """``got``'s first losses against ``want``'s within CAPTURE_LOSS_RTOL;
+    the largest relative difference."""
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                  want["losses"],
+                                                  strict=True))
+    print(f"{what}: losses {got['losses']} vs {want['losses']}, bit-equal "
+          f"{got['losses'] == want['losses']}, largest relative difference "
+          f"{rel:.3g} (limit {CAPTURE_LOSS_RTOL}); step {got['step_ms']:.2f} "
+          f"ms vs {want['step_ms']:.2f} ms "
+          f"({got['step_ms'] / want['step_ms'] - 1:+.2%})", flush=True)
+    check(rel <= CAPTURE_LOSS_RTOL, f"{what}: the losses match")
+    return rel
+
+
+def moe_dropped(model, batch) -> list[float]:
+    """Each MoE layer's dropped share at the model's weights on ``batch``
+    (``moe_routes``: global routing on a mesh)."""
+    return [1.0 - float(route.kept.float().mean())
+            for route in moe_routes(model, batch).values()]
+
+
+def tp_kernel_inputs(b: int, t: int, h: int, kv: int, dev):
+    """q, do ``[B*h, T, D]`` and k, v of ``kv`` heads each repeated to h
+    (GQA's repeat on a tp rank), folded, bf16."""
+    gen = torch.Generator(device=dev).manual_seed(t + h + kv)
+    q, do = (torch.randn(b * h, t, D, device=dev, generator=gen)
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(b, kv, t, D, device=dev, generator=gen)
+            .to(torch.bfloat16).repeat_interleave(h // kv, dim=1)
+            .reshape(b * h, t, D) for _ in range(2))
+    return q, k, v, do
+
+
+def pipeline_check(mesh, host, card: str) -> None:
+    """(e) ``spmd_pipeline`` at ``pp = 1``: GPT-2 124M's 12 blocks as the
+    stage, PIPE_MICROBATCHES microbatches of the training batch, then
+    ``ln_f`` and the chunked CE. The loss against the plain block stack on
+    the whole batch; every block gradient against the plain stack run on
+    the same microbatches one after another (each microbatch's weight
+    gradients are rounded to bf16 before they are summed, on both), and,
+    at a looser limit, against the whole batch's."""
+    model = gpt2_small(None)
+    batch = device_batch(*host, mesh.device)
+    dt = model.config.dtype
+
+    def stack(x):
+        return functools.reduce(lambda a, blk: blk(a, model.attn_fn),
+                                model.h, x)
+
+    pipe = spmd_pipeline(lambda blocks, x: stack(x), PIPE_MICROBATCHES,
+                         mesh=mesh)
+    variants = {
+        "pipeline": lambda x: pipe(model.h, x),
+        "plain, microbatched": lambda x: torch.cat(
+            [stack(m) for m in x.chunk(PIPE_MICROBATCHES)]),
+        "plain, whole batch": stack}
+    params = list(model.h.parameters())
+    out = {}
+    for name, run in variants.items():
+        for _ in range(2):                  # the second run is timed
+            fa.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = F.embedding(batch["tokens"], model.wte.weight.to(dt)) \
+                + model.wpe.weight[:TRAIN_SEQ].to(dt)
+            loss = chunked_cross_entropy(model.ln_f(run(x)), model.wte.weight,
+                                         batch["targets"])
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            out[name] = (float(loss.detach()), grads,
+                         time.perf_counter() - t0,
+                         fa.launch_counts())
+            del x, loss, grads
+
+    def grad_err(a: str, b: str) -> float:
+        return max(float(torch.linalg.vector_norm(x.float() - y.float())
+                         / torch.linalg.vector_norm(y.float()))
+                   for x, y in zip(out[a][1], out[b][1]))
+
+    lp, _, tp_, cp = out["pipeline"]
+    lw, _, tw, _ = out["plain, whole batch"]
+    rel = abs(lp - lw) / abs(lw)
+    g_micro = grad_err("pipeline", "plain, microbatched")
+    g_whole = grad_err("pipeline", "plain, whole batch")
+    rows = TRAIN_BATCH // PIPE_MICROBATCHES
+    print(f"pipeline pp=1, GPT-2 124M's {len(model.h)} blocks as the stage, "
+          f"{PIPE_MICROBATCHES} microbatches of {rows}x{TRAIN_SEQ}: loss "
+          f"{lp} vs the plain whole batch's {lw} (relative {rel:.3g}, limit "
+          f"{PIPE_LOSS_RTOL}); largest block gradient relative norm error "
+          f"{g_micro:.3g} against the plain stack on the same microbatches "
+          f"(limit {PIPE_GRAD_RTOL}), {g_whole:.3g} against the whole batch "
+          f"(limit {PIPE_WHOLE_GRAD_RTOL}: bf16 weight gradients rounded per "
+          f"microbatch); "
+          f"forward+backward {tp_ * 1e3:.1f} ms, plain microbatched "
+          f"{out['plain, microbatched'][2] * 1e3:.1f} ms, plain whole "
+          f"{tw * 1e3:.1f} ms (host clock, eager, second run); launches "
+          f"{cp}; card {card}", flush=True)
+    check(rel <= PIPE_LOSS_RTOL and g_micro <= PIPE_GRAD_RTOL
+          and g_whole <= PIPE_WHOLE_GRAD_RTOL,
+          "spmd_pipeline at pp=1 matches the plain block stack")
+    check(all(cp[k] == PIPE_MICROBATCHES * len(model.h) for k in SQUARE),
+          "the pipeline ran each block's kernels once a microbatch")
+    del model, out, params
+    torch.cuda.empty_cache()
+
+
+def checkpoint_check(mesh, host, card: str) -> None:
+    """(f) GPT-2 124M on the tp route: its state saved after 2 steps and
+    restored into a fresh state of other weights; the next 2 losses
+    against the uninterrupted run's, bit for bit."""
+    directory = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        runs = {}
+        for name in ("uninterrupted", "restored"):
+            model = GPT2(GPT2Config.small(), seed=int(name == "restored"),
+                         mesh=mesh)
+            _place_forced(model, mesh, ("tp",))
+            opt = lm_opt()
+            state = init_train_state(model, opt, mesh=mesh)
+            step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt,
+                                   grad_norm=False)
+            batch = shard_batch({"tokens": host[0], "targets": host[1]},
+                                mesh)
+            t0 = time.perf_counter()
+            if name == "restored":
+                restore_train_state(directory, state)
+            else:
+                for _ in range(2):
+                    step(state, batch)
+                save_train_state(state, directory)
+            torch.cuda.synchronize()
+            io_s = time.perf_counter() - t0
+            at = state.step
+            runs[name] = ([float(step(state, batch)[1]["loss"])
+                           for _ in range(2)], at, io_s)
+            del model, opt, state, step, batch
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    (want, at_w, save_s), (got, at_g, load_s) = (runs["uninterrupted"],
+                                                 runs["restored"])
+    print(f"checkpoint, GPT-2 124M on the tp route: losses after restore "
+          f"{got} vs uninterrupted {want}, bit-equal {got == want}; step "
+          f"{at_g} restored ({at_w} saved); 2 steps + save {save_s:.2f} s, "
+          f"restore {load_s:.2f} s (host clock); card {card}", flush=True)
+    check(got == want and at_g == at_w == 2,
+          "the restored state's next losses equal the uninterrupted run's")
+
+
+def tp_phase(mesh, plain: dict, card: str) -> dict[str, dict]:
+    """Phase 13: tensor parallelism, the MoE transformer's global routing
+    over ``dp × ep``, the pipeline and checkpoints on the one-rank NCCL
+    mesh of phase 12, at full width; then the multi-rank dry run. Returns
+    the kernels' readings at the tp-local head counts."""
+    dev = mesh.device
+    n = GPT2Config.small().n_layer
+    host = train_batch(GPT2Config.small().vocab_size)
+    want_captures = 1 if CAPTURE else None
+    # (a) GPT-2 124M on the tp route.
+    tp = mesh_train(mesh, ("tp",), host, "tp=1 (the tp route forced: "
+                    "copy_to/reduce_from, vocab-parallel lookup and CE)")
+    check_losses(tp, plain, "mesh tp=1 vs mesh-less GPT-2 124M")
+    check(tp["compile_count"] == want_captures and tp["donated"],
+          f"mesh tp=1: captured {want_captures} time(s), buffers donated")
+    check_counts({"n_steps": CAPTURE_STEPS, "counts": tp["counts"]},
+                 {name: n for name in SQUARE}, "mesh tp=1")
+
+    # (b) TinyLlama 1.1B on the tp route, step 0.
+    llama_host = train_batch(LlamaConfig.tinyllama_1b().vocab_size,
+                             LLAMA_BATCH, LLAMA_SEQ)
+    runs = {}
+    for what, m, forced in (("mesh-less", None, ()),
+                            ("tp=1", mesh, ("tp",))):
+        runs[what] = mesh_train(
+            m, forced, llama_host, f"TinyLlama 1.1B {what}",
+            make_model=lambda mm: Llama(LlamaConfig.tinyllama_1b(), seed=0,
+                                        mesh=mm),
+            loss_fn=llama_loss_fn(ce_chunk=2048), steps=1, timed=1)
+    check_losses(runs["tp=1"], runs["mesh-less"],
+                 "mesh tp=1 vs mesh-less TinyLlama 1.1B, step 0")
+    check_counts({"n_steps": 1, "counts": runs["tp=1"]["counts"]},
+                 {name: LlamaConfig.tinyllama_1b().n_layer
+                  for name in SQUARE}, "TinyLlama tp=1")
+
+    # (c) The MoE transformer's global routing on dp x ep.
+    moe = {}
+    for what, m, forced in (("mesh-less", None, ()),
+                            ("dp=1 x ep=1", mesh, ("ep",))):
+        moe[what] = mesh_train(
+            m, forced, host, f"MoE {what}",
+            make_model=lambda mm: MoETransformer(MoEConfig(), seed=0,
+                                                 mesh=mm),
+            loss_fn=moe_loss_fn(ce_chunk=2048), timed=2, before=moe_dropped)
+    got, want = moe["dp=1 x ep=1"], moe["mesh-less"]
+    check_losses(got, want, "mesh dp=1 x ep=1 (global routing, the ep "
+                 "combine) vs mesh-less MoE")
+    print(f"MoE dropped share per MoE layer at step 0: global routing "
+          f"{got['before']}, mesh-less {want['before']}", flush=True)
+    check(got["before"] == want["before"], "MoE: each layer's dropped share "
+          "at step 0 equals the mesh-less routing's")
+    check_counts({"n_steps": CAPTURE_STEPS, "counts": got["counts"]},
+                 {name: n for name in SQUARE}, "MoE dp x ep")
+
+    # (d) The kernels at tp-local head counts.
+    rows = {}
+    for b, t, h, kv, what in TP_KERNEL_SHAPES:
+        q, k, v, do = tp_kernel_inputs(b, t, h, kv, dev)
+        readings = kernel_readings(q, k, v, do)
+        print(f"agreement {what}: {describe(readings)}", flush=True)
+        check_readings(readings, f"at {what}")
+        rows[what] = kernel_times(b, q, k, v, do, readings, what)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+
+    pipeline_check(mesh, host, card)
+    checkpoint_check(mesh, host, card)
     dist.destroy_process_group()
 
+    # (g) = phase 12 (e): the dry run, no device named.
     t0 = time.perf_counter()
     ranks = dryrun_multichip(1)
     print(f"mesh dryrun_multichip(1), no device named: {ranks} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check(len(ranks) == 1 and ranks[0]["device"] == "cuda:0"
+          and ranks[0]["factors"] == {"dp": 1, "sp": 1, "tp": 1}
           and np.isfinite(ranks[0]["loss"]),
           "dryrun_multichip(1) runs one NCCL rank on the card by default")
+    return rows
 
 
 def plant_fault(name: str) -> str:
@@ -2024,7 +2340,9 @@ def run_all(dev, card: str) -> int:
     torch.cuda.empty_cache()
     moe_phase(card)
     torch.cuda.empty_cache()
-    mesh_phase(main_run, card)
+    mesh, plain = mesh_phase(main_run, card)
+    torch.cuda.empty_cache()
+    tp_phase(mesh, plain, card)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
 

@@ -26,6 +26,18 @@ whose backward is the transposed collective. The gradient of a
 replicated value is then the sum over the ranks that used it, which is
 what a step that averages parameter gradients over the data ranks
 expects (``train.step``).
+
+Tensor parallelism keeps a replicated activation's gradient equal on
+every rank of its group instead (Megatron's conjugate pair), so that the
+step leaves the ``tp`` ranks' gradients alone:
+
+- ``copy_to``: the identity forward, an all-reduce of the gradient
+  backward; where a replicated activation enters a layer whose weights
+  are split;
+- ``reduce_from``: an all-reduce forward, the identity backward; where
+  the ranks' partial products leave it;
+- ``gather_from``: an all-gather along a dimension forward, this rank's
+  block of the gradient backward; where a split output is made whole.
 """
 
 from __future__ import annotations
@@ -186,6 +198,58 @@ class _Permute(torch.autograd.Function):
     def backward(ctx, g):
         inverse = [(dst, src) for src, dst in ctx.perm]
         return _permute(g, ctx.group, inverse), None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return _all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        me = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, me * ctx.size, ctx.size), None, None
+
+
+def copy_to(x: torch.Tensor, axis, mesh: Mesh | None = None) -> torch.Tensor:
+    """``x`` itself; backward, the all-reduce of its gradient over
+    ``axis`` (a name, a tuple of names or a process group)."""
+    return _CopyTo.apply(x, _group(axis, mesh))
+
+
+def reduce_from(x: torch.Tensor, axis,
+                mesh: Mesh | None = None) -> torch.Tensor:
+    """The sum of ``x`` over ``axis``; backward, the gradient itself."""
+    return _ReduceFrom.apply(x, _group(axis, mesh))
+
+
+def gather_from(x: torch.Tensor, axis, dim: int = -1,
+                mesh: Mesh | None = None) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order;
+    backward, this rank's block of the gradient."""
+    return _GatherFrom.apply(x, _group(axis, mesh), dim % x.dim())
 
 
 # ---------------------------------------------------------------------------

@@ -30,7 +30,22 @@ model does: each rank holds its block of the batch (over ``dp`` and
 attention comes from ``ops.attention.make_sharded_causal_attention``
 (``config.attn_impl``: ring or Ulysses over ``config.sp_axis``). A
 sequence block takes the position embeddings of its own rows. The loss
-(:func:`gpt2_loss_fn`) is the mean over every rank's tokens.
+(:func:`gpt2_loss_fn`) is the mean over the data ranks' tokens
+(``parallel.mesh.DATA_AXES``).
+
+Placed on a mesh with a real ``tp`` axis (``parallel.sharding.place_params``),
+each rank holds its block of the weights the table splits, and the layers
+run Megatron's column and row products on the layouts kept from JAX:
+``qkv_kernel`` and ``qkv_bias`` are this rank's heads, ``proj_kernel``
+their rows, ``mlp.fc`` its output columns and ``mlp.proj`` its input
+rows; a replicated activation enters through ``collective.device.copy_to``
+and a row product leaves through ``reduce_from``, its bias added once
+after the sum. ``mlp.fc.bias`` is replicated: a rank adds its own columns
+of it, taken through ``copy_to``, so its gradient is summed over ``tp``
+in the backward. ``wte`` is split on the vocabulary: the lookup is
+a masked local lookup summed over ``tp`` (:func:`vocab_embedding`), and
+the chunked cross-entropy is vocab-parallel. The placement gives each of
+those layers its ``tp`` attribute (a ``parallel.sharding.Split``).
 
 ``GPT2Config.remat`` runs each block under activation checkpointing
 (``torch.utils.checkpoint``, non-reentrant), the counterpart of
@@ -61,6 +76,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ray_tpu_torch.collective import device as coll
 from ray_tpu_torch.core.accelerator import resolve_device
 from ray_tpu_torch.ops.attention import (
     causal_attention,
@@ -209,7 +225,43 @@ def _normal(shape, std, dtype, device, gen):
                         .normal_(0.0, std, generator=gen))
 
 
+def enter(x: torch.Tensor, split) -> torch.Tensor:
+    """A replicated activation entering a layer whose weights ``split``
+    cuts (``collective.device.copy_to``); ``x`` itself without one."""
+    return x if split is None else coll.copy_to(x, split.group)
+
+
+def leave(x: torch.Tensor, split) -> torch.Tensor:
+    """The sum of the ranks' partial products over ``split``
+    (``collective.device.reduce_from``); ``x`` itself without one."""
+    return x if split is None else coll.reduce_from(x, split.group)
+
+
+def vocab_embedding(tokens: torch.Tensor, table: torch.Tensor, tp,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """``table``'s rows for ``tokens`` in ``dtype`` (the table cast before
+    the gather, as flax's ``Embed(dtype=)``). Under ``tp`` the table is
+    this rank's block of the vocabulary: each rank looks up the tokens
+    that fall in its block, zeros for the others, and the rows are summed
+    over ``tp``."""
+    if tp is None:
+        return F.embedding(tokens, table.to(dtype))
+    n = table.shape[0]
+    ids = tokens - tp.index * n
+    inside = (ids >= 0) & (ids < n)
+    rows = F.embedding(torch.where(inside, ids, 0), table.to(dtype))
+    return coll.reduce_from(torch.where(inside[..., None], rows, 0),
+                            tp.group)
+
+
+def lm_logits(logits: torch.Tensor, tp) -> torch.Tensor:
+    """The whole vocabulary's logits from this rank's block of them."""
+    return logits if tp is None else coll.gather_from(logits, tp.group, -1)
+
+
 class CausalSelfAttention(nn.Module):
+    tp = None       # the Split of a tensor-parallel placement
+
     def __init__(self, config: GPT2Config, device, gen):
         super().__init__()
         c = config
@@ -224,18 +276,22 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x, attn_fn: Callable):
         c = self.config
-        dt, e, h, d = c.dtype, c.n_embd, c.n_head, c.head_dim
+        dt, e, d = c.dtype, c.n_embd, c.head_dim
+        h = self.qkv_kernel.shape[2]        # this rank's heads
         b, t, _ = x.shape
+        x = enter(x, self.tp)
         # One fused qkv product: [B, T, E] @ [E, 3*H*D] -> [B, T, 3, H, D].
         qkv = (x.to(dt) @ self.qkv_kernel.to(dt).reshape(e, 3 * h * d)) \
             .view(b, t, 3, h, d) + self.qkv_bias.to(dt)
         q, k, v = qkv.unbind(2)
         y = attn_fn(q, k, v)
-        return y.reshape(b, t, h * d) \
-            @ self.proj_kernel.to(dt).reshape(h * d, e) + self.proj_bias.to(dt)
+        y = y.reshape(b, t, h * d) @ self.proj_kernel.to(dt).reshape(h * d, e)
+        return leave(y, self.tp) + self.proj_bias.to(dt)
 
 
 class MLP(nn.Module):
+    tp = None
+
     def __init__(self, config: GPT2Config, device, gen):
         super().__init__()
         c = config
@@ -251,12 +307,20 @@ class MLP(nn.Module):
 
     def forward(self, x):
         dt = self.config.dtype
-
-        def dense(lin, h):
-            return F.linear(h.to(dt), lin.weight.to(dt), lin.bias.to(dt))
-
+        # Under tp the column product takes this rank's columns (and its
+        # columns of the replicated bias, whose gradient copy_to sums over
+        # tp) and the row product is summed over tp. The row product's
+        # bias is added to the rounded product, as flax's Dense adds it,
+        # so at tp = 1 the two routes agree bit for bit.
+        bias = self.fc.bias
+        if self.tp is not None:
+            n = self.fc.weight.shape[0]
+            bias = enter(bias, self.tp).narrow(0, self.tp.index * n, n)
+        h = F.linear(enter(x, self.tp).to(dt), self.fc.weight.to(dt),
+                     bias.to(dt))
         # tanh-approximate GELU: flax nn.gelu's default.
-        return dense(self.proj, F.gelu(dense(self.fc, x), approximate="tanh"))
+        y = F.linear(F.gelu(h, approximate="tanh"), self.proj.weight.to(dt))
+        return leave(y, self.tp) + self.proj.bias.to(dt)
 
 
 class Block(nn.Module):
@@ -286,10 +350,14 @@ class Block(nn.Module):
 
 def put_param(dst: torch.Tensor, src, transpose: bool = False) -> None:
     """Copy one flax param (a numpy array) into ``dst``, transposed first
-    when asked; ValueError when the shapes differ."""
+    when asked, and cut to this rank's block where placement split
+    ``dst`` (its ``placement``); ValueError when the shapes differ."""
     src = torch.from_numpy(np.array(src, dtype=np.float32))
     if transpose:
         src = src.t()
+    placement = getattr(dst, "placement", None)
+    if placement is not None:
+        src = placement.block(src)
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"shape {tuple(src.shape)} does not fit "
                          f"parameter {tuple(dst.shape)}")
@@ -336,6 +404,9 @@ class GPT2(nn.Module):
     on a ``torch.Generator`` of that device. ``attn_fn`` defaults to the
     mesh's attention (:func:`mesh_attention`)."""
 
+    tensor_parallel = True      # place_params may split it over tp
+    tp = None
+
     def __init__(self, config: GPT2Config, *, device=None, seed: int = 0,
                  attn_fn: Callable | None = None, mesh=None):
         super().__init__()
@@ -364,7 +435,7 @@ class GPT2(nn.Module):
         dt = self.config.dtype
         b, t = tokens.shape
         pos0 = seq_offset(self.mesh, self.config.sp_axis, t)
-        x = F.embedding(tokens, self.wte.weight.to(dt)) \
+        x = vocab_embedding(tokens, self.wte.weight, self.tp, dt) \
             + self.wpe.weight[pos0:pos0 + t].to(dt)
         for block in self.h:
             if self.config.remat:
@@ -377,8 +448,9 @@ class GPT2(nn.Module):
             # Final hidden states for the chunked LM-head loss, which
             # never materializes the full (B, T, vocab) logits.
             return x
-        return matmul_f32(x.reshape(b * t, -1).to(dt),
-                          self.wte.weight.to(dt).t()).view(b, t, -1)
+        return lm_logits(matmul_f32(x.reshape(b * t, -1).to(dt),
+                                    self.wte.weight.to(dt).t()),
+                         self.tp).view(b, t, -1)
 
     @torch.no_grad()
     def load_jax_params(self, params: dict) -> None:
@@ -425,28 +497,47 @@ class ChunkedCrossEntropyFn(torch.autograd.Function):
     Forward keeps only each row's log-sum-exp; backward recomputes each
     chunk's logits and reuses that lse, dlogits = (softmax − onehot)/cnt.
     The embedding gradient is summed in float32 across chunks and
-    returned in the embedding's type, as the reference does."""
+    returned in the embedding's type, as the reference does.
+
+    Under ``tp`` (a ``parallel.sharding.Split``) ``emb`` is this rank's
+    block of the vocabulary and each chunk's logits are ``[chunk, V/tp]``:
+    the ranks' row log-sum-exps and target logits (the target's owner
+    holds it, the others 0) are gathered once, after the last chunk, and
+    combined (a log-sum-exp and a sum); the hidden-state gradient, a
+    partial product on each rank, is summed over ``tp`` once. The full
+    ``[n, V]`` logits never exist. At ``tp = 1`` every step is the
+    mesh-less one's, bit for bit."""
 
     @staticmethod
-    def forward(ctx, rows_c, emb, tgt_c, ignore_index, group):
+    def forward(ctx, rows_c, emb, tgt_c, ignore_index, group, tp):
         n = rows_c.shape[0]
         emb_t = emb.t()
-        tot = torch.zeros((), dtype=torch.float32, device=rows_c.device)
-        cnt = torch.zeros((), dtype=torch.int64, device=rows_c.device)
+        lo = 0 if tp is None else tp.index * emb.shape[0]
         lse_c = torch.empty(tgt_c.shape, dtype=torch.float32,
                             device=rows_c.device)
+        picked_c = torch.empty_like(lse_c)
         for i in range(n):
             logits = matmul_f32(rows_c[i], emb_t)
-            lse = torch.logsumexp(logits, dim=-1)
+            lse_c[i] = torch.logsumexp(logits, dim=-1)
+            safe, inside = _local_targets(tgt_c[i], ignore_index, lo,
+                                          emb.shape[0])
+            picked_c[i] = torch.where(
+                inside, logits.gather(1, safe[:, None])[:, 0], 0.0)
+        if tp is not None:
+            both = coll._all_gather(torch.stack([lse_c, picked_c]),
+                                    tp.group).view(-1, 2, *lse_c.shape)
+            lse_c = torch.logsumexp(both[:, 0], dim=0)
+            picked_c = both[:, 1].sum(0)
+        tot = torch.zeros((), dtype=torch.float32, device=rows_c.device)
+        cnt = torch.zeros((), dtype=torch.int64, device=rows_c.device)
+        for i in range(n):
             mask = tgt_c[i] != ignore_index
-            safe = torch.where(mask, tgt_c[i], 0)
-            picked = logits.gather(1, safe[:, None])[:, 0]
-            tot += torch.where(mask, lse - picked, 0.0).sum()
+            tot += torch.where(mask, lse_c[i] - picked_c[i], 0.0).sum()
             cnt += mask.sum()
-            lse_c[i] = lse
         cnt, ranks = _token_count(cnt, group)
         ctx.save_for_backward(rows_c, emb, tgt_c, lse_c, cnt)
-        ctx.ignore_index, ctx.ranks = ignore_index, ranks
+        ctx.ignore_index, ctx.ranks, ctx.tp, ctx.lo = (ignore_index, ranks,
+                                                      tp, lo)
         return tot * ranks / cnt.clamp_min(1).float()
 
     @staticmethod
@@ -460,17 +551,29 @@ class ChunkedCrossEntropyFn(torch.autograd.Function):
             logits = matmul_f32(rows_c[i], emb_t)
             mask = tgt_c[i] != ctx.ignore_index
             p = torch.exp(logits - lse_c[i][:, None])
-            safe = torch.where(mask, tgt_c[i], 0)
-            p.scatter_add_(1, safe[:, None], torch.full_like(p[:, :1], -1.0))
+            safe, inside = _local_targets(tgt_c[i], ctx.ignore_index, ctx.lo,
+                                          emb.shape[0])
+            p.scatter_add_(1, safe[:, None],
+                           torch.where(inside, -1.0, 0.0)[:, None])
             dlb = (p * (scale * mask)[:, None]).to(emb.dtype)
             dx[i] = dlb @ emb
             demb += matmul_f32(dlb.t(), rows_c[i])
-        return dx, demb.to(emb.dtype), None, None, None
+        if ctx.tp is not None:
+            dx = coll._all_reduce(dx, ctx.tp.group)
+        return dx, demb.to(emb.dtype), None, None, None, None
+
+
+def _local_targets(tgt: torch.Tensor, ignore_index: int, lo: int, n: int):
+    """(column of each row's target in a vocabulary block ``[lo, lo+n)``,
+    0 where the target is masked or outside; whether it is inside)."""
+    safe = torch.where(tgt != ignore_index, tgt, 0) - lo
+    inside = (safe >= 0) & (safe < n)
+    return torch.where(inside, safe, 0), inside
 
 
 def chunked_cross_entropy(hidden, embedding, targets,
                           ignore_index: int = -1,
-                          chunk_size: int = 2048, group=None):
+                          chunk_size: int = 2048, group=None, tp=None):
     """Cross-entropy that never materializes the full (B, S, vocab)
     logits: the tied LM head and the loss run per row chunk, with a
     hand-written backward that recomputes each chunk's logits and reuses
@@ -481,7 +584,9 @@ def chunked_cross_entropy(hidden, embedding, targets,
     token count is summed over the group and this rank's loss is its sum
     times the group's size over that count: the mean of the ranks'
     losses, which the train step takes, is the mean over every token, and
-    so are the gradients the step averages."""
+    so are the gradients the step averages. With ``tp`` (a
+    ``parallel.sharding.Split``) ``embedding`` is this rank's block of the
+    vocabulary and the loss is vocab-parallel (:class:`ChunkedCrossEntropyFn`)."""
     b, s, e = hidden.shape
     n_rows = b * s
     rows = hidden.reshape(n_rows, e)
@@ -495,7 +600,7 @@ def chunked_cross_entropy(hidden, embedding, targets,
     # Cast the tied embedding ONCE (fwd and bwd both use the copy).
     return ChunkedCrossEntropyFn.apply(
         rows.reshape(n, chunk, e), embedding.to(hidden.dtype),
-        tgt.reshape(n, chunk), ignore_index, group)
+        tgt.reshape(n, chunk), ignore_index, group, tp)
 
 
 def gpt2_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
@@ -503,9 +608,10 @@ def gpt2_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
 
     The JAX counterpart takes ``(params, batch)`` with the flax module
     bound outside; here the ``GPT2`` module holds its parameters and is
-    the first argument. On a mesh of more than one rank the loss is this
-    rank's share of the mean over every rank's tokens (the ``group`` of
-    :func:`chunked_cross_entropy`). ``fused_ce`` (default) uses the
+    the first argument. On a mesh whose data axes hold more than one rank
+    the loss is this rank's share of the mean over their tokens (the
+    ``group`` of :func:`chunked_cross_entropy`); under ``tp`` the
+    cross-entropy is vocab-parallel. ``fused_ce`` (default) uses the
     chunked LM-head + cross-entropy path; False materializes full float32 logits (not
     differentiable on the card: an evaluation path)."""
 
@@ -515,7 +621,8 @@ def gpt2_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
             h = model(batch["tokens"], return_hidden=True)
             return chunked_cross_entropy(h, model.wte.weight,
                                          batch["targets"],
-                                         chunk_size=ce_chunk, group=group)
+                                         chunk_size=ce_chunk, group=group,
+                                         tp=model.tp)
         return cross_entropy_loss(model(batch["tokens"]), batch["targets"],
                                   group=group)
 

@@ -31,6 +31,17 @@ with the ``"nothing"`` policy, as the reference's ``nn.remat`` with
 ``models/gpt2.py`` describes: a sequence block's RoPE angles are those of
 its own rows, and GQA repeats k and v before the exchange of ring or
 Ulysses attention, as the JAX model does.
+
+On a ``tp`` axis the layers run as GPT-2's do (``models/gpt2.py``):
+``q``, ``k``, ``v``, ``gate`` and ``up`` are column products on this
+rank's output columns, ``proj`` and ``down`` row products summed over
+``tp``, ``wte`` (and the untied ``lm_head``) split on the vocabulary
+through the vocab-parallel lookup and cross-entropy. Where ``tp`` exceeds
+``n_kv_head`` (Llama tiny's 2 kv heads at ``tp 4``, TinyLlama's 4 at
+``tp 8``), the table splits k and v mid-head, as flax does: the ranks
+that share a kv head all-gather their parts of its k and v outputs
+(``parallel.mesh.Mesh.block_group``) before the local GQA repeat, so that
+the rank holding q head h attends with kv head h·n_kv/n_head.
 """
 
 from __future__ import annotations
@@ -38,20 +49,25 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
+from ray_tpu_torch.collective import device as coll
 from ray_tpu_torch.core.accelerator import resolve_device
 from ray_tpu_torch.models.gpt2 import (
     chunked_cross_entropy,
     cross_entropy_loss,
+    enter,
+    leave,
+    lm_logits,
     matmul_f32,
     mesh_attention,
+    put_param,
     remat_call,
     seq_offset,
+    vocab_embedding,
 )
 from ray_tpu_torch.parallel.mesh import loss_group
 
@@ -157,6 +173,8 @@ def _dense(lin: nn.Linear, x: torch.Tensor, dtype: torch.dtype):
 
 
 class LlamaAttention(nn.Module):
+    tp = None       # the Split of a tensor-parallel placement
+
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         c = config
@@ -172,21 +190,44 @@ class LlamaAttention(nn.Module):
         c = self.config
         dt, hd = c.dtype, c.head_dim
         b, t, _ = x.shape
-        q = _dense(self.q, x, dt).view(b, t, c.n_head, hd)
-        k = _dense(self.k, x, dt).view(b, t, c.n_kv_head, hd)
-        v = _dense(self.v, x, dt).view(b, t, c.n_kv_head, hd)
+        x = enter(x, self.tp)
+        n_q = self.q.weight.shape[0] // hd          # this rank's q heads
+        q = _dense(self.q, x, dt).view(b, t, n_q, hd)
+        k, v = _dense(self.k, x, dt), _dense(self.v, x, dt)
+        if k.shape[-1] < hd:
+            k, v = self._whole_kv_head(k, v, hd)
+        n_kv = k.shape[-1] // hd
+        k = k.view(b, t, n_kv, hd)
+        v = v.view(b, t, n_kv, hd)
         q = apply_rope(q, angles)
         k = apply_rope(k, angles)
         # GQA: each kv head repeated in place, as jnp.repeat(axis=2).
-        rep = c.n_head // c.n_kv_head
+        rep = n_q // n_kv
         if rep > 1:
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         y = attn_fn(q, k, v)
-        return _dense(self.proj, y.reshape(b, t, c.n_head * hd), dt)
+        return leave(_dense(self.proj, y.reshape(b, t, n_q * hd), dt),
+                     self.tp)
+
+    def _whole_kv_head(self, k, v, hd: int):
+        """k and v of the kv head this rank's q heads read, from the parts
+        that the ``tp`` ranks sharing it hold (concatenated in rank order;
+        the gradient of each part goes home summed over those ranks)."""
+        part = k.shape[-1]
+        if hd % part:
+            raise ValueError(
+                f"n_kv_head={self.config.n_kv_head} does not split over "
+                f"tp={self.tp.size}: a rank holds {part} of a head's {hd} "
+                "columns")
+        group = self.tp.mesh.block_group("tp", hd // part)
+        return tuple(coll.allgather(x.movedim(-1, 0), group, tiled=True)
+                     .movedim(0, -1) for x in (k, v))
 
 
 class SwiGLU(nn.Module):
+    tp = None
+
     def __init__(self, config: LlamaConfig, device, gen):
         super().__init__()
         c = config
@@ -197,8 +238,9 @@ class SwiGLU(nn.Module):
 
     def forward(self, x):
         dt = self.config.dtype
-        return _dense(self.down, F.silu(_dense(self.gate, x, dt))
-                      * _dense(self.up, x, dt), dt)
+        x = enter(x, self.tp)
+        return leave(_dense(self.down, F.silu(_dense(self.gate, x, dt))
+                            * _dense(self.up, x, dt), dt), self.tp)
 
 
 class LlamaBlock(nn.Module):
@@ -225,6 +267,9 @@ class Llama(nn.Module):
     ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
     on a ``torch.Generator`` of that device. ``attn_fn`` defaults to the
     mesh's attention (``models.gpt2.mesh_attention``)."""
+
+    tensor_parallel = True      # place_params may split it over tp
+    tp = None
 
     def __init__(self, config: LlamaConfig, *, device=None, seed: int = 0,
                  attn_fn: Callable | None = None, mesh=None):
@@ -264,7 +309,7 @@ class Llama(nn.Module):
         b, t = tokens.shape
         pos0 = seq_offset(self.mesh, c.sp_axis, t)
         angles = self.angles[pos0:pos0 + t]
-        x = F.embedding(tokens, self.wte.weight.to(dt))
+        x = vocab_embedding(tokens, self.wte.weight, self.tp, dt)
         for block in self.h:
             if c.remat:
                 x = remat_call(block, x, self.attn_fn, angles,
@@ -280,22 +325,15 @@ class Llama(nn.Module):
             logits = matmul_f32(rows, self.wte.weight.to(dt).t())
         else:
             logits = _dense(self.lm_head, rows, dt).float()
-        return logits.view(b, t, -1)
+        return lm_logits(logits, self.tp).view(b, t, -1)
 
     @torch.no_grad()
     def load_jax_params(self, params: dict) -> None:
         """Copy the JAX package's flax params (a nested dict of numpy
         arrays, as ``ray_tpu.models.Llama.init_params`` gives them after
-        ``np.asarray``) into this module."""
-        def put(dst: torch.Tensor, src, transpose: bool = False):
-            src = torch.from_numpy(np.array(src, dtype=np.float32))
-            if transpose:
-                src = src.t()
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"shape {tuple(src.shape)} does not fit "
-                                 f"parameter {tuple(dst.shape)}")
-            dst.copy_(src)
-
+        ``np.asarray``) into this module (each rank's block where placement
+        split a parameter)."""
+        put = put_param
         put(self.wte.weight, params["wte"]["embedding"])
         for i, block in enumerate(self.h):
             p = params[f"h_{i}"]
@@ -321,7 +359,7 @@ def llama_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
     (the transpose of the flax kernel, as the reference passes it) when
     the head is untied; False materializes full float32 logits (an
     evaluation path on the card, as for GPT-2). On a mesh the loss is the
-    mean over every rank's tokens, as ``models.gpt2.gpt2_loss_fn``'s."""
+    mean over the data ranks' tokens, as ``models.gpt2.gpt2_loss_fn``'s."""
 
     def loss_fn(model: Llama, batch):
         group = loss_group(model.mesh)
@@ -330,7 +368,8 @@ def llama_loss_fn(fused_ce: bool = True, ce_chunk: int = 2048):
             head = (model.wte.weight if model.config.tie_embeddings
                     else model.lm_head.weight)
             return chunked_cross_entropy(h, head, batch["targets"],
-                                         chunk_size=ce_chunk, group=group)
+                                         chunk_size=ce_chunk, group=group,
+                                         tp=model.tp)
         return cross_entropy_loss(model(batch["tokens"]), batch["targets"],
                                   group=group)
 

@@ -28,6 +28,11 @@ Sequence parallelism, on activations whose sequence is split over the
   head split, ``causal_attention`` runs on the whole sequence, and a
   second all_to_all trades back.
 - ``make_sharded_causal_attention`` picks between them for a mesh.
+
+Heads split over ``tp`` need nothing of attention: a tensor-parallel
+model's q, k and v already hold this rank's heads (``models/gpt2.py``),
+so a rank attends over its own H/tp heads through the kernels, or
+through ring or Ulysses over ``sp`` on those heads.
 """
 
 from __future__ import annotations
@@ -234,8 +239,14 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sequence split for a head split ([B, t, H, D] -> [B, t·sp, H/sp, D]),
     each rank runs ``causal_attention`` over the whole sequence on its
     heads, and the inverse all_to_all trades back. Needs
-    ``heads % sp == 0``; differentiable."""
+    ``heads % sp == 0`` (the heads this rank holds: H/tp under tensor
+    parallelism), else ValueError; differentiable."""
     mesh = _resolve_mesh(mesh)
+    sp = mesh.axis_size(axis_name)
+    if q.shape[2] % sp:
+        raise ValueError(
+            f"ulysses_attention: the {q.shape[2]} heads of this rank do "
+            f"not split over {axis_name}={sp}")
     qh, kh, vh = (all_to_all(x, axis_name, 2, 1, mesh) for x in (q, k, v))
     out = causal_attention(qh, kh, vh, scale=scale)
     return all_to_all(out, axis_name, 1, 2, mesh)
@@ -245,12 +256,13 @@ def make_sharded_causal_attention(mesh, batch_axes=("dp", "fsdp"),
                                   seq_axis="sp", head_axis="tp",
                                   impl="auto"):
     """An attention function for activations split ``[batch -> dp/fsdp,
-    seq -> sp]`` on ``mesh``: ring attention (``"auto"`` or ``"ring"``) or
-    Ulysses when the mesh has a real sp axis, local ``causal_attention``
-    otherwise (a rank's batch block needs nothing from the others).
-    ``"dense"`` on a real sp axis, and ``"ring"``/``"ulysses"`` without
-    one, raise ValueError as in the JAX package. Heads split over ``tp``
-    are not in the port yet: ``tp > 1`` raises NotImplementedError."""
+    seq -> sp, heads -> tp]`` on ``mesh``: ring attention (``"auto"`` or
+    ``"ring"``) or Ulysses when the mesh has a real sp axis, local
+    ``causal_attention`` otherwise (a rank's batch block and its heads need
+    nothing from the others). ``"dense"`` on a real sp axis, and
+    ``"ring"``/``"ulysses"`` without one, raise ValueError as in the JAX
+    package. ``head_axis`` names the axis the caller's heads are split
+    over; the function sees this rank's heads only."""
     if impl not in ("auto", "dense", "ring", "ulysses"):
         raise ValueError(f"unknown attn impl {impl!r}; "
                          "expected 'auto', 'dense', 'ring' or "
@@ -268,10 +280,6 @@ def make_sharded_causal_attention(mesh, batch_axes=("dp", "fsdp"),
             f"(got {seq_axis}={sp}); the O(seq/sp) per-device K/V "
             f"memory you asked for does not exist on this mesh — use "
             f"'auto' or add a {seq_axis} axis")
-    if mesh.shape.get(head_axis, 1) > 1:
-        raise NotImplementedError(
-            f"attention with heads split over {head_axis}="
-            f"{mesh.shape[head_axis]} is not in the port yet (ROADMAP §1)")
     if sp <= 1:
         return causal_attention
     local_impl = ulysses_attention if impl == "ulysses" else ring_attention

@@ -1,13 +1,13 @@
 """Parallelism layer of the port: device meshes over process groups,
-sharding rules, the multi-rank dry run.
+sharding rules, the pipeline, the multi-rank dry run.
 
 Axis conventions, as in ``ray_tpu.parallel``:
     dp    data parallel            (batch split; gradients averaged)
     fsdp  fully-sharded data par.  (batch + parameter shards; FSDP2)
-    tp    tensor parallel          (not in the port yet)
+    tp    tensor parallel          (weights cut; Megatron column/row products)
     sp    sequence/context par.    (sequence split; ring or Ulysses)
-    ep    expert parallel          (MoE experts split; all_to_all)
-    pp    pipeline parallel        (not in the port yet)
+    ep    expert parallel          (MoE experts cut; global routing)
+    pp    pipeline parallel        (stages; ``spmd_pipeline``)
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -25,9 +25,11 @@ from ray_tpu_torch.parallel.mesh import (
     make_mesh,
     mesh_size,
 )
+from ray_tpu_torch.parallel.pipeline import shard_stages, spmd_pipeline
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
     LogicalAxisRules,
+    Placement,
     constrain,
     logical_to_mesh,
     place_params,
@@ -40,5 +42,5 @@ __all__ = [
     "CANONICAL_ORDER", "AXIS_DP", "AXIS_FSDP", "AXIS_TP", "AXIS_SP",
     "AXIS_EP", "AXIS_PP", "LogicalAxisRules", "DEFAULT_RULES",
     "logical_to_mesh", "constrain", "spec_for_path", "shard_params",
-    "place_params",
+    "place_params", "Placement", "spmd_pipeline", "shard_stages",
 ]

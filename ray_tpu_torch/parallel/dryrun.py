@@ -8,13 +8,15 @@ rank and returns each rank's result. The process group and the join both have a 
 so a rank that fails or hangs fails the call instead of hanging it. The
 port's multi-rank tests use it.
 
-:func:`dryrun_multichip` runs, over ``n`` ranks, one GPT-2 tiny train
-step on a ``dp × sp`` mesh (ring attention when ``sp > 1``) and the
-expert-parallel ``moe_ffn`` leg, and checks that what comes out is finite.
-The JAX version also runs a pipeline leg and a cross-slice (DCN) leg, and
-factors ``n`` into ``dp × sp × tp``; the port has no pipeline, no tensor
-parallelism and no runtime to carry the DCN leg yet (ROADMAP §1), so
-those wait.
+:func:`dryrun_multichip` runs, over ``n`` ranks, what the JAX version
+runs on its virtual devices: one GPT-2 tiny train step on a ``dp × sp ×
+tp`` mesh (``n`` factored as ``__graft_entry__.py`` factors it: tp 2 and
+sp 2 where they divide, ring attention when ``sp > 1``), the pipeline leg
+(``spmd_pipeline`` on ``dp × pp``, pp 4 or 2, ``tanh(x @ w)`` stages, 4
+microbatches) and the expert-parallel ``moe_ffn`` leg, and checks that
+what comes out is finite. The JAX version's cross-slice (DCN) leg needs
+actors and ``DcnTcpCommunicator``, which come with the runtime (ROADMAP
+§1 item 5): it waits.
 """
 
 from __future__ import annotations
@@ -139,10 +141,15 @@ def _dryrun_rank(n: int, device: str) -> dict:
     from ray_tpu_torch.train import (adamw, init_train_state,
                                      make_train_step, shard_batch)
 
-    # n as dp x sp, sp = 2 where n is even (the JAX dry run also takes
-    # tp = 2, which waits).
-    sp = 2 if n % 2 == 0 else 1
-    factors = {"dp": n // sp, "sp": sp}
+    # n as dp x sp x tp, the innermost axes taking the factors of 2 first
+    # (__graft_entry__.py:67-75).
+    factors = {"dp": 1, "sp": 1, "tp": 1}
+    rem = n
+    for axis in ("tp", "sp"):
+        if rem % 2 == 0:
+            factors[axis] = 2
+            rem //= 2
+    factors["dp"] = rem
     mesh = make_mesh(factors, device=device)
     # Head dim 64, which the flash kernels take on the card.
     cfg = GPT2Config.tiny(n_embd=128, n_head=2,
@@ -161,7 +168,30 @@ def _dryrun_rank(n: int, device: str) -> dict:
     if not math.isfinite(loss):
         raise AssertionError(f"non-finite loss: {loss}")
     return {"loss": loss, "factors": factors, "device": str(mesh.device),
+            "pipeline": _dryrun_pipeline(n, device),
             "moe": _dryrun_moe(n, device)}
+
+
+def _dryrun_pipeline(n: int, device: str) -> dict | None:
+    """The pipeline leg: ``spmd_pipeline`` over ``pp`` (4 where n allows,
+    else 2) beside ``dp``, stages ``tanh(x @ w)`` of width 16, 4
+    microbatches a data shard, on ones."""
+    from ray_tpu_torch.parallel.mesh import make_mesh
+    from ray_tpu_torch.parallel.pipeline import shard_stages, spmd_pipeline
+
+    pp = 4 if n % 4 == 0 else (2 if n % 2 == 0 else 1)
+    if pp == 1:
+        return None
+    dp = n // pp
+    mesh = make_mesh({"dp": dp, "pp": pp}, device=device)
+    d = 16
+    gen = torch.Generator().manual_seed(0)
+    ws = shard_stages(torch.randn(pp, d, d, generator=gen) * 0.2, mesh)
+    pipe = spmd_pipeline(lambda w, x: torch.tanh(x @ w), 4, mesh=mesh)
+    y = pipe(ws, torch.ones(4, d, device=mesh.device))
+    if not torch.isfinite(y).all():
+        raise AssertionError("spmd_pipeline: non-finite output")
+    return {"pp": pp, "dp": dp, "sum": float(y.sum())}
 
 
 def _dryrun_moe(n: int, device: str) -> dict | None:
@@ -191,10 +221,12 @@ def _dryrun_moe(n: int, device: str) -> dict | None:
 
 def dryrun_multichip(n_devices: int, device=None,
                      timeout: float = 300.0) -> list[dict]:
-    """One sharded GPT-2 tiny train step and the expert-parallel leg on
-    ``n_devices`` ranks: NCCL ranks, one GPU each, by default, gloo ranks
-    on the CPU for ``device="cpu"`` (:func:`spawn`). Returns each rank's
-    ``{"loss", "factors", "device", "moe"}``; raises when a rank fails."""
+    """One sharded GPT-2 tiny train step, the pipeline leg and the
+    expert-parallel leg on ``n_devices`` ranks: NCCL ranks, one GPU each,
+    by default, gloo ranks on the CPU for ``device="cpu"`` (:func:`spawn`).
+    Returns each rank's ``{"loss", "factors", "device", "pipeline",
+    "moe"}`` (None for a leg ``n`` cannot factor); raises when a rank
+    fails."""
     kind = resolve_device(device).type
     return spawn(_dryrun_rank, n_devices, (n_devices, kind), device=kind,
                  timeout=timeout)

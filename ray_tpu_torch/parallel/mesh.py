@@ -40,6 +40,12 @@ AXIS_PP = "pp"
 # links (NVLink within a node).
 CANONICAL_ORDER = (AXIS_PP, AXIS_DP, AXIS_FSDP, AXIS_EP, AXIS_SP, AXIS_TP)
 
+# The axes over which ranks hold other tokens (``train.step.shard_batch``):
+# a replicated parameter's gradient is averaged over them, and a loss is
+# the mean over their tokens. The ranks along ``tp``, ``ep`` and ``pp``
+# of one data shard see the same tokens.
+DATA_AXES = (AXIS_DP, AXIS_FSDP, AXIS_SP)
+
 # How long a collective, the rendezvous included, may wait before the
 # process group gives up on it: a lost rank fails the run instead of
 # hanging it.
@@ -175,7 +181,7 @@ class Mesh:
         self.device = device
         self.device_mesh = init_device_mesh(
             device.type, tuple(axes.values()), mesh_dim_names=self.axis_names)
-        self._groups: dict[tuple[str, ...], dist.ProcessGroup] = {}
+        self._groups: dict[tuple, dist.ProcessGroup] = {}
 
     @property
     def size(self) -> int:
@@ -214,17 +220,33 @@ class Mesh:
             return self.device_mesh.get_group(axes[0])
         if len(axes) == len(self.axis_names):
             return dist.group.WORLD
-        if axes not in self._groups:
+        return self._new_groups(axes, self.axis_size(axes))
+
+    def block_group(self, axis: str, block: int) -> dist.ProcessGroup:
+        """The group of the ``block`` consecutive ranks along ``axis`` that
+        holds this rank (``block`` divides the axis): e.g. the ``tp`` ranks
+        that share one key/value head."""
+        if self.shape[axis] % block:
+            raise ValueError(f"{block} does not divide {axis}="
+                             f"{self.shape[axis]}")
+        return self._new_groups((axis,), block)
+
+    def _new_groups(self, axes: tuple[str, ...], block: int
+                    ) -> dist.ProcessGroup:
+        """Every group of ``block`` consecutive ranks along ``axes``, made
+        together on every rank the first time; this rank's."""
+        key = (axes, block)
+        if key not in self._groups:
             dims = [self.axis_names.index(a) for a in axes]
             rest = [i for i in range(len(self.axis_names)) if i not in dims]
             grid = torch.arange(self.size).reshape(
                 tuple(self.shape.values())).permute(*rest, *dims)
             me = dist.get_rank()
-            for ranks in grid.reshape(-1, self.axis_size(axes)).tolist():
+            for ranks in grid.reshape(-1, block).tolist():
                 g = dist.new_group(ranks)
                 if me in ranks:
-                    self._groups[axes] = g
-        return self._groups[axes]
+                    self._groups[key] = g
+        return self._groups[key]
 
     def __enter__(self) -> "Mesh":
         _ACTIVE.append(self)
@@ -249,13 +271,13 @@ def current_mesh() -> Mesh:
 
 
 def loss_group(mesh) -> dist.ProcessGroup | None:
-    """The group over which a loss's mean is taken: every rank of a mesh
-    of more than one (ranks along ``ep`` that see the same tokens count
-    them once each, as their gradients are equal), None off a mesh or on
-    one rank."""
-    if mesh is None or mesh.size == 1:
+    """The group over which a loss's mean is taken: the ranks of the data
+    axes (:data:`DATA_AXES`), which hold other tokens; None off a mesh
+    or where those axes hold one rank. The ``tp``, ``ep`` and ``pp`` ranks
+    of a data shard compute the same loss."""
+    if mesh is None or mesh.axis_size(DATA_AXES) == 1:
         return None
-    return mesh.group(mesh.axis_names)
+    return mesh.group(DATA_AXES)
 
 
 def make_mesh(spec: MeshSpec | dict[str, int] | None = None,

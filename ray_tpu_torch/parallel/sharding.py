@@ -8,13 +8,23 @@ logical axis to a mesh axis. The JAX package turns that into a
 one DTensor placement per mesh dimension (:func:`logical_to_mesh`), and
 :func:`place_params` applies it to a module:
 
+- a parameter that the table splits over ``tp`` or ``ep`` is cut to this
+  rank's block along that dimension (a plain tensor); the model's layers
+  run on those blocks with explicit collectives (Megatron's column and
+  row products, the vocab-parallel embedding and cross-entropy, the
+  experts of this rank);
 - a parameter that the table shards over ``fsdp`` is sharded by FSDP2
   (``fully_shard``, per block and on the whole model) along the tensor
   dimension the table names, so ``wte.weight`` ``[vocab, embed]`` is
-  split on ``embed`` as the JAX package splits it;
-- every other parameter is replicated: broadcast from rank 0 at
-  placement, its gradient averaged over every rank by the train step
-  (``train.step``).
+  split on ``embed`` as the JAX package splits it; where ``tp`` splits it
+  too, FSDP2 shards this rank's ``tp`` block;
+- every other parameter is replicated.
+
+Each parameter's :class:`Placement` (``model.placements[name]``, and
+``param.placement``) records which mesh axes split it and which hold
+equal copies of it; the train step, ``load_jax_params`` and the
+checkpoint read it. ``pp`` is not in
+the table: a pipeline's stages are placed by ``parallel.pipeline``.
 
 The JAX pattern table matches flax paths and layouts; the port's
 (:data:`DEFAULT_PARAM_PATTERNS`) matches its own ``named_parameters()``
@@ -39,9 +49,9 @@ from ray_tpu_torch.parallel.mesh import (
     AXIS_DP,
     AXIS_EP,
     AXIS_FSDP,
-    AXIS_PP,
     AXIS_SP,
     AXIS_TP,
+    DATA_AXES,
 )
 
 
@@ -192,6 +202,63 @@ def shard_params(model: nn.Module, mesh, patterns=None,
             for name, p in model.named_parameters()}
 
 
+# The mesh axes whose splits the port carries out by cutting the tensor.
+_CUT_AXES = (AXIS_TP, AXIS_EP)
+
+
+@dataclass(frozen=True)
+class Placement:
+    """Where one parameter lives on a mesh.
+
+    ``split``: ``(dim, axis, index, size)`` for each mesh axis that cuts
+    the tensor (this rank holds block ``index`` of ``size`` along
+    ``dim``); ``fsdp``: the dimension FSDP2 shards, or None;
+    ``replicated``: the axes of more than one rank that hold equal
+    copies."""
+
+    split: tuple[tuple[int, str, int, int], ...] = ()
+    fsdp: int | None = None
+    replicated: tuple[str, ...] = ()
+
+    @property
+    def split_axes(self) -> tuple[str, ...]:
+        return tuple(axis for _, axis, _, _ in self.split)
+
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor ``full``."""
+        for dim, _, index, size in self.split:
+            n = full.shape[dim] // size
+            full = full.narrow(dim, index * n, n)
+        return full
+
+    def whole_shape(self, local_shape) -> tuple[int, ...]:
+        shape = list(local_shape)
+        for dim, _, _, size in self.split:
+            shape[dim] *= size
+        return tuple(shape)
+
+
+@dataclass(frozen=True)
+class Split:
+    """The ranks of a mesh over which a layer's weights are cut: the
+    layer runs its collectives over ``mesh.group(axes)``."""
+
+    mesh: object
+    axes: tuple[str, ...]
+
+    @property
+    def group(self):
+        return self.mesh.group(self.axes)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.axis_index(self.axes)
+
+    @property
+    def size(self) -> int:
+        return self.mesh.axis_size(self.axes)
+
+
 @dataclass
 class _Shape:
     """A mesh as the rule functions read it: its ``shape`` alone."""
@@ -208,21 +275,26 @@ def _blocks(model: nn.Module) -> list[nn.Module]:
 
 def _fsdp_mesh(mesh):
     """The DeviceMesh FSDP2 shards over: the ``fsdp`` axis alone, or,
-    when other axes hold more than one rank, those ranks as a leading
-    replicate dimension (HSDP), so that FSDP2's gradient reduction spans
-    every rank."""
+    when the other data axes (``dp``, ``sp``) hold more than one rank,
+    those ranks as a leading replicate dimension (HSDP), so that FSDP2's
+    gradient reduction spans every data rank. The ranks along ``tp``,
+    ``ep`` and ``pp``, which hold other blocks of a parameter, are
+    separate meshes."""
     from torch.distributed.device_mesh import DeviceMesh
 
     f = mesh.shape[AXIS_FSDP]
-    if f == mesh.size:
-        return mesh.device_mesh[AXIS_FSDP]
     names = tuple(mesh.shape)
-    grid = torch.arange(mesh.size).reshape(tuple(mesh.shape.values()))
-    dim = names.index(AXIS_FSDP)
-    rest = [i for i in range(len(names)) if i != dim]
-    grid = grid.permute(*rest, dim).reshape(mesh.size // f, f)
-    return DeviceMesh(mesh.device.type, grid,
-                      mesh_dim_names=("replicate", AXIS_FSDP))
+    rep = [a for a in DATA_AXES if a != AXIS_FSDP]
+    n_rep = mesh.axis_size(rep)
+    if n_rep == 1 and f == mesh.size:
+        return mesh.device_mesh[AXIS_FSDP]
+    other = [i for i, a in enumerate(names) if a not in DATA_AXES]
+    dims = other + [names.index(a) for a in rep] + [names.index(AXIS_FSDP)]
+    grid = torch.arange(mesh.size).reshape(tuple(mesh.shape.values())) \
+        .permute(*dims).reshape(mesh.size // (n_rep * f), n_rep, f)
+    dm = DeviceMesh(mesh.device.type, grid,
+                    mesh_dim_names=("model", "replicate", AXIS_FSDP))
+    return dm["replicate", AXIS_FSDP] if n_rep > 1 else dm[AXIS_FSDP]
 
 
 def place_params(model: nn.Module, mesh, patterns=None,
@@ -231,62 +303,82 @@ def place_params(model: nn.Module, mesh, patterns=None,
     and return it.
 
     Every parameter and buffer is first broadcast from rank 0, so that
-    replicas start equal. Where the ``fsdp`` axis holds more than one
-    rank, the parameters that the table shards over it are then sharded by
-    FSDP2 along that dimension: ``fully_shard`` on each block and on the
-    model, with ``shard_placement_fn`` from the table and the other
-    parameters left to the train step (``ignored_params``). A model whose
-    parameters FSDP2 already holds is returned as it is. Tensor, expert
-    and pipeline placements of parameters are not in the port yet
-    (ROADMAP §1): a table entry that would split a parameter over ``tp``,
-    ``ep`` or ``pp`` raises NotImplementedError."""
-    return _place(model, mesh, patterns, rules,
-                  fsdp2=mesh.shape.get(AXIS_FSDP, 1) > 1)
+    replicas start equal. A parameter the table splits over ``tp`` or
+    ``ep`` is then cut to this rank's block, and every layer that declares
+    a ``tp`` or ``ep`` attribute gets the :class:`Split` it runs its
+    collectives over; a model that does not declare ``tensor_parallel``
+    raises NotImplementedError for a cut over ``tp`` (ViT and ResNet,
+    ROADMAP §1). Where the ``fsdp`` axis holds more than one rank, the
+    parameters that the table shards over it are then sharded by FSDP2
+    along that dimension: ``fully_shard`` on each block and on the model,
+    with ``shard_placement_fn`` from the table and the other parameters
+    left to the train step (``ignored_params``). Each parameter's
+    :class:`Placement` goes to ``model.placements``. A placed model is
+    returned as it is."""
+    return _place(model, mesh, patterns, rules, ())
 
 
-def _place_fsdp2(model: nn.Module, mesh, patterns=None,
-                 rules: LogicalAxisRules = DEFAULT_RULES) -> nn.Module:
-    """:func:`place_params` with FSDP2 on whatever the size of the
-    ``fsdp`` axis: on a size-1 axis it splits the dimension the table
-    would put on ``fsdp`` were it larger. For checks that hold FSDP2's
-    step against plain data parallelism on one card or beside ``dp``."""
-    return _place(model, mesh, patterns, rules, fsdp2=True,
-                  table_mesh=_Shape({**mesh.shape, AXIS_FSDP: 2}))
+def _place_forced(model: nn.Module, mesh, axes, patterns=None,
+                  rules: LogicalAxisRules = DEFAULT_RULES) -> nn.Module:
+    """:func:`place_params` that places over each of ``axes`` whatever
+    its size: on a size-1 axis it does what the table would do were the
+    axis larger (FSDP2 shards, a ``tp`` or ``ep`` route whose collectives
+    run over one rank). For checks that hold such a route's step against
+    the plain one on one card."""
+    return _place(model, mesh, patterns, rules, tuple(axes))
 
 
-def _place(model: nn.Module, mesh, patterns, rules, fsdp2: bool,
-           table_mesh=None) -> nn.Module:
-    if any(is_sharded(p) for p in model.parameters()):
+def _place(model: nn.Module, mesh, patterns, rules, forced) -> nn.Module:
+    if getattr(model, "placements", None) is not None:
         return model
-    for axis in (AXIS_TP, AXIS_PP):
-        if mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis}={mesh.shape[axis]} is not in the port "
-                "yet (ROADMAP §1)")
-    names = {id(p): n for n, p in model.named_parameters()}
-    spec = {}
-    for name, p in model.named_parameters():
-        axes = mesh_axes(logical_axes_for(name, p.dim(), patterns),
-                         table_mesh or mesh, rules)
-        other = [a for a in axes if a not in (None, AXIS_FSDP)]
-        if other:
-            raise NotImplementedError(
-                f"{name}: a parameter split over {other} is not in the port "
-                "yet (ROADMAP §1)")
-        spec[name] = axes.index(AXIS_FSDP) if AXIS_FSDP in axes else None
+    table_mesh = _Shape({**mesh.shape, **{a: 2 for a in forced
+                                          if mesh.shape[a] == 1}})
     with torch.no_grad():
         for t in list(model.parameters()) + list(model.buffers()):
             if mesh.size > 1:
                 dist.broadcast(t.data, 0)
-    if not fsdp2:
+    placements = {}
+    for name, p in model.named_parameters():
+        axes = mesh_axes(logical_axes_for(name, p.dim(), patterns),
+                         table_mesh, rules)
+        split = tuple((dim, a, mesh.axis_index(a), mesh.shape[a])
+                      for dim, a in enumerate(axes) if a in _CUT_AXES)
+        if split and AXIS_TP in axes and not getattr(
+                model, "tensor_parallel", False):
+            raise NotImplementedError(
+                f"{type(model).__name__} under tp: {name} would be split "
+                f"over {AXIS_TP}, and its layers have no tensor-parallel "
+                "route in the port yet (ROADMAP §1)")
+        fsdp = (axes.index(AXIS_FSDP) if AXIS_FSDP in axes
+                and (mesh.shape[AXIS_FSDP] > 1 or AXIS_FSDP in forced)
+                else None)
+        cut = {a for _, a, _, _ in split}
+        placements[name] = Placement(
+            split=split, fsdp=fsdp,
+            replicated=tuple(a for a, n in mesh.shape.items()
+                             if n > 1 and a not in cut
+                             and not (a == AXIS_FSDP and fsdp is not None)))
+        if split:
+            with torch.no_grad():
+                p.data = placements[name].block(p.data).clone()
+        p.placement = placements[name]
+    for axis in _CUT_AXES:
+        if any(axis in pl.split_axes for pl in placements.values()):
+            for m in model.modules():
+                if hasattr(type(m), axis):
+                    setattr(m, axis, Split(mesh, (axis,)))
+    model.placements = placements
+    if all(pl.fsdp is None for pl in placements.values()):
         return model
     from torch.distributed.fsdp import fully_shard
 
     fsdp_mesh = _fsdp_mesh(mesh)
-    ignored = {p for p in model.parameters() if spec[names[id(p)]] is None}
+    names = {id(p): n for n, p in model.named_parameters()}
+    ignored = {p for p in model.parameters()
+               if placements[names[id(p)]].fsdp is None}
 
     def placement(p: nn.Parameter):
-        return Shard(spec[names[id(p)]])
+        return Shard(placements[names[id(p)]].fsdp)
 
     for block in _blocks(model):
         fully_shard(block, mesh=fsdp_mesh, shard_placement_fn=placement,

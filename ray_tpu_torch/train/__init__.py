@@ -1,7 +1,13 @@
 """ray_tpu_torch.train — the train step (captured as a CUDA graph on the
-card), its optimizers and the input pipeline of the port (counterpart of
-``ray_tpu.train``'s step layer)."""
+card), its optimizers, the input pipeline and sharded checkpoints of the
+port (counterpart of ``ray_tpu.train``'s step layer and checkpoints)."""
 
+from ray_tpu_torch.train.checkpoint import (
+    restore_pytree,
+    restore_train_state,
+    save_pytree,
+    save_train_state,
+)
 from ray_tpu_torch.train.optim import (
     SGD,
     AdamW,
@@ -30,5 +36,6 @@ __all__ = [
     "make_multi_train_step", "compile_count", "buffers_donated",
     "disable_capture", "AdamW", "AdamWState", "adamw", "SGD",
     "SGDState", "sgd", "global_norm", "DevicePrefetcher",
-    "prefetch_to_device",
+    "prefetch_to_device", "save_pytree", "restore_pytree",
+    "save_train_state", "restore_train_state",
 ]

@@ -37,18 +37,22 @@ however often the forward runs.
 On a mesh (``init_train_state(..., mesh=mesh)``, which places the
 parameters by ``parallel.sharding.place_params``) the step makes
 explicit the reductions that XLA's sharding propagation inserts into the
-JAX step:
+JAX step, per parameter, from its ``Placement``:
 
-- the gradient of every replicated parameter is averaged over every rank
-  of the mesh (``dp × fsdp × sp``, and ``ep``, whose ranks see the same
-  tokens): the ``sp`` ranks saw other tokens of the same weights, so
-  leaving them out would be wrong without a sign of it. FSDP2
-  reduce-scatters the gradients of the parameters it shards;
-- ``loss`` is the mean over every rank's tokens: each rank's loss is its
-  share of that mean (the models' loss functions sum the token count
-  over the ranks), and the metric is their mean;
-- ``grad_norm`` is the norm of the whole gradient, the shards of FSDP2's
-  parameters included (``collective.device.global_norm``).
+- every gradient FSDP2 does not reduce is averaged over the data axes
+  (``dp × fsdp × sp``, ``parallel.mesh.DATA_AXES``), whose ranks saw other
+  tokens of the same weights (the ``sp`` ranks too: leaving them out
+  would be wrong without a sign of it). Nothing is reduced over ``tp``,
+  ``ep`` or ``pp``: a block cut over them differs across their ranks by
+  design, and a replicated weight's gradient is already whole and equal
+  on them (the layers take it through ``collective.device.copy_to``).
+  FSDP2 reduce-scatters the gradients of the parameters it shards;
+- ``loss`` is the mean over the data ranks' tokens: each rank's loss is
+  its share of that mean (the models' loss functions sum the token count
+  over those ranks), and the metric is their mean;
+- ``grad_norm`` is the norm of the whole gradient: each block's squares
+  summed over the axes that cut it (FSDP2's ``fsdp`` too), each
+  replicated parameter counted once.
 
 On the card these collectives are captured into the step's CUDA graph
 with the rest. The one rule that runs a step eagerly on the card: a
@@ -69,10 +73,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.collective import device as coll
 from ray_tpu_torch.ops.cuda import flash_attention as fa
-from ray_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SP
-from ray_tpu_torch.parallel.sharding import is_sharded, local, place_params
+from ray_tpu_torch.parallel.mesh import AXIS_FSDP, AXIS_SP, DATA_AXES
+from ray_tpu_torch.parallel.sharding import (
+    Placement,
+    is_sharded,
+    local,
+    place_params,
+)
 from ray_tpu_torch.train.optim import global_norm
 
 # > 0 inside disable_capture(): steps run eagerly on the card too.
@@ -126,7 +134,8 @@ def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
     optimizer update, in place on ``state``; what a capture records."""
 
     def body(state: TrainState, batch) -> dict:
-        params = list(state.params.parameters())
+        named = list(state.params.named_parameters())
+        params = [p for _, p in named]
         for p in params:
             p.grad = None
         if has_extra:
@@ -138,8 +147,13 @@ def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
         metrics = {"loss": loss.detach()}
         if state.mesh is not None:
             metrics["loss"] = _reduce(grads, metrics["loss"], state.mesh)
-        if grad_norm:
-            metrics["grad_norm"] = _grad_norm(grads, state.mesh)
+            if grad_norm:
+                placed = getattr(state.params, "placements", None) or {}
+                metrics["grad_norm"] = _grad_norm(
+                    grads, state.mesh,
+                    [placed.get(n, _REPLICATED) for n, _ in named])
+        elif grad_norm:
+            metrics["grad_norm"] = global_norm(grads)
         optimizer.update(grads, state.opt_state, params)
         for p in params:
             p.grad = None
@@ -171,13 +185,16 @@ def _buckets(tensors: list) -> list[list]:
     return runs
 
 
+_REPLICATED = Placement()
+
+
 def _reduce(grads: list, loss: torch.Tensor, mesh) -> torch.Tensor:
-    """Average, over every rank of ``mesh``, the gradients FSDP2 does not
-    reduce (those of replicated parameters), in place, and return the
-    mean of the ranks' losses. The gradients and the loss go in flat
-    buckets (:func:`_buckets`), one all-reduce each, after the whole
-    backward."""
-    n = mesh.size
+    """Average over the data axes of ``mesh`` the gradients FSDP2 does not
+    reduce, in place, and return the mean of the data ranks' losses. The
+    gradients and the loss go in flat buckets (:func:`_buckets`), one
+    all-reduce each, after the whole backward."""
+    n = mesh.axis_size(DATA_AXES)
+    group = mesh.group(DATA_AXES)
     loss = loss.reshape(1).clone()
     plain = [g for g in grads if g is not None and not is_sharded(g)]
     # A stable sort: one run of tensors for each dtype, the loss last in
@@ -185,7 +202,7 @@ def _reduce(grads: list, loss: torch.Tensor, mesh) -> torch.Tensor:
     tensors = sorted(plain + [loss], key=lambda t: str(t.dtype))
     for bucket in _buckets(tensors):
         flat = torch.cat([t.reshape(-1) for t in bucket])
-        dist.all_reduce(flat, group=dist.group.WORLD)
+        dist.all_reduce(flat, group=group)
         if n > 1:
             flat /= n
         torch._foreach_copy_(bucket, [
@@ -194,17 +211,24 @@ def _reduce(grads: list, loss: torch.Tensor, mesh) -> torch.Tensor:
     return loss.reshape(())
 
 
-def _grad_norm(grads: list, mesh) -> torch.Tensor:
-    """The global gradient norm: local squares of whole (replicated)
-    gradients, and those of FSDP2's shards summed over ``fsdp``."""
-    if mesh is None:
-        return global_norm(grads)
-    whole = [g for g in grads if g is not None and not is_sharded(g)]
-    shards = [local(g) for g in grads if g is not None and is_sharded(g)]
-    sq = global_norm(whole).square() if whole else 0.0
-    if shards:
-        sq = sq + coll.global_norm(shards, AXIS_FSDP, mesh).square()
-    return torch.sqrt(torch.as_tensor(sq, device=mesh.device))
+def _grad_norm(grads: list, mesh,
+               placements: list[Placement] | None = None) -> torch.Tensor:
+    """The global gradient norm: the local squares of each gradient,
+    summed over the axes that cut its parameter (``tp``, ``ep``; FSDP2's
+    ``fsdp`` for a DTensor), once for a replicated one."""
+    placements = placements or [_REPLICATED] * len(grads)
+    runs: dict[tuple, list] = {}
+    for g, pl in zip(grads, placements):
+        if g is not None:
+            axes = pl.split_axes + ((AXIS_FSDP,) if is_sharded(g) else ())
+            runs.setdefault(axes, []).append(local(g))
+    sq = torch.zeros((), dtype=torch.float32, device=mesh.device)
+    for axes, tensors in runs.items():
+        part = global_norm(tensors).square()
+        if axes:
+            dist.all_reduce(part, group=mesh.group(axes))
+        sq = sq + part
+    return torch.sqrt(sq)
 
 
 class _Graph:

@@ -27,7 +27,12 @@ by ``flash_attention.agreement`` and launch 1 + r hops on rank r;
 Ulysses at world 1 is ``causal_attention`` bit for bit, and ``moe_ffn``
 over an ``ep`` group of one rank matches the one-hot einsum form within
 one bf16 unit. ``dryrun_multichip(1)`` with no device named spawns one
-NCCL rank on ``cuda:0``.
+NCCL rank on ``cuda:0``. The tp route forced on the one-rank ``tp`` axis
+(``copy_to``/``reduce_from``, the vocab-parallel lookup and CE, each
+collective over one rank) is captured once and matches the mesh-less
+step within 1e-6; the switch-MoE transformer on ``dp × ep`` (global
+routing, the ep route forced) matches the mesh-less MoE step within
+1e-6, captured once.
 """
 
 from __future__ import annotations
@@ -38,14 +43,15 @@ import numpy as np
 import pytest
 import torch
 
-from ray_tpu_torch.models import GPT2, GPT2Config
+from ray_tpu_torch.models import GPT2, GPT2Config, MoEConfig, MoETransformer
 from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+from ray_tpu_torch.models.moe import moe_loss_fn
 from ray_tpu_torch.ops import attention as attn
 from ray_tpu_torch.ops.cuda import flash_attention as fa
 from ray_tpu_torch.ops.moe import dense_switch_ffn_reference, moe_ffn
 from ray_tpu_torch.parallel import initialize, make_mesh
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip
-from ray_tpu_torch.parallel.sharding import _place_fsdp2
+from ray_tpu_torch.parallel.sharding import _place_forced
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -246,14 +252,20 @@ def mesh(cuda):
 _MESH = None
 
 
-def _mesh_losses(cuda, mesh, fsdp2=False):
-    model = GPT2(GPT2Config.tiny(n_embd=256, n_head=4, seq_len=256),
-                 device=cuda, seed=0, mesh=mesh)
-    if fsdp2:
-        _place_fsdp2(model, mesh)
+def _mesh_losses(cuda, mesh, forced=(), moe=False):
+    if moe:
+        model = MoETransformer(MoEConfig.tiny(n_embd=256, n_head=4,
+                                              seq_len=256),
+                               device=cuda, seed=0, mesh=mesh)
+    else:
+        model = GPT2(GPT2Config.tiny(n_embd=256, n_head=4, seq_len=256),
+                     device=cuda, seed=0, mesh=mesh)
+    if forced:
+        _place_forced(model, mesh, forced)
     opt = adamw(1e-3, weight_decay=0.1, mu_dtype=torch.bfloat16)
     state = init_train_state(model, opt, mesh=mesh)
-    step = make_train_step(gpt2_loss_fn(ce_chunk=512), opt)
+    step = make_train_step((moe_loss_fn if moe else gpt2_loss_fn)(
+        ce_chunk=512), opt)
     rng = np.random.default_rng(8)
     toks = rng.integers(0, 256, (4, 256))
     host = {"tokens": toks, "targets": np.roll(toks, -1, 1)}
@@ -276,9 +288,29 @@ def test_mesh_dp1_step_is_captured_and_equals_the_mesh_less_step(cuda, mesh):
 
 def test_mesh_fsdp1_runs_eagerly_by_rule(cuda, mesh):
     want, _, _, _ = _mesh_losses(cuda, mesh)
-    got, step, _, _ = _mesh_losses(cuda, mesh, fsdp2=True)
+    got, step, _, _ = _mesh_losses(cuda, mesh, ("fsdp",))
     np.testing.assert_allclose(got[0], want[0], rtol=LOSS_RTOL)
     assert compile_count(step) is None
+
+
+def test_mesh_tp1_route_is_captured_and_equals_the_mesh_less_step(cuda,
+                                                                  mesh):
+    want, _, _, _ = _mesh_losses(cuda, None)
+    got, step, state, counts = _mesh_losses(cuda, mesh, ("tp",))
+    assert state.params.h[0].mlp.tp is not None
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert compile_count(step) == 1
+    assert buffers_donated(step, state)
+    assert all(counts[n] == 2 * N_STEPS for n in
+               ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+def test_mesh_dp1_ep1_moe_step_equals_the_mesh_less_step(cuda, mesh):
+    want, _, _, _ = _mesh_losses(cuda, None, moe=True)
+    got, step, state, _ = _mesh_losses(cuda, mesh, ("ep",), moe=True)
+    assert state.params.h[1].moe.ep is not None
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+    assert compile_count(step) == 1
 
 
 def test_ring_hops_agree_with_the_whole_attention(cuda):

@@ -36,13 +36,25 @@ here (numpy seeds and the JAX models' own initialisation):
   ``shard_map``, and the gradients of ``sum(y²) + 0.01·aux`` summed over
   the ranks against ``jax.grad`` of the dense reference on each rank's
   tokens, within 1e-5;
-- ``MoETransformer`` on a mesh of more than one rank raises
-  NotImplementedError.
+- ``MoETransformer`` tiny (float32, capacity factor 1) on ``dp 2 × ep 2``
+  (two experts a rank), on ``dp 4`` and on ``dp 2 × tp 2`` (heads and
+  each expert's hidden dimension over tp), one SGD step (lr 0.1) against the
+  JAX step on a mesh of the same shape, whose ``SwitchFFN`` routes the
+  global tokens under GSPMD: the loss within 1e-5, the gradient norm
+  within 1e-4 relative, each rank's block of every parameter within 1e-5.
+  On the batch used, capacity over the global batch and over each rank's
+  tokens drop different tokens (checked on the JAX model's own router
+  inputs), and the same step on ``dp 4`` routing each rank's tokens alone
+  must fail the parameter tolerance tenfold.
 
-``dryrun_multichip(8)`` spawns its own 8 ranks.
+``dryrun_multichip(8)`` spawns its own 8 ranks and factors them as the
+JAX dry run does, ``dp 2 × sp 2 × tp 2``, beside the pipeline and ``ep``
+legs.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -61,6 +73,9 @@ from ray_tpu.models import GPT2Config as JaxGPT2Config  # noqa: E402
 from ray_tpu.models.gpt2 import gpt2_loss_fn as jax_gpt2_loss_fn  # noqa: E402
 from ray_tpu.models.llama import Llama as JaxLlama  # noqa: E402
 from ray_tpu.models.llama import LlamaConfig as JaxLlamaConfig  # noqa: E402
+from ray_tpu.models.moe import MoEConfig as JaxMoEConfig  # noqa: E402
+from ray_tpu.models.moe import MoETransformer as JaxMoETransformer  # noqa: E402
+from ray_tpu.models.moe import moe_loss_fn as jax_moe_loss_fn  # noqa: E402
 from ray_tpu.models.resnet import ResNet as JaxResNet  # noqa: E402
 from ray_tpu.models.resnet import (  # noqa: E402
     ResNet50Config as JaxResNet50Config,
@@ -77,6 +92,7 @@ from ray_tpu.train import (  # noqa: E402
     shard_batch as jax_shard_batch,
 )
 from ray_tpu_torch.models import GPT2, GPT2Config, ResNet, ResNet50Config  # noqa: E402
+from ray_tpu_torch.models import MoEConfig, MoETransformer  # noqa: E402
 from ray_tpu_torch.models import ViT, ViTConfig  # noqa: E402
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip, spawn  # noqa: E402
 
@@ -85,6 +101,7 @@ LLAMA_TOL = 1e-4
 LOSS_RTOL, GNORM_RTOL, ADAMW_DRIFT = 2e-5, 2e-3, 2e-4
 STATS_TOL = 2e-5
 MOE_TOL = 1e-5
+MOE_GNORM_RTOL = 1e-4
 FSDP_STEPS = 3
 
 
@@ -124,7 +141,9 @@ def setup():
          "gpt2_f32": JaxGPT2(JaxGPT2Config.tiny(dtype=jnp.float32)),
          "llama": JaxLlama(JaxLlamaConfig.tiny(dtype=jnp.float32)),
          "resnet": JaxResNet(JaxResNet50Config.tiny(dtype=jnp.float32)),
-         "vit": JaxViT(JaxViTConfig.tiny(dtype=jnp.float32))}
+         "vit": JaxViT(JaxViTConfig.tiny(dtype=jnp.float32)),
+         "moe": JaxMoETransformer(JaxMoEConfig.tiny(dtype=jnp.float32,
+                                                    capacity_factor=1.0))}
     s["gpt2_params"] = s["gpt2"].init_params(jax.random.key(0))
     s["gpt2_f32_params"] = s["gpt2_f32"].init_params(jax.random.key(1))
     s["llama_params"] = s["llama"].init_params(jax.random.key(2))
@@ -132,6 +151,8 @@ def setup():
     variables["params"] = _perturb_norms(variables["params"], 3)
     s["resnet_variables"] = variables
     s["vit_params"] = s["vit"].init_params(jax.random.key(4))
+    s["moe_params"] = s["moe"].init_params(jax.random.key(5))
+    moe_toks = _tokens(8, 64, 11)
     rng = np.random.default_rng(5)
     fsdp_batches = []
     for i in range(FSDP_STEPS):
@@ -162,6 +183,9 @@ def setup():
                 (rng.standard_normal((8, 8)) * 0.5).astype(np.float32),
                 (rng.standard_normal((8, 8, 16)) * 0.3).astype(np.float32),
                 (rng.standard_normal((8, 16, 8)) * 0.3).astype(np.float32)),
+        "moe_params": _np_tree(s["moe_params"]),
+        "moe_batch": {"tokens": moe_toks,
+                      "targets": np.roll(moe_toks, -1, 1)},
     }
     return s
 
@@ -375,17 +399,97 @@ def test_moe_ffn_ep4_matches_jax(world, setup):
             r["router"], np.asarray(grads[i][0]), atol=MOE_TOL, rtol=MOE_TOL)
 
 
-def test_moe_transformer_on_a_mesh_raises(world):
-    for r in _case(world, "moe_model_raises"):
-        assert "ROADMAP §1" in r
+MOE_MESHES = {"dp2_ep2": {"dp": 2, "ep": 2}, "dp4": {"dp": 4},
+              "dp2_tp2": {"dp": 2, "tp": 2}}
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_jax_step(name):
+    """The JAX MoE step (SGD, lr 0.1) on a mesh of ``MOE_MESHES[name]``,
+    its metrics and parameters in the port's layout."""
+    s = _SETUP["s"]
+    mesh = make_mesh(MOE_MESHES[name])
+    model = JaxMoETransformer(s["moe"].config, mesh=mesh)
+    jstate, jmetrics = _jax_steps(
+        model, jax_moe_loss_fn(model, ce_chunk=64), s["moe_params"],
+        optax.sgd(0.1), mesh, [s["inputs"]["moe_batch"]])
+    want = _port_layout(MoETransformer, MoEConfig.tiny(
+        dtype=torch.float32, capacity_factor=1.0), jstate.params)
+    return jmetrics[0], want
+
+
+_SETUP: dict = {}
+
+
+def _moe_param_err(r, want) -> float:
+    """The largest |difference| of a rank's blocks from the JAX weights'."""
+    err = 0.0
+    for name, w in want.items():
+        block, split = r["params"][name]
+        for dim, _, index, size in split:
+            n = w.shape[dim] // size
+            w = np.take(w, range(index * n, (index + 1) * n), axis=dim)
+        err = max(err, float(np.abs(block - w).max()))
+    return err
+
+
+@pytest.mark.parametrize("name", sorted(MOE_MESHES))
+def test_moe_transformer_step_matches_jax(world, setup, name):
+    _SETUP["s"] = setup
+    jm, want = _moe_jax_step(name)
+    for r in _case(world, f"moe_{name}"):
+        np.testing.assert_allclose(r["loss"], jm["loss"], rtol=MOE_TOL)
+        np.testing.assert_allclose(r["grad_norm"], jm["grad_norm"],
+                                   rtol=MOE_GNORM_RTOL)
+        err = _moe_param_err(r, want)
+        assert err < MOE_TOL, f"largest parameter difference {err:.3g}"
+        if "ep" in name:
+            assert r["params"]["h.1.moe.w_up"][1] == ((0, "ep", r["params"][
+                "h.1.moe.w_up"][1][0][2], 2),)
+
+
+def test_moe_local_routing_fails_the_tolerance(world, setup):
+    """Capacity over each data rank's tokens drops other tokens than
+    capacity over the global batch on this batch (read from the JAX
+    model's own router inputs), and the port's step routing each rank's
+    tokens alone, on dp 4, must miss the JAX step's parameters by ten
+    times the tolerance on every rank."""
+    _SETUP["s"] = setup
+    model, params = setup["moe"], setup["moe_params"]
+    _, inter = model.apply({"params": params},
+                           setup["inputs"]["moe_batch"]["tokens"],
+                           capture_intermediates=True,
+                           mutable=["intermediates"])
+    x = np.asarray(inter["intermediates"]["h_1"]["ln_2"]["__call__"][0])
+    expert = (x.reshape(-1, x.shape[-1]) @ np.asarray(
+        params["h_1"]["moe"]["router"])).argmax(-1)
+
+    def kept(experts, capacity):
+        seen = np.zeros(model.config.num_experts, int)
+        out = []
+        for e in experts:
+            out.append(seen[e] < capacity)
+            seen[e] += 1
+        return np.array(out)
+
+    e_count = model.config.num_experts
+    global_kept = kept(expert, int(expert.size / e_count))
+    local_kept = np.concatenate([kept(part, int(part.size / e_count))
+                                 for part in np.split(expert, 4)])
+    assert (global_kept != local_kept).any()
+    _, want = _moe_jax_step("dp4")
+    for r in _case(world, "moe_dp4_local"):
+        assert _moe_param_err(r, want) > 10 * MOE_TOL
 
 
 def test_dryrun_multichip_8():
     results = dryrun_multichip(8, device="cpu")
     assert len(results) == 8
     assert all(r["device"] == "cpu" for r in results)
-    assert all(r["factors"] == {"dp": 4, "sp": 2} for r in results)
+    assert all(r["factors"] == {"dp": 2, "sp": 2, "tp": 2} for r in results)
     losses = {r["loss"] for r in results}
     assert len(losses) == 1 and np.isfinite(losses.pop())
+    assert all(r["pipeline"]["pp"] == 4 and r["pipeline"]["dp"] == 2
+               and np.isfinite(r["pipeline"]["sum"]) for r in results)
     assert all(r["moe"]["ep"] == 4 and np.isfinite(r["moe"]["aux"])
                for r in results)

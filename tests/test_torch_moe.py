@@ -123,7 +123,8 @@ def test_top1_dispatch_capacity_overflow():
     want = jax_top1_dispatch(jnp.asarray(logits.numpy()), 2, capacity=2)
     np.testing.assert_array_equal(dispatch.numpy(), np.asarray(want[0]))
     route = top1_route(logits, 2, capacity=2)
-    assert route.slot.tolist() == [0, 1, 4, 2]    # slot e*C + c; 4 = dump
+    assert route.slots(0, 2, 2).tolist() == [0, 1, 4, 2]  # e*C + c; 4 = dump
+    assert route.kept.tolist() == [True, True, False, True]
     assert float(route.gate[2]) == 0.0
 
 
@@ -135,8 +136,10 @@ def test_route_is_the_index_form_of_dispatch(t, e, capacity):
     route = top1_route(logits, e, capacity)
     flat = dispatch.reshape(t, e * capacity)
     kept = flat.sum(-1) > 0
-    assert torch.equal(kept, route.slot < e * capacity)
-    assert torch.equal(flat[kept].argmax(-1), route.slot[kept])
+    slot = route.slots(0, e, capacity)
+    assert torch.equal(kept, route.kept)
+    assert torch.equal(kept, slot < e * capacity)
+    assert torch.equal(flat[kept].argmax(-1), slot[kept])
     assert torch.equal(combine.reshape(t, -1).amax(-1), route.gate)
     assert torch.equal(aux, route.aux)
 

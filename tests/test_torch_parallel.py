@@ -15,8 +15,11 @@ On four gloo ranks (``ray_tpu_torch.parallel.dryrun.spawn``, cases in
 ``torch_mesh_ranks.parallel_cases``): a mesh's shape, coordinates and
 groups; ``place_params`` on ``dp 4`` broadcasting rank 0's weights to
 replicas that started apart; FSDP2 on ``fsdp 4`` splitting ``wte`` on its
-embed dimension, as ``tests/test_models.py`` checks the JAX model; and
-NotImplementedError for a tensor-parallel mesh.
+embed dimension, as ``tests/test_models.py`` checks the JAX model; on
+``fsdp 2 × tp 2`` each rank keeping its ``tp`` block of rank 0's weights,
+FSDP2 sharding that block, and each parameter's placement record; and
+NotImplementedError for a model with no tensor-parallel route (ViT) on a
+``tp`` mesh.
 """
 
 from __future__ import annotations
@@ -283,6 +286,38 @@ def test_forced_fsdp_beside_dp_matches_plain_data_parallel(world):
                                        err_msg=name)
 
 
-def test_tensor_parallel_placement_raises(world):
-    for r in _case(world, "tp_raises"):
+def _tp_block(whole: np.ndarray, split) -> np.ndarray:
+    for dim, _, index, size in split:
+        n = whole.shape[dim] // size
+        whole = np.take(whole, range(index * n, (index + 1) * n), axis=dim)
+    return whole
+
+
+def test_fsdp_beside_tp_shards_each_ranks_tp_block(world):
+    """GPT-2 tiny on fsdp 2 x tp 2, replicas started apart: the blocks
+    are rank 0's weights cut as flax's table cuts them (``qkv_kernel`` on
+    heads, ``mlp.fc`` on its output, ``mlp.proj`` on its input, ``wte``
+    on the vocabulary), FSDP2 shards the tp block on embed, and
+    ``mlp.fc.bias`` is replicated."""
+    want = models.GPT2(models.GPT2Config.tiny(), device="cpu", seed=0)
+    want = {n: p.detach().numpy() for n, p in want.named_parameters()}
+    for r in _case(world, "fsdp_tp"):
+        ps = r["params"]
+        assert ps["h.0.attn.qkv_kernel"]["split"] == (
+            (2, "tp", r["tp"], 2),)
+        assert ps["h.0.mlp.fc.weight"]["split"] == ((0, "tp", r["tp"], 2),)
+        assert ps["h.0.mlp.proj.weight"]["split"] == (
+            (1, "tp", r["tp"], 2),)
+        assert ps["wte.weight"]["split"] == ((0, "tp", r["tp"], 2),)
+        assert ps["wte.weight"]["fsdp"] == 1 and ps["wte.weight"]["dtensor"]
+        fc_bias = ps["h.0.mlp.fc.bias"]
+        assert (fc_bias["split"], fc_bias["fsdp"], fc_bias["dtensor"],
+                fc_bias["replicated"]) == ((), None, False, ("fsdp", "tp"))
+        for name, p in ps.items():
+            np.testing.assert_array_equal(
+                p["block"], _tp_block(want[name], p["split"]), err_msg=name)
+
+
+def test_tp_placement_of_a_model_without_a_tp_route_raises(world):
+    for r in _case(world, "vit_tp_raises"):
         assert "ROADMAP §1" in r

@@ -4,7 +4,8 @@ four gloo ranks on the CPU.
 One world of 4 ranks (``ray_tpu_torch.parallel.dryrun.spawn``, one torch
 thread a rank) runs every case of ``torch_mesh_ranks.ring_cases``: ring
 attention on ``sp = 4`` and on ``dp 2 × sp 2``, Ulysses on both, and the
-errors of ``make_sharded_causal_attention``. Each rank returns its block
+errors of ``make_sharded_causal_attention`` (Ulysses on a rank's tp-local
+heads that do not split over ``sp`` among them). Each rank returns its block
 of the output and the gradients of ``sum(out²)`` with respect to its
 blocks of q, k and v; the test process assembles them and holds them
 against ``ray_tpu.ops.attention``'s ring and Ulysses under ``shard_map``
@@ -114,6 +115,9 @@ def test_value_errors_match_jax(world, what):
         assert r[what] == str(want.value)
 
 
-def test_tensor_parallel_heads_raise_not_implemented(world):
+def test_ulysses_needs_this_ranks_heads_to_split_over_sp(world):
+    """On sp 2 x tp 2 a rank holds H/tp heads: 3 of them do not split
+    over sp = 2, a ValueError."""
     for r in _case(world, "errors"):
-        assert "ROADMAP §1" in r["tp"]
+        assert "3 heads of this rank do not split over sp=2" in \
+            r["ulysses_tp_heads"]

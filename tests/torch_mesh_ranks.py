@@ -2,7 +2,8 @@
 
 Each ``*_cases`` function runs in every rank of one gloo world that
 ``ray_tpu_torch.parallel.dryrun.spawn`` starts for a test file
-(``tests/test_torch_{parallel,collective,ring_attention,mesh_train}.py``):
+(``tests/test_torch_{parallel,collective,ring_attention,mesh_train,
+tensor_parallel,pipeline,checkpoint}.py``):
 it runs every case of that file and returns ``{case: result}``, a case
 that raises giving its traceback instead. The test process holds each
 rank's results against the JAX package. This module imports only torch,
@@ -87,7 +88,7 @@ def parallel_cases() -> dict:
         parameters against the same step with plain data parallelism."""
         from torch.distributed.tensor import DTensor
         from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
-        from ray_tpu_torch.parallel.sharding import _place_fsdp2
+        from ray_tpu_torch.parallel.sharding import _place_forced
         from ray_tpu_torch.train import (adamw, init_train_state,
                                          make_train_step, shard_batch)
         mesh = make_mesh({"dp": 4}, device="cpu")
@@ -99,7 +100,7 @@ def parallel_cases() -> dict:
             model = GPT2(GPT2Config.tiny(dtype=torch.float32), device="cpu",
                          seed=0)
             if forced:
-                _place_fsdp2(model, mesh)
+                _place_forced(model, mesh, ("fsdp",))
             opt = adamw(1e-3)
             state = init_train_state(model, opt, mesh=mesh)
             step = make_train_step(gpt2_loss_fn(ce_chunk=64), opt)
@@ -113,15 +114,35 @@ def parallel_cases() -> dict:
                            for n, p in model.named_parameters()}}
         return out
 
-    def tp_raises():
+    def fsdp_tp():
+        """GPT-2 tiny on fsdp 2 x tp 2: each parameter's placement, its
+        local shape, and its block of rank 0's weights."""
+        from torch.distributed.tensor import DTensor
+        mesh = make_mesh({"fsdp": 2, "tp": 2}, device="cpu")
+        model = GPT2(GPT2Config.tiny(), device="cpu",
+                     seed=dist.get_rank())        # replicas start apart
+        place_params(model, mesh)
+        out = {"tp": mesh.axis_index("tp"), "fsdp": mesh.axis_index("fsdp"),
+               "params": {}}
+        for name, p in model.named_parameters():
+            pl = model.placements[name]
+            out["params"][name] = {
+                "split": pl.split, "fsdp": pl.fsdp,
+                "replicated": pl.replicated,
+                "dtensor": isinstance(p, DTensor),
+                "block": (p.full_tensor() if isinstance(p, DTensor)
+                          else p).detach()}
+        return out
+
+    def vit_tp_raises():
+        from ray_tpu_torch.models import ViT, ViTConfig
         mesh = make_mesh({"tp": 4}, device="cpu")
-        model = GPT2.__new__(GPT2)
-        torch.nn.Module.__init__(model)
-        return _raises(lambda: place_params(model, mesh),
-                       NotImplementedError)
+        return _raises(lambda: place_params(
+            ViT(ViTConfig.tiny(), device="cpu"), mesh), NotImplementedError)
 
     return _run({"shapes": shapes, "dp_broadcast": dp_broadcast,
-                 "fsdp": fsdp, "hsdp": hsdp, "tp_raises": tp_raises})
+                 "fsdp": fsdp, "hsdp": hsdp, "fsdp_tp": fsdp_tp,
+                 "vit_tp_raises": vit_tp_raises})
 
 
 # ---------------------------------------------------------------------------
@@ -235,7 +256,8 @@ def ring_cases(inputs: dict) -> dict:
     def errors():
         sp_mesh = make_mesh({"sp": 4}, device="cpu")
         dp_mesh = make_mesh({"dp": 4}, device="cpu")
-        tp_mesh = make_mesh({"tp": 4}, device="cpu")
+        tp_mesh = make_mesh({"sp": 2, "tp": 2}, device="cpu")
+        q = torch.zeros(1, 4, 3, 8)             # 3 heads on this tp rank
         return {
             "dense_on_sp": _raises(lambda: make_sharded_causal_attention(
                 sp_mesh, impl="dense"), ValueError),
@@ -245,8 +267,9 @@ def ring_cases(inputs: dict) -> dict:
                 dp_mesh, impl="ring"), ValueError),
             "unknown": _raises(lambda: make_sharded_causal_attention(
                 dp_mesh, impl="flash"), ValueError),
-            "tp": _raises(lambda: make_sharded_causal_attention(tp_mesh),
-                          NotImplementedError),
+            "ulysses_tp_heads": _raises(
+                lambda: make_sharded_causal_attention(
+                    tp_mesh, impl="ulysses")(q, q, q), ValueError),
         }
 
     return _run({
@@ -373,11 +396,28 @@ def train_cases(inputs: dict) -> dict:
         return {"y": y, "aux": aux, "router": router.grad, "w_up": wu.grad,
                 "w_down": wd.grad, "ep": r}
 
-    def moe_model_raises():
+    def moe_model(axes, route_globally=True):
+        """One SGD step of the MoE transformer tiny (float32, capacity
+        factor 1) on ``axes``; ``route_globally=False`` hides the mesh from
+        the switch FFNs, which then route each rank's tokens alone (the
+        port before global routing)."""
         from ray_tpu_torch.models import MoEConfig, MoETransformer
-        mesh = make_mesh({"dp": 4}, device="cpu")
-        return _raises(lambda: MoETransformer(MoEConfig.tiny(), mesh=mesh),
-                       NotImplementedError)
+        from ray_tpu_torch.models.moe import SwitchFFN, moe_loss_fn
+        mesh = make_mesh(axes, device="cpu")
+        model = MoETransformer(MoEConfig.tiny(dtype=torch.float32,
+                                              capacity_factor=1.0),
+                               mesh=mesh)
+        model.load_jax_params(inputs["moe_params"])
+        if not route_globally:
+            for m in model.modules():
+                if isinstance(m, SwitchFFN):
+                    m.mesh = None
+        opt = sgd(0.1)
+        state = init_train_state(model, opt, mesh=mesh)
+        step = make_train_step(moe_loss_fn(ce_chunk=64), opt)
+        state, m = step(state, shard_batch(inputs["moe_batch"], mesh))
+        return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                "params": local_params(model)}
 
     return _run({
         "gpt2_ring": gpt2_ring,
@@ -389,5 +429,184 @@ def train_cases(inputs: dict) -> dict:
         "resnet_local_stats": lambda: resnet({"dp": 4}, False),
         "vit": vit,
         "moe": moe,
-        "moe_model_raises": moe_model_raises,
+        "moe_dp2_ep2": lambda: moe_model({"dp": 2, "ep": 2}),
+        "moe_dp4": lambda: moe_model({"dp": 4}),
+        "moe_dp2_tp2": lambda: moe_model({"dp": 2, "tp": 2}),
+        "moe_dp4_local": lambda: moe_model({"dp": 4}, False),
+    })
+
+
+def local_params(model) -> dict:
+    """``{name: (this rank's block, its split)}`` of a placed model: the
+    test process cuts the same block from the JAX weights."""
+    from torch.distributed.tensor import DTensor
+    placed = getattr(model, "placements", None) or {}
+    return {n: ((p.full_tensor() if isinstance(p, DTensor) else p).detach(),
+                placed[n].split if n in placed else ())
+            for n, p in model.named_parameters()}
+
+
+def _train(model, opt, loss_fn, mesh, batches, seq_sharded=False) -> dict:
+    from ray_tpu_torch.train import (init_train_state, make_train_step,
+                                     shard_batch)
+    state = init_train_state(model, opt, mesh=mesh)
+    step = make_train_step(loss_fn, opt)
+    metrics = []
+    for batch in batches:
+        state, m = step(state, shard_batch(batch, mesh,
+                                           seq_sharded=seq_sharded))
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "params": local_params(model)}
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_tensor_parallel.py
+# ---------------------------------------------------------------------------
+
+def tensor_parallel_cases(inputs: dict) -> dict:
+    from ray_tpu_torch.models import GPT2, GPT2Config, Llama, LlamaConfig
+    from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+    from ray_tpu_torch.models.llama import llama_loss_fn
+    from ray_tpu_torch.parallel.sharding import place_params
+    from ray_tpu_torch.train import adamw, shard_batch
+
+    def logits(model_cls, config, params, key, axes):
+        """Placed first, then loaded: ``load_jax_params`` cuts each
+        rank's block."""
+        mesh = make_mesh(axes, device="cpu")
+        model = model_cls(config, mesh=mesh, seed=0)
+        place_params(model, mesh)
+        model.load_jax_params(params)
+        batch = shard_batch({"tokens": inputs[key]}, mesh, seq_sharded=True)
+        with torch.no_grad():
+            out = model(batch["tokens"])
+        return {"logits": out, "dp": mesh.axis_index("dp"),
+                "sp": mesh.axis_index("sp"), "tp": mesh.axis_index("tp")}
+
+    def gpt2_train(axes, impl="auto"):
+        mesh = make_mesh(axes, device="cpu")
+        model = GPT2(GPT2Config.tiny(dtype=torch.float32, attn_impl=impl),
+                     mesh=mesh)
+        model.load_jax_params(inputs["gpt2_f32_params"])
+        opt = adamw(1e-3, weight_decay=0.1, mu_dtype=torch.bfloat16)
+        return _train(model, opt, gpt2_loss_fn(ce_chunk=64), mesh,
+                      inputs["gpt2_batches"], seq_sharded=True)
+
+    def llama_train(axes):
+        mesh = make_mesh(axes, device="cpu")
+        model = Llama(LlamaConfig.tiny(dtype=torch.float32,
+                                       tie_embeddings=False), mesh=mesh)
+        model.load_jax_params(inputs["llama_untied_params"])
+        opt = adamw(1e-3, weight_decay=0.1, mu_dtype=torch.bfloat16)
+        return _train(model, opt, llama_loss_fn(ce_chunk=64), mesh,
+                      inputs["gpt2_batches"][:1])
+
+    llama_cfg = LlamaConfig.tiny(dtype=torch.float32)
+    return _run({
+        "gpt2_dp2_tp2": lambda: logits(GPT2, GPT2Config.tiny(),
+                                       inputs["gpt2_params"], "gpt2_tokens",
+                                       {"dp": 2, "tp": 2}),
+        "gpt2_tp4": lambda: logits(GPT2, GPT2Config.tiny(),
+                                   inputs["gpt2_params"], "gpt2_tokens",
+                                   {"tp": 4}),
+        "gpt2_sp2_tp2_ring": lambda: logits(
+            GPT2, GPT2Config.tiny(attn_impl="ring"), inputs["gpt2_params"],
+            "gpt2_tokens", {"sp": 2, "tp": 2}),
+        "gpt2_sp2_tp2_ulysses": lambda: logits(
+            GPT2, GPT2Config.tiny(attn_impl="ulysses"),
+            inputs["gpt2_params"], "gpt2_tokens", {"sp": 2, "tp": 2}),
+        "gpt2_dp2_tp2_train": lambda: gpt2_train({"dp": 2, "tp": 2}),
+        "gpt2_tp4_train": lambda: gpt2_train({"tp": 4}),
+        "gpt2_sp2_tp2_ring_train": lambda: gpt2_train({"sp": 2, "tp": 2},
+                                                      "ring"),
+        "gpt2_fsdp2_tp2_train": lambda: gpt2_train({"fsdp": 2, "tp": 2}),
+        "llama_tp4": lambda: logits(Llama, llama_cfg, inputs["llama_params"],
+                                    "llama_tokens", {"tp": 4}),
+        "llama_dp2_tp2": lambda: logits(Llama, llama_cfg,
+                                        inputs["llama_params"],
+                                        "llama_tokens", {"dp": 2, "tp": 2}),
+        "llama_tp4_train": lambda: llama_train({"tp": 4}),
+        "llama_dp2_tp2_train": lambda: llama_train({"dp": 2, "tp": 2}),
+    })
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_pipeline.py
+# ---------------------------------------------------------------------------
+
+def pipeline_cases(inputs: dict) -> dict:
+    from ray_tpu_torch.parallel.pipeline import shard_stages, spmd_pipeline
+
+    def run(key, axes, microbatches):
+        ws, x, w_out = inputs[key]
+        mesh = make_mesh(axes, device="cpu")
+        dp, di = mesh.shape["dp"], mesh.axis_index("dp")
+        stages = shard_stages(torch.from_numpy(ws).requires_grad_(), mesh)
+        xs = _block(x, 0, di, dp).requires_grad_()
+        pipe = spmd_pipeline(lambda w, a: torch.tanh(a @ w), microbatches,
+                             mesh=mesh)
+        y = pipe(stages, xs)
+        (y * _block(w_out, 0, di, dp)).sum().backward()
+        return {"y": y, "dw": stages.grad[0], "dx": xs.grad, "dp": di,
+                "pp": mesh.axis_index("pp")}
+
+    def shapes_raise():
+        mesh = make_mesh({"pp": 4}, device="cpu")
+        return _raises(lambda: shard_stages({"w": torch.zeros(2, 3)}, mesh),
+                       ValueError)
+
+    return _run({
+        "pp4": lambda: run("pp4", {"pp": 4}, 8),
+        "dp2_pp2": lambda: run("dp2_pp2", {"dp": 2, "pp": 2}, 4),
+        "shapes_raise": shapes_raise,
+    })
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_checkpoint.py
+# ---------------------------------------------------------------------------
+
+def checkpoint_cases(inputs: dict, directory: str) -> dict:
+    from ray_tpu_torch.models import GPT2, GPT2Config
+    from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+    from ray_tpu_torch.train import (adamw, init_train_state,
+                                     make_train_step, shard_batch)
+    from ray_tpu_torch.train.checkpoint import (restore_pytree,
+                                                restore_train_state,
+                                                save_train_state)
+
+    batches = inputs["batches"]
+
+    def train(axes, restore: bool):
+        """Two AdamW steps on ``axes`` after the checkpoint (restored into
+        a model of other weights), or the first step, the save, and the
+        same two steps after it."""
+        mesh = make_mesh(axes, device="cpu")
+        model = GPT2(GPT2Config.tiny(dtype=torch.float32), mesh=mesh,
+                     seed=1 if restore else 0)
+        if not restore:
+            model.load_jax_params(inputs["params"])
+        opt = adamw(1e-3, weight_decay=0.1, mu_dtype=torch.bfloat16)
+        state = init_train_state(model, opt, mesh=mesh)
+        step = make_train_step(gpt2_loss_fn(ce_chunk=64), opt)
+        if restore:
+            restore_train_state(directory, state)
+        else:
+            step(state, shard_batch(batches[0], mesh))
+            save_train_state(state, directory)
+        at = state.step
+        losses = [float(step(state, shard_batch(b, mesh))[1]["loss"])
+                  for b in batches[1:]]
+        return {"losses": losses, "step_at_restore": at}
+
+    def whole():
+        tree = restore_pytree(directory)
+        return {k: tuple(v.shape) for k, v in tree["params"].items()}
+
+    return _run({
+        "saved_dp2_tp2": lambda: train({"dp": 2, "tp": 2}, False),
+        "restored_dp4": lambda: train({"dp": 4}, True),
+        "restored_fsdp4": lambda: train({"fsdp": 4}, True),
+        "restored_tp4": lambda: train({"tp": 4}, True),
+        "whole": whole,
     })
