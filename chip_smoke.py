@@ -175,6 +175,31 @@ exits non-zero without its result line:
    RUNTIME_TASKS no-op tasks and RUNTIME_ACTOR_CALLS calls to one actor
    (printed, not checked); the workers loaded the kernels the driver
    built (no library rebuilt).
+15. The Data library (``ray_tpu_torch.data``) feeding GPT-2 124M at batch
+   32 x 1024 from seed 0. (a) DATA_STEPS x 32 rows of 1025 token ids
+   (numpy seed 0, GPT-2's vocabulary) written with ``data.tfrecord``
+   (one int64 feature ``tokens``) into DATA_FILES TFRecord files; the
+   native scanner (``native/tfrec.cpp``) must have loaded, and it and the
+   Python codec read the same records (CRCs checked; MB/s of each).
+   (b) ``read_tfrecords(dir).map_batches(lm_batch)`` alone:
+   ``iter_batches(32, drop_last=True)`` gives exactly the numpy batches,
+   in order (rows/s and MB/s of the second pass); a ``map_batches`` probe
+   shows its block workers without torch, jax or ray_tpu and seeing
+   ``CUDA_VISIBLE_DEVICES=""``. (c) The captured step in this process fed
+   by ``ds.iterator().iter_device_batches(32)`` against the same step fed
+   the numpy batches through ``prefetch_to_device``, from the same
+   weights: losses within CAPTURE_LOSS_RTOL (bit-equal expected), the
+   batches on the card bit-equal to numpy, ``compile_count`` 1, 12
+   launches of each kernel a step; the input stall and the prefetcher's
+   produce time, the step ms beside phase 4's. (d)
+   ``TorchTrainer(data_trainer_loop, datasets={"train": ds},
+   scaling_config=ScalingConfig(num_workers=1, gpus_per_worker=1))
+   .fit()``: the rank reads ``get_dataset_shard("train")
+   .iter_device_batches(32)`` and reports each step's loss and batch
+   checksums (int64 sums of tokens and targets): the checksums equal the
+   numpy batches', the losses within CAPTURE_LOSS_RTOL of (c)'s numpy
+   feed, ``compile_count`` 1 and 12 launches a kernel a step; fit()'s
+   time to the first report and whole, beside phase 14's.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -398,6 +423,8 @@ PIPE_MICROBATCHES = 4
 RUNTIME_WAIT_S = 2.0               # a second GPU task stays pending so long
 RUNTIME_TASKS = 1000               # no-op tasks of the host rate
 RUNTIME_ACTOR_CALLS = 2000         # calls to one actor of the host rate
+DATA_STEPS = 12                    # steps (batches) of the Data feed
+DATA_FILES = 8                     # TFRecord files the rows are cut into
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -2363,8 +2390,9 @@ def trainer_loop(config: dict) -> None:
                      checkpoint=train.Checkpoint.from_directory(d))
 
 
-def runtime_phase(card: str) -> None:
-    """Phase 14: the port's runtime on the card and TorchTrainer on it."""
+def runtime_phase(card: str) -> dict:
+    """Phase 14: the port's runtime on the card and TorchTrainer on it.
+    Returns fit()'s time to the first report and its whole time."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
 
@@ -2576,6 +2604,297 @@ def runtime_phase(card: str) -> None:
                if os.path.getmtime(build.lib_path(name)) != t]
     check(not rebuilt, f"the workers loaded the kernels the driver built "
           f"(rebuilt: {rebuilt})")
+    return {"first_s": first_s, "fit_s": fit_s}
+
+
+# -- phase 15: the Data feed -------------------------------------------------
+
+
+def data_rows(vocab: int) -> np.ndarray:
+    """DATA_STEPS x TRAIN_BATCH rows of TRAIN_SEQ + 1 token ids, seed 0."""
+    return np.random.default_rng(0).integers(
+        0, vocab, (DATA_STEPS * TRAIN_BATCH, TRAIN_SEQ + 1))
+
+
+def data_batches(rows: np.ndarray) -> list[dict]:
+    """The LM batches of ``rows``, straight from numpy."""
+    toks = rows.astype(np.int32)
+    return [{"tokens": toks[i:i + TRAIN_BATCH, :-1],
+             "targets": toks[i:i + TRAIN_BATCH, 1:]}
+            for i in range(0, len(toks), TRAIN_BATCH)]
+
+
+def lm_batch(batch: dict) -> dict:
+    """The pipeline's map_batches function: a block's token rows (one
+    list a row, as read_tfrecords gives a multi-value feature) as the
+    LM's int32 tokens and targets."""
+    toks = np.stack(batch["tokens"])
+    return {"tokens": toks[:, :-1].astype(np.int32),
+            "targets": toks[:, 1:].astype(np.int32)}
+
+
+def block_probe(batch: dict) -> dict:
+    """A map_batches probe: what a block task's worker has loaded and
+    which cards it sees."""
+    loaded = sorted({m.split(".")[0] for m in sys.modules}
+                    & {"torch", "jax", "ray_tpu"})
+    n = len(batch["tokens"])
+    return {"loaded": np.asarray([",".join(loaded)] * n),
+            "cuda": np.asarray([os.environ.get("CUDA_VISIBLE_DEVICES",
+                                               "unset")] * n)}
+
+
+def batch_sums(batch) -> list[int]:
+    """int64 sums of a batch's tokens and targets (numpy or tensors)."""
+    return [int(batch[k].to(torch.int64).sum()) if isinstance(
+        batch[k], torch.Tensor) else int(batch[k].astype(np.int64).sum())
+        for k in ("tokens", "targets")]
+
+
+def fed_steps(weights: dict, feed, timed_from: int = 1) -> dict:
+    """GPT-2 124M from ``weights`` through ``make_train_step`` with the
+    LM optimizer, one step a batch of ``feed`` (an iterator of batches on
+    the card, with its ``DevicePrefetcher`` as ``feed.prefetcher`` or
+    ``feed`` itself): the losses, each batch (a copy on the card), the
+    launch counts (counts set to 0 just before, read just after), and the
+    host clock and input stall over the steps after ``timed_from``, the
+    first of which warms up and captures the step."""
+    pf = getattr(feed, "prefetcher", feed)
+    model = GPT2(GPT2Config.small(), seed=1)
+    load_weights(model, weights)
+    opt = lm_opt()
+    state = init_train_state(model, opt)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt,
+                           grad_norm=False)
+    losses, seen = [], []
+    fa.reset_launch_counts()
+    for i, batch in enumerate(feed):
+        if i == timed_from:
+            torch.cuda.synchronize()
+            t0, stall0 = time.perf_counter(), pf.stall_s
+        seen.append({k: v.clone() for k, v in batch.items()})
+        losses.append(step(state, batch)[1]["loss"])
+    losses = [float(x) for x in losses]     # waits for the device
+    wall = time.perf_counter() - t0
+    run = {"losses": losses, "seen": seen, "counts": fa.launch_counts(),
+           "n_steps": len(losses), "compile_count": compile_count(step),
+           "donated": buffers_donated(step, state),
+           "step_ms": wall / (len(losses) - timed_from) * 1e3,
+           "stall_s": pf.stall_s - stall0, "wall_s": wall,
+           "produce_s": pf.produce_s, "batches": pf.batches}
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return run
+
+
+def data_trainer_loop(config: dict) -> None:
+    """TorchTrainer's loop on the Data feed: one NCCL rank, GPT-2 124M
+    from the weights in the object store, one step a batch of
+    ``get_dataset_shard("train").iter_device_batches``, each step's loss
+    and batch checksums reported."""
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    t_start = time.time()
+    dev = initialize()
+    model = GPT2(GPT2Config.small(), seed=1, device=dev)
+    load_weights(model, ray_tpu_torch.get(config["weights"]))
+    opt = lm_opt()
+    state = init_train_state(model, opt)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt,
+                           grad_norm=False)
+    feed = train.get_dataset_shard("train").iter_device_batches(TRAIN_BATCH)
+    fa.reset_launch_counts()
+    for batch in feed:
+        sums = batch_sums(batch)
+        loss = float(step(state, batch)[1]["loss"])
+        train.report({"loss": loss, "sums": sums, "t": time.time()})
+    pf = feed.prefetcher
+    train.report({"counts": fa.launch_counts(),
+                  "compile_count": compile_count(step),
+                  "donated": buffers_donated(step, state),
+                  "stall_s": pf.stall_s, "produce_s": pf.produce_s,
+                  "backend": dist.get_backend(), "device": str(dev),
+                  "t_start": t_start, "t": time.time()})
+
+
+@contextlib.contextmanager
+def python_tfrecord_reader():
+    """``data.tfrecord.read_records`` through its pure-Python codec."""
+    from ray_tpu_torch.native import tfrec
+    get_lib = tfrec.get_lib
+    tfrec.get_lib = lambda: None
+    try:
+        yield
+    finally:
+        tfrec.get_lib = get_lib
+
+
+def data_phase(card: str, main_run: dict, runtime: dict) -> None:
+    """Phase 15: the Data library on the port's runtime feeding GPT-2
+    124M, in this process and through TorchTrainer(datasets=)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import data
+    from ray_tpu_torch.data import tfrecord
+    from ray_tpu_torch.native import tfrec
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+
+    cfg = GPT2Config.small()
+    rows = data_rows(cfg.vocab_size)
+    want = data_batches(rows)
+    want_sums = [batch_sums(b) for b in want]
+    n = cfg.n_layer
+    want_captures = 1 if CAPTURE else None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as d:
+        # (a) The files, and both TFRecord readers on them.
+        t0 = time.perf_counter()
+        for f, part in enumerate(np.array_split(rows, DATA_FILES)):
+            tfrecord.write_records(
+                os.path.join(d, f"part-{f:05d}.tfrecord"),
+                [tfrecord.build_example({"tokens": r.tolist()})
+                 for r in part])
+        write_s = time.perf_counter() - t0
+        paths = sorted(os.path.join(d, f) for f in os.listdir(d))
+        file_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        check(tfrec.get_lib() is not None, "the native TFRecord scanner "
+              "(native/tfrec.cpp) built and loaded")
+        t0 = time.perf_counter()
+        native = [list(tfrecord.read_records(p, verify=True)) for p in paths]
+        native_s = time.perf_counter() - t0
+        with python_tfrecord_reader():
+            t0 = time.perf_counter()
+            python = [list(tfrecord.read_records(p, verify=True))
+                      for p in paths]
+            python_s = time.perf_counter() - t0
+        check(native == python and sum(map(len, native)) == len(rows),
+              "the native and Python readers give the same records")
+        print(f"data (a) {len(rows)} rows of {TRAIN_SEQ + 1} token ids in "
+              f"{DATA_FILES} TFRecord files, {file_mb:.1f} MB, written in "
+              f"{write_s:.2f} s; read with CRCs checked: native scanner "
+              f"{file_mb / native_s:.1f} MB/s, Python codec "
+              f"{file_mb / python_s:.1f} MB/s, the same records; card "
+              f"{card}", flush=True)
+
+        # (b) The pipeline alone.
+        rt.init()
+        try:
+            ds = data.read_tfrecords(d).map_batches(lm_batch)
+            passes = []
+            for _ in range(2):      # the first pass starts the workers
+                t0 = time.perf_counter()
+                got = list(ds.iterator().iter_batches(TRAIN_BATCH,
+                                                      drop_last=True))
+                passes.append(time.perf_counter() - t0)
+                check(len(got) == DATA_STEPS and all(
+                    g[k].dtype == np.int32 and np.array_equal(g[k], w[k])
+                    for g, w in zip(got, want) for k in w),
+                    "the pipeline's batches are the numpy batches, in order")
+            probes = data.read_tfrecords(d).map_batches(block_probe
+                                                        ).take_all()
+            seen = {(p["loaded"], p["cuda"]) for p in probes}
+            out_mb = sum(v.nbytes for b in want for v in b.values()) / 1e6
+            print(f"data (b) read_tfrecords -> map_batches(lm) -> "
+                  f"iter_batches({TRAIN_BATCH}): the numpy batches "
+                  f"bit-equal; {len(rows) / passes[1]:.1f} rows/s, "
+                  f"{file_mb / passes[1]:.1f} MB/s of files, "
+                  f"{out_mb / passes[1]:.1f} MB/s of batches ({passes[1]:.2f}"
+                  f" s; the first pass, workers starting, {passes[0]:.2f} s);"
+                  f" block workers loaded {sorted(seen)} (modules, "
+                  f"CUDA_VISIBLE_DEVICES); card {card}", flush=True)
+            check(seen == {("", "")}, "block tasks run in workers without "
+                  "torch, jax or ray_tpu that see no card")
+
+            # (c) In process: the Data feed against the numpy feed.
+            model = GPT2(cfg, seed=0)
+            weights = numpy_weights(model)
+            del model
+            torch.cuda.empty_cache()
+            dev = default_device()
+            numpy_run = fed_steps(weights, prefetch_to_device(iter(want), dev))
+            data_run = fed_steps(weights,
+                                 ds.iterator().iter_device_batches(
+                                     TRAIN_BATCH))
+        finally:
+            rt.shutdown()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            data_run["losses"], numpy_run["losses"], strict=True))
+        equal = all(torch.equal(g[k].cpu(), torch.from_numpy(w[k]))
+                    for g, w in zip(data_run["seen"], want) for k in w)
+        stall_share = data_run["stall_s"] / data_run["wall_s"]
+        print(f"data (c) GPT-2 124M B={TRAIN_BATCH} T={TRAIN_SEQ}, "
+              f"{DATA_STEPS} steps fed by iter_device_batches: losses "
+              f"{data_run['losses']} vs fed numpy through prefetch_to_device "
+              f"{numpy_run['losses']}, bit-equal "
+              f"{data_run['losses'] == numpy_run['losses']}, largest relative "
+              f"difference {rel:.3g} (limit {CAPTURE_LOSS_RTOL}); batches on "
+              f"the card bit-equal to numpy {equal}; step "
+              f"{data_run['step_ms']:.2f} ms vs the numpy feed's "
+              f"{numpy_run['step_ms']:.2f} ms and phase 4's static batch "
+              f"{main_run['step_ms']:.2f} ms (over steps 2-{DATA_STEPS}); "
+              f"input stall {data_run['stall_s'] * 1e3:.2f} ms of "
+              f"{data_run['wall_s'] * 1e3:.1f} ({stall_share:.2%}; the numpy "
+              f"feed's {numpy_run['stall_s'] * 1e3:.2f} ms), produce_s "
+              f"{data_run['produce_s']:.3f} s for {data_run['batches']} "
+              f"batches (the numpy feed's {numpy_run['produce_s']:.3f} s); "
+              f"compile_count {data_run['compile_count']}; launches "
+              f"{data_run['counts']}; card {card}", flush=True)
+        check(rel <= CAPTURE_LOSS_RTOL, "the Data feed's losses match the "
+              "numpy feed's")
+        check(equal, "the Data feed's batches are the numpy batches")
+        for run in (data_run, numpy_run):
+            check(run["n_steps"] == DATA_STEPS
+                  and run["compile_count"] == want_captures
+                  and run["donated"], f"{DATA_STEPS} steps, captured "
+                  f"{want_captures} time(s), buffers donated")
+            check_counts(run, {name: n for name in SQUARE},
+                         "the Data feed" if run is data_run else
+                         "the numpy feed")
+
+        # (d) TorchTrainer(datasets=) with one NCCL worker on the card.
+        storage = tempfile.mkdtemp(prefix="chip_smoke_data_train_")
+        rt.init()
+        try:
+            ds = data.read_tfrecords(d).map_batches(lm_batch)
+            trainer = TorchTrainer(
+                data_trainer_loop,
+                train_loop_config={"weights": rt.put(weights)},
+                datasets={"train": ds},
+                scaling_config=ScalingConfig(num_workers=1,
+                                             gpus_per_worker=1),
+                run_config=RunConfig(name="gpt2_data", storage_path=storage))
+            t_fit = time.time()
+            result = trainer.fit()
+            fit_s = time.time() - t_fit
+        finally:
+            rt.shutdown()
+            shutil.rmtree(storage, ignore_errors=True)
+    check(result.error is None, f"fit() failed: {result.error}")
+    steps, final = result.metrics_history[:-1], result.metrics
+    first_s = steps[0]["t"] - t_fit if steps else float("nan")
+    losses = [m["loss"] for m in steps]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        losses, numpy_run["losses"], strict=True))
+    print(f"data (d) TorchTrainer(datasets={{'train': ds}}).fit(), 1 worker "
+          f"x 1 GPU ({final['backend']} on {final['device']}), each rank "
+          f"reading get_dataset_shard('train').iter_device_batches("
+          f"{TRAIN_BATCH}): batch checksums equal to numpy's "
+          f"{[m['sums'] for m in steps] == want_sums}; losses {losses} vs the "
+          f"numpy feed's (relative {rel:.3g}, limit {CAPTURE_LOSS_RTOL}); "
+          f"compile_count {final['compile_count']}; launches "
+          f"{final['counts']}; input stall {final['stall_s'] * 1e3:.2f} ms, "
+          f"produce_s {final['produce_s']:.3f} s; fit() to the first report "
+          f"{first_s:.1f} s (to the loop's start "
+          f"{final['t_start'] - t_fit:.1f} s), whole fit() {fit_s:.1f} s "
+          f"(phase 14's: {runtime['first_s']:.1f} s and "
+          f"{runtime['fit_s']:.1f} s); card {card}", flush=True)
+    check([m["sums"] for m in steps] == want_sums, "each trainer batch's "
+          "checksums are the numpy batch's")
+    check(rel <= CAPTURE_LOSS_RTOL, "the trainer's losses match the numpy "
+          "feed's")
+    check(final["backend"] == "nccl" and final["compile_count"] ==
+          want_captures and final["donated"],
+          "the trainer's rank is NCCL and its step captured once")
+    check_counts({"n_steps": DATA_STEPS, "counts": final["counts"]},
+                 {name: n for name in SQUARE}, "the TorchTrainer Data feed")
 
 
 def plant_fault(name: str) -> str:
@@ -2734,8 +3053,12 @@ def run_all(dev, card: str) -> int:
     tp_phase(mesh, plain, card)
     torch.cuda.empty_cache()
     t14 = time.perf_counter()
-    runtime_phase(card)
+    runtime = runtime_phase(card)
     print(f"runtime: phase 14 {time.perf_counter() - t14:.1f} s; card "
+          f"{card}", flush=True)
+    t15 = time.perf_counter()
+    data_phase(card, main_run, runtime)
+    print(f"data: phase 15 {time.perf_counter() - t15:.1f} s; card "
           f"{card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)

@@ -4,9 +4,9 @@ A second package beside ``ray_tpu`` (the JAX reference, which it never
 imports). It holds the models (``models``), attention on hand-written
 CUDA flash kernels (``ops``), the train step, optimizers, checkpoints
 and the trainer (``train``), the mesh and its collectives (``parallel``,
-``collective``), and the single-node core runtime (``core``): tasks,
+``collective``), the single-node core runtime (``core``): tasks,
 actors, the shared-memory object store and placement groups, with the
-GPU as a scheduler resource.
+GPU as a scheduler resource, and the Data library on it (``data``).
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.

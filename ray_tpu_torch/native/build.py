@@ -1,10 +1,12 @@
-"""Build the native shared-memory store (g++; ctypes ABI, no pybind11).
+"""Build the native library (g++; ctypes ABI, no pybind11): the
+shared-memory store (``store.cpp``) and the TFRecord scanner
+(``tfrec.cpp``, the Data library's frame walk and crc32c).
 
 Host C++, not a kernel. Compiles lazily into
-``ray_tpu_torch/native/_build/`` on first use; rebuilt when the source
+``ray_tpu_torch/native/_build/`` on first use; rebuilt when a source
 is newer than the library. Safe under concurrent processes (atomic
-rename). The JAX package's other native sources (``channel.cpp`` for
-compiled DAGs, ``tfrec.cpp`` for the Data library) are not ported yet.
+rename). The JAX package's ``channel.cpp`` (compiled DAGs) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ import tempfile
 
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_SRC_DIR, "_build")
-_SOURCES = ["store.cpp"]
-_LIB = "libraytpu_torch_store.so"
+_SOURCES = ["store.cpp", "tfrec.cpp"]
+_LIB = "libraytpu_torch_native.so"
 
 
 def lib_path() -> str:

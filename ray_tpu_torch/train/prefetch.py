@@ -175,15 +175,39 @@ def _tensors(tree: Any) -> Iterator[torch.Tensor]:
 def _to_device(tree: Any, device: torch.device) -> Any:
     """Copy every array or tensor leaf of ``tree`` to ``device``: numpy
     arrays become tensors, and CUDA copies go from pinned host memory
-    without blocking the host."""
+    without blocking the host. A numpy array is copied straight into a
+    pinned buffer (one host copy, also from a read-only array that the
+    object store handed out); a ``dtype=object`` array stays on the
+    host as it is."""
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
-    t = torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    if isinstance(tree, np.ndarray):
+        if tree.dtype == object:
+            return tree
+        if device.type == "cuda":
+            return _pinned(tree).to(device, non_blocking=True)
+        if not tree.flags.writeable:
+            tree = tree.copy()     # torch rejects read-only arrays
+        return torch.from_numpy(tree)
+    if device.type == "cuda" and tree.device.type == "cpu":
+        return tree.pin_memory().to(device, non_blocking=True)
+    return tree.to(device)
+
+
+def _pinned(arr: np.ndarray) -> torch.Tensor:
+    """A copy of ``arr`` in pinned (page-locked) host memory, the source
+    of an asynchronous copy to the card. The caching host allocator
+    keeps the buffer until the copies that read it have run."""
+    host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype),
+                       pin_memory=True)
+    np.copyto(host.numpy(), arr)
+    return host
+
+
+def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
 def prefetch_to_device(batches: Iterable, device=None, *, depth: int = 2,

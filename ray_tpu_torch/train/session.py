@@ -132,10 +132,14 @@ def get_checkpoint():
 def get_dataset_shard(name: str = "train"):
     """THIS worker's shard of the trainer's ``datasets[name]``
     (reference: ray.train.get_dataset_shard over
-    Dataset.streaming_split). The Data library is not ported yet."""
-    raise NotImplementedError(
-        "get_dataset_shard reads the Data library, which is not ported "
-        "to ray_tpu_torch yet (ROADMAP.md §1)")
+    Dataset.streaming_split): a ``data.DataIterator``; feed the step
+    with its ``iter_device_batches``."""
+    shards = get_context().dataset_shards
+    if name not in shards:
+        raise KeyError(
+            f"no dataset shard {name!r}: pass datasets={{{name!r}: "
+            f"ds}} to the trainer (available: {sorted(shards)})")
+    return shards[name]
 
 
 def get_context() -> TrainContext:

@@ -345,13 +345,17 @@ def shard_batch(batch, mesh, seq_sharded: bool = False,
     dimension split over ``dp`` and ``fsdp``, the sequence over ``sp``
     when ``seq_sharded`` (for ring or Ulysses attention), as
     :func:`batch_spec` says. ``batch_dim`` marks how many leading axes
-    precede the batch axis. ValueError when a split does not divide."""
+    precede the batch axis. ValueError when a split does not divide.
+    The block is cut on the host and, on the card, copied from pinned
+    host memory without blocking the host (``train.prefetch``'s
+    placement: on the prefetcher's side stream when it places, else on
+    the current stream, which orders the consumer after the copy)."""
+    from ray_tpu_torch.train.prefetch import _to_device
 
-    def put(x):
-        x = x if isinstance(x, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(x))
+    def cut(x):
+        dims = x.dim() if isinstance(x, torch.Tensor) else x.ndim
         spec = batch_spec(mesh, seq_sharded=seq_sharded
-                          and x.dim() >= 2 + batch_dim, batch_dim=batch_dim)
+                          and dims >= 2 + batch_dim, batch_dim=batch_dim)
         for dim, axes in enumerate(spec):
             if axes is None:
                 continue
@@ -360,17 +364,20 @@ def shard_batch(batch, mesh, seq_sharded: bool = False,
                 raise ValueError(f"dimension {dim} of {tuple(x.shape)} does "
                                  f"not split over {axes} ({n} ranks)")
             size = x.shape[dim] // n
-            x = x.narrow(dim, mesh.axis_index(axes) * size, size)
-        return x.contiguous().to(mesh.device)
+            start = mesh.axis_index(axes) * size
+            x = (x.narrow(dim, start, size) if isinstance(x, torch.Tensor)
+                 else x[(slice(None),) * dim + (slice(start, start + size),)])
+        return x.contiguous() if isinstance(x, torch.Tensor) else \
+            np.ascontiguousarray(x)
 
     def walk(tree):
         if isinstance(tree, dict):
             return {k: walk(v) for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
             return type(tree)(walk(v) for v in tree)
-        return put(tree)
+        return cut(tree)
 
-    return walk(batch)
+    return _to_device(walk(batch), torch.device(mesh.device))
 
 
 def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,

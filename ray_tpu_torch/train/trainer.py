@@ -13,9 +13,11 @@ per-worker loop → report()/checkpoint → poll. Here:
 - a loop builds its mesh and step over that group
   (``parallel.make_mesh``, ``train.make_train_step``);
 - failure handling restarts the whole gang from the latest checkpoint,
-  driven by FailureConfig(max_failures).
-
-``datasets=`` needs the Data library, which is not ported yet.
+  driven by FailureConfig(max_failures);
+- ``datasets=`` travel to every worker as ``Dataset.streaming_split``
+  iterators (or one whole-dataset iterator each, per
+  ``DataConfig.datasets_to_split``); a worker reads its own through
+  ``train.get_dataset_shard(name)``.
 """
 
 from __future__ import annotations
@@ -60,8 +62,9 @@ class TorchTrainer:
 
     For the device hot loop, build the step with
     ``train.make_train_step`` (one captured CUDA graph on the card) and
-    feed it from ``train.prefetch_to_device``, so host input staging
-    overlaps device compute.
+    feed it from ``train.prefetch_to_device``, or with ``datasets=``
+    from ``train.get_dataset_shard(name).iter_device_batches(batch)``,
+    so host input staging overlaps device compute.
     """
 
     def __init__(self,
@@ -72,14 +75,14 @@ class TorchTrainer:
                  run_config: RunConfig | None = None,
                  datasets: dict | None = None,
                  dataset_config=None):
-        if datasets:
-            raise NotImplementedError(
-                "datasets= needs the Data library, which is not ported "
-                "to ray_tpu_torch yet (ROADMAP.md §1)")
         self.train_loop = train_loop_per_worker
         self.loop_config = train_loop_config or {}
         self.scaling = scaling_config or ScalingConfig()
         self.run_config = run_config or RunConfig()
+        # Dataset name -> ray_tpu_torch.data.Dataset, split across the
+        # workers, which read via train.get_dataset_shard(name)
+        # (reference: DataParallelTrainer datasets= + DataConfig).
+        self.datasets = datasets or {}
         from ray_tpu_torch.train.config import DataConfig
         self.dataset_config = dataset_config or DataConfig()
 
@@ -201,6 +204,16 @@ class TorchTrainer:
                 "trial_dir": trial_dir,
                 "restored_checkpoint_dir": restored,
             }
+            if self.datasets:
+                # DataConfig.datasets_to_split: "all" or a list of
+                # names; unsplit datasets replicate — every worker
+                # iterates the full stream (reference: DataConfig).
+                to_split = self.dataset_config.datasets_to_split
+                ctx_kwargs["dataset_shards_all"] = {
+                    name: (ds.streaming_split(group.num_workers)
+                           if (to_split == "all" or name in to_split)
+                           else [ds.iterator()] * group.num_workers)
+                    for name, ds in self.datasets.items()}
             group.run("start_loop", (self.train_loop, self.loop_config),
                       ctx_kwargs, timeout=120)
 

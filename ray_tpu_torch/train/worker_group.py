@@ -98,10 +98,19 @@ class TrainWorker:
             TrainContext, init_session,
         )
         fn, loop_config = fn_and_config
+        context_kwargs = dict(context_kwargs)
+        # Trainer datasets arrive as the FULL per-name shard lists
+        # (identical args to every worker); each worker keeps only
+        # its rank's DataIterator.
+        shards_all = context_kwargs.pop("dataset_shards_all", None)
+        shards = ({name: lst[self.rank]
+                   for name, lst in shards_all.items()}
+                  if shards_all else {})
         ctx = TrainContext(world_rank=self.rank,
                            world_size=self.world_size,
                            local_rank=self.rank,
                            loop_config=loop_config or {},
+                           dataset_shards=shards,
                            **context_kwargs)
         self._session = init_session(ctx)
 

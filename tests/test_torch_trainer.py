@@ -12,6 +12,16 @@
   1e-6 (the same arithmetic: equal in practice).
 - A loop that raises once, with ``FailureConfig(max_failures=1)``,
   restarts from its newest checkpoint in both packages.
+- ``datasets=``: two workers (gloo on the port) read a ``train``
+  dataset of TFRecord files split across them and an unsplit ``eval``
+  (``DataConfig(datasets_to_split=["train"])``) through
+  ``get_dataset_shard(name).iter_device_batches``, each rank training
+  its own GPT-2 tiny from the same weights: per rank the same batches as
+  ``JaxTrainer``'s and losses within 2e-5 relative; ``eval`` whole on
+  both ranks; the port's mesh route (a ``dp`` mesh of the two ranks)
+  gives each rank its half of every batch. ``iter_device_batches``
+  yields CPU tensors equal to the numpy batches with ``device="cpu"``
+  and raises without a card otherwise.
 
 Each package's runtime starts once for the file (the JAX package's
 first, shut down before the port's starts).
@@ -29,10 +39,13 @@ import torch
 jax = pytest.importorskip("jax")
 pytest.importorskip("optax")
 
+import torch_data_programs as data_programs  # noqa: E402
 import torch_runtime_programs as programs  # noqa: E402
 
 STEPS = 3
 LOSS_RTOL = 2e-5        # test_torch_train_step.py's, per step
+DATA_TRAIN_ROWS = 2 * STEPS * 4   # 2 ranks x STEPS batches of 4
+DATA_EVAL_ROWS = 8
 DP_LOSS_RTOL = 1e-6
 
 
@@ -76,6 +89,27 @@ def _fit(pkg: str, trainer_cls: str, loop, config: dict, storage: str,
     return trainer.fit()
 
 
+def _fit_data(pkg: str, trainer_cls: str, config: dict, storage: str,
+              data_dir: str) -> object:
+    """``data_loop`` on two workers over the TFRecord files of
+    ``data_dir``: ``train`` split, ``eval`` replicated."""
+    train = importlib.import_module(pkg + ".train")
+    data = importlib.import_module(pkg + ".data")
+    cpu = {"gpus_per_worker": 0} if pkg == "ray_tpu_torch" else {}
+
+    def lm(name):
+        return data.read_tfrecords(os.path.join(data_dir, name)
+                                   ).map_batches(data_programs.lm_batch_of)
+    trainer = getattr(train, trainer_cls)(
+        data_programs.data_loop, train_loop_config=dict(config, pkg=pkg),
+        scaling_config=train.ScalingConfig(num_workers=2, **cpu),
+        run_config=train.RunConfig(name=f"{pkg}_data",
+                                   storage_path=storage),
+        datasets={"train": lm("train"), "eval": lm("eval")},
+        dataset_config=train.DataConfig(datasets_to_split=["train"]))
+    return trainer.fit()
+
+
 def _layout(result) -> dict:
     """Names in the trial directory and in its newest checkpoint."""
     return {"trial": sorted(os.listdir(result.path)),
@@ -95,7 +129,17 @@ def runs(tmp_path_factory) -> dict:
     one = {"params": params, "batch": batch, "steps": STEPS,
            "device": "cpu"}
     crash = {"steps": 4, "crash_at": 1}
-    out = {}
+    data_dir = str(tmp_path_factory.mktemp("trainer_data"))
+    data_out = str(tmp_path_factory.mktemp("trainer_data_out"))
+    codec = importlib.import_module("ray_tpu_torch.data.tfrecord")
+    for name, rows, files in (("train", DATA_TRAIN_ROWS, 4),
+                              ("eval", DATA_EVAL_ROWS, 2)):
+        data_programs.write_lm_files(
+            codec, os.path.join(data_dir, name),
+            data_programs.lm_rows(rows, 256, 64, seed=len(name)), files)
+    fed = {"params": params, "lr": programs.LR, "wd": programs.WD,
+           "out": data_out}
+    out = {"data_dir": data_dir, "data_out": data_out}
     ray_tpu.init(num_cpus=4)
     try:
         out["jax_gpt2"] = _fit("ray_tpu", "JaxTrainer",
@@ -105,6 +149,8 @@ def runs(tmp_path_factory) -> dict:
                                 programs.crash_once_loop,
                                 dict(crash, pkg="ray_tpu"), storage,
                                 "jax_crash", max_failures=1)
+        out["jax_data"] = _fit_data("ray_tpu", "JaxTrainer", fed, storage,
+                                    data_dir)
     finally:
         ray_tpu.shutdown()
     ray_tpu_torch.init(num_cpus=4)
@@ -124,6 +170,17 @@ def runs(tmp_path_factory) -> dict:
                 programs.torch_gpt2_loop).fit()
         except RuntimeError as e:
             out["default_on_no_card"] = e
+        out["torch_data"] = _fit_data("ray_tpu_torch", "TorchTrainer", fed,
+                                      storage, data_dir)
+        it = ray_tpu_torch.data.read_tfrecords(
+            os.path.join(data_dir, "eval")).map_batches(
+                data_programs.lm_batch_of).iterator()
+        out["cpu_feed"] = list(it.iter_device_batches(
+            data_programs.LM_BATCH, device="cpu"))
+        try:
+            it.iter_device_batches(data_programs.LM_BATCH)
+        except RuntimeError as e:
+            out["feed_on_no_card"] = e
     finally:
         ray_tpu_torch.shutdown()
     out["spawn_dp2"] = spawn(programs.torch_gpt2_rank, 2, (one,),
@@ -210,10 +267,86 @@ def test_failed_loop_restarts_from_its_checkpoint(runs, pkg):
     assert os.path.basename(result.checkpoint_dir) == "checkpoint_000003"
 
 
-def test_trainer_refuses_datasets():
-    from ray_tpu_torch.train import TorchTrainer
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TorchTrainer(programs.torch_gpt2_loop, datasets={"train": []})
+def _rank_files(runs, pkg: str) -> list[dict]:
+    import json
+    out = []
+    for rank in (0, 1):
+        with open(os.path.join(runs["data_out"],
+                               f"{pkg}_rank{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _numpy_batches(name: str, shard: int | None = None) -> list[dict]:
+    """The LM batches of dataset ``name`` straight from numpy: the whole
+    dataset, or the rows of blocks (files) ``shard``, ``shard + 2``, ...
+    as ``streaming_split(2)`` gives rank ``shard``."""
+    rows = data_programs.lm_rows(
+        DATA_TRAIN_ROWS if name == "train" else DATA_EVAL_ROWS, 256, 64,
+        seed=len(name)).astype(np.int32)
+    if shard is not None:
+        rows = np.concatenate(np.array_split(rows, 4)[shard::2])
+    b = data_programs.LM_BATCH
+    return [{"tokens": rows[i:i + b, :-1], "targets": rows[i:i + b, 1:]}
+            for i in range(0, len(rows), b)]
+
+
+def test_dataset_shards_give_each_rank_the_jax_trainers_batches(runs):
+    for pkg in ("jax", "torch"):
+        assert runs[f"{pkg}_data"].error is None, runs[f"{pkg}_data"].error
+    jax_ranks = _rank_files(runs, "ray_tpu")
+    torch_ranks = _rank_files(runs, "ray_tpu_torch")
+    for rank in (0, 1):
+        want = [data_programs._checksums(b)
+                for b in _numpy_batches("train", rank)]
+        assert len(want) == STEPS
+        assert torch_ranks[rank]["sums"] == jax_ranks[rank]["sums"] == want
+
+
+def test_losses_on_dataset_shards_match_jax_trainer(runs):
+    jax_ranks = _rank_files(runs, "ray_tpu")
+    torch_ranks = _rank_files(runs, "ray_tpu_torch")
+    for want, got in zip(jax_ranks, torch_ranks):
+        assert len(got["losses"]) == len(want["losses"]) == STEPS
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=LOSS_RTOL)
+    assert torch_ranks[0]["losses"] != torch_ranks[1]["losses"]
+    reported = [m["loss"] for m in runs["torch_data"].metrics_history]
+    assert reported == torch_ranks[0]["losses"]
+
+
+def test_unsplit_dataset_replicates_to_both_ranks(runs):
+    want = [data_programs._checksums(b) for b in _numpy_batches("eval")]
+    for pkg in ("ray_tpu", "ray_tpu_torch"):
+        assert [r["eval"] for r in _rank_files(runs, pkg)] == [want, want]
+
+
+def test_mesh_route_gives_each_rank_its_half(runs):
+    half = data_programs.LM_BATCH // 2
+    for rank, r in enumerate(_rank_files(runs, "ray_tpu_torch")):
+        want = [data_programs._checksums(
+            {k: v[rank * half:(rank + 1) * half] for k, v in b.items()})
+            for b in _numpy_batches("eval")]
+        assert r["halves"] == want
+        assert r["half_types"] == [f"Tensor:cpu:({half}, 64)"]
+        # A block task submitted from inside the train worker ran in
+        # another process, which holds no card.
+        assert r["probe"]["cuda"] == "" and r["probe"]["loaded"] == ""
+        assert int(r["probe"]["pid"]) != r["loop_pid"]
+
+
+def test_iter_device_batches_on_the_cpu_and_without_a_card(runs):
+    got = runs["cpu_feed"]
+    want = _numpy_batches("eval")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert list(g) == ["tokens", "targets"]
+        for k in w:
+            assert isinstance(g[k], torch.Tensor) and g[k].device.type == \
+                "cpu" and g[k].dtype == torch.int32
+            assert np.array_equal(g[k].numpy(), w[k])
+    err = runs.get("feed_on_no_card")
+    assert err is not None and "no CUDA device" in str(err), err
 
 
 def test_trainer_asks_for_the_card_by_default(runs):
