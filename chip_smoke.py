@@ -4,6 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --eager                 (every train step eager)
     python3 chip_smoke.py --plant-fault KERNEL    (any kernel of FAULTS)
+    python3 chip_smoke.py --cards 4               (phase 16, on four cards)
+    python3 chip_smoke.py --cards 4 --plant-fault ring_dkv_home
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -147,7 +149,17 @@ exits non-zero without its result line:
    launches per kernel per block. (f) Checkpoint: (a)'s
    state saved after 2 steps (``train.checkpoint.save_train_state``) and
    restored into a fresh state of other weights; the next 2 losses equal
-   to the uninterrupted run's bit for bit. (g) Phase 12 (e).
+   to the uninterrupted run's bit for bit. (g) Phase 12 (e). (h) ViT-B/16
+   and ResNet-50 at batch 128, 224x224, with their tp routes forced on the
+   one-rank ``tp`` axis (ViT: ``mlp_proj``'s rows, ``copy_to`` and
+   ``reduce_from``; ResNet: every convolution's output channels, the
+   channels gathered before each convolution, BatchNorm's slices of its
+   scale and bias through ``copy_to`` and its statistics gathered, the
+   pooled channels through ``gather_from``), captured: the first
+   CAPTURE_STEPS losses
+   against the mesh-less captured step's (CAPTURE_LOSS_RTOL; at one rank
+   every collective is a copy), ``compile_count`` 1, buffers donated,
+   ResNet's running statistics equal; step ms beside the mesh-less step's.
 
 14. The runtime (``ray_tpu_torch.init``, tasks, actors, the object store,
    the GPU as a resource) and ``TorchTrainer`` on it, after the driver
@@ -200,6 +212,38 @@ exits non-zero without its result line:
    numpy batches', the losses within CAPTURE_LOSS_RTOL of (c)'s numpy
    feed, ``compile_count`` 1 and 12 launches a kernel a step; fit()'s
    time to the first report and whole, beside phase 14's.
+
+16. Multi-card, only under ``--cards N`` (N >= 4 cards visible, else it
+   exits 1 naming the count; the plain run prints that it needs them):
+   the build, then ``parallel.multicard.run`` spawns N NCCL ranks, rank r
+   on ``cuda:r``, each printing its card's UUID. Every rank runs, on its
+   own card, the one-card mesh-less captured step of each model from seed
+   0 on the global batch, and holds each mesh route against it within the
+   limits of ``parallel.multicard`` (each with its rounding argument): (a)
+   GPT-2 124M at 32 x 1024 on ``dp N``, the flat-bucket all-reduce in the
+   graph, the first CAPTURE_STEPS losses and gradient norms; (b)
+   TinyLlama 1.1B at 8 x 2048 on ``fsdp N``, eager by rule, peak memory
+   per rank below the one-card step's; (c) GPT-2 with ring attention and
+   TinyLlama with Ulysses on ``sp N``: losses and every layer's step-0
+   gradient, and the ring's k, v hop and dk, dv rotation alone; (d) GPT-2
+   and TinyLlama on ``dp N/2 x tp 2`` and ``tp N``; (e) the MoE
+   transformer on ``dp N/2 x ep 2`` and ``ep N``, the routers' step-0
+   gradients; (f) ``spmd_pipeline`` on ``pp N``, GPT-2's blocks in N
+   stages, PIPE_MICROBATCHES microbatches: the loss and each stage's block
+   gradients against the whole batch's, and the bubble; (g) ViT-B/16 and
+   ResNet-50 at 128 x 224² on ``dp N/2 x tp 2``; (h) GPT-2 saved on ``tp
+   N`` and restored on ``dp N`` and off any mesh, parameters bit-equal;
+   (i) ``dryrun_multichip(N)`` with no device named. Every route but FSDP2
+   and the pipeline runs captured (``compile_count`` 1, buffers donated).
+   Prints each run's step ms and tokens (images) per second per GPU beside
+   the one-card step's, the NCCL kernels of one profiled step (the bucket
+   all-reduce, tp's all-reduces, the ring's send/receive), peak memory per
+   rank and the launch counts per rank, beside every card's name and power
+   limit and ``nvidia-smi topo -m``. Phases 1-15 do not run under
+   ``--cards``; the last line keeps its form. With ``--plant-fault
+   ring_dkv_home`` (``multicard.FAULTS``) it runs (c) with the ring
+   backward's dk, dv stopped one rotation short of home and exits 0 only
+   if the checks fail it.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -290,7 +334,7 @@ from ray_tpu_torch.ops.moe import (
     moe_ffn,
     top1_route,
 )
-from ray_tpu_torch.parallel import initialize, make_mesh
+from ray_tpu_torch.parallel import initialize, make_mesh, multicard
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip
 from ray_tpu_torch.parallel.mesh import DATA_AXES
 from ray_tpu_torch.parallel.pipeline import spmd_pipeline
@@ -2166,6 +2210,46 @@ def checkpoint_check(mesh, host, card: str) -> None:
           "the restored state's next losses equal the uninterrupted run's")
 
 
+def vision_tp_check(mesh, card: str) -> None:
+    """(h) ViT-B/16 and ResNet-50 at batch 128 with the tp route forced on
+    the one-rank ``tp`` axis against the mesh-less captured step from the
+    same weights on the same images."""
+    want_captures = 1 if CAPTURE else None
+    for name, make, loss_fn, make_opt, keys, has_extra in (
+            ("ViT-B/16", lambda m: ViT(ViTConfig.base(), seed=0, mesh=m),
+             vit_loss_fn(), lambda: adamw(3e-3), ("images", "labels"),
+             False),
+            ("ResNet-50", lambda m: ResNet(ResNet50Config(), seed=0, mesh=m),
+             resnet_loss_fn(), lambda: sgd(0.1, momentum=0.9, nesterov=True),
+             ("image", "label"), True)):
+        host = multicard.image_batch(VIT_BATCH, IMAGE_SIZE, 1000, keys)
+        runs = {}
+        for what, m in (("mesh-less", None), ("tp=1", mesh)):
+            model = make(m)
+            if m is not None:
+                _place_forced(model, m, ("tp",))
+            batch = (shard_batch(host, m) if m is not None else
+                     {k: torch.from_numpy(v).to(mesh.device)
+                      for k, v in host.items()})
+            runs[what] = multicard.run_steps(
+                model, loss_fn, make_opt(), batch, m, CAPTURE_STEPS,
+                MESH_TIMED_STEPS, has_extra=has_extra)
+            del model, batch
+            torch.cuda.empty_cache()
+        got, want = runs["tp=1"], runs["mesh-less"]
+        check_losses(got, want, f"mesh tp=1 (the tp route forced) vs "
+                     f"mesh-less {name}")
+        check(got["compile_count"] == want_captures and got["donated"],
+              f"{name} tp=1: captured {want_captures} time(s), buffers "
+              "donated")
+        if has_extra:
+            same = all(torch.equal(got["stats"][k], want["stats"][k])
+                       for k in want["stats"])
+            print(f"{name} tp=1: running statistics equal to the mesh-less "
+                  f"step's {same}; card {card}", flush=True)
+            check(same, f"{name} tp=1: the running statistics match")
+
+
 def tp_phase(mesh, plain: dict, card: str) -> dict[str, dict]:
     """Phase 13: tensor parallelism, the MoE transformer's global routing
     over ``dp × ep``, the pipeline and checkpoints on the one-rank NCCL
@@ -2233,6 +2317,7 @@ def tp_phase(mesh, plain: dict, card: str) -> dict[str, dict]:
 
     pipeline_check(mesh, host, card)
     checkpoint_check(mesh, host, card)
+    vision_tp_check(mesh, card)
     dist.destroy_process_group()
 
     # (g) = phase 12 (e): the dry run, no device named.
@@ -2995,19 +3080,109 @@ def fault_main(name: str, dev) -> int:
     return 0 if result["caught"] else 1
 
 
+# -- phase 16: the mesh routes across cards -----------------------------------
+
+
+def cards_lines() -> tuple[list[str], str]:
+    """Every visible card's name and power limit, and ``nvidia-smi topo
+    -m`` (the links between them)."""
+    names = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    nvlink = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"],
+                            capture_output=True, text=True, timeout=60)
+    return names, "\n".join(
+        f"$ nvidia-smi {' '.join(r.args[1:])} (exit {r.returncode}):\n"
+        f"{(r.stdout + r.stderr).rstrip()}" for r in (topo, nvlink))
+
+
+def multicard_phase(n: int, fault: str | None = None) -> bool:
+    """Phase 16 on ``n`` cards (see the module docstring). Returns whether
+    every check held; with ``fault``, only (c) runs, with the fault
+    planted in every rank."""
+    names, topo = cards_lines()
+    for i, line in enumerate(names):
+        print(f"multicard card {i}: {line}", flush=True)
+    print(f"multicard links:\n{topo}", flush=True)
+    card = f"{names[0]} x {n}"
+    t0 = time.perf_counter()
+    results = multicard.run(n, "full", cases=("c",) if fault else
+                            multicard.CASES, fault=fault, timeout=900)
+    for line in multicard.report(results, n):
+        print(f"multicard {line}; card {card}", flush=True)
+    readings = multicard.checks(results)
+    for what, ok, reading in readings:
+        print(f"multicard check {'held' if ok else 'FAILED'}: {what}: "
+              f"{reading}", flush=True)
+    held = all(ok for _, ok, _ in readings)
+    print(f"multicard: {len(results)} ranks, cases "
+          f"{[c for c in multicard.CASES if c in results[0]]} in "
+          f"{time.perf_counter() - t0:.1f} s; every check held: {held}",
+          flush=True)
+    if fault:
+        return held
+    t0 = time.perf_counter()
+    ranks = dryrun_multichip(n)
+    print(f"multicard (i) dryrun_multichip({n}), no device named: {ranks} "
+          f"in {time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    held = held and (
+        [r["device"] for r in ranks] == [f"cuda:{i}" for i in range(n)]
+        and all(np.isfinite(r["loss"]) for r in ranks)
+        and len({r["loss"] for r in ranks}) == 1)
+    return held
+
+
+def cards_main(n: int, fault: str | None, card: str) -> int:
+    """``--cards n``: the build and phase 16, then the card line and the
+    result line; with ``fault``, exit 0 only if the checks fail it."""
+    have = torch.cuda.device_count()
+    if have < n:
+        print(f"chip_smoke: --cards {n} needs {n} GPUs, {have} visible",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    build.ensure_built()
+    print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+    held = multicard_phase(n, fault)
+    print(f"chip_smoke --cards {n}: {time.perf_counter() - t0:.1f} s after "
+          "the build began", flush=True)
+    if fault:
+        print(json.dumps({"fault": fault, "caught": not held}), flush=True)
+        return 0 if not held else 1
+    check(held, "phase 16: every multi-card check held")
+    print(f"card: {card}", flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--plant-fault", choices=sorted(FAULTS))
+    parser.add_argument("--plant-fault",
+                        choices=sorted(FAULTS) + sorted(multicard.FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
+    parser.add_argument("--cards", type=int, default=0,
+                        help="run phase 16 (the mesh routes across this "
+                        "many cards) instead of phases 1-15")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
+    if args.plant_fault and (args.plant_fault in multicard.FAULTS) != bool(
+            args.cards):
+        parser.error("--cards takes no --plant-fault but those of "
+                     "parallel.multicard.FAULTS, which need --cards")
     dev = default_device()
     card = card_line()
     print(f"card: {card}", flush=True)
+    if args.cards:
+        return cards_main(args.cards, args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -3062,6 +3237,8 @@ def run_all(dev, card: str) -> int:
           f"{card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
+    print("phase 16 (the mesh routes across cards) needs --cards 4 and four "
+          f"cards; {torch.cuda.device_count()} visible here", flush=True)
 
     main_rows = rows[(TRAIN_BATCH, TRAIN_SEQ)]
     kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],

@@ -31,11 +31,120 @@ from typing import Any, Iterable
 import numpy as np
 
 
-class Schema:
-    """Column names and numpy dtypes of a block (the counterpart of
-    ``pyarrow.Schema`` for ``Dataset.schema()``)."""
+class DataType(str):
+    """An arrow type, by the name pyarrow prints for it (``double``,
+    ``string``, ``list<item: int64>``, ...); ``children`` are a nested
+    type's ``(name, type)`` fields (a list's ``item``, a struct's keys)."""
 
-    def __init__(self, names: list[str], types: list[np.dtype]):
+    children: tuple = ()
+
+    def __repr__(self) -> str:
+        return f"DataType({self})"
+
+    def child_lines(self, indent: str = "  ") -> list[str]:
+        """pyarrow's ``child i, name: type`` lines under a field."""
+        out = []
+        for i, (name, t) in enumerate(self.children):
+            out.append(f"{indent}child {i}, {name}: {t}")
+            out += t.child_lines(indent + "    ")
+        return out
+
+
+# numpy dtype kinds and sizes -> arrow's names (pyarrow.from_numpy_dtype).
+_FLOAT_NAMES = {2: "halffloat", 4: "float", 8: "double"}
+_TIME_UNITS = ("s", "ms", "us", "ns")
+
+
+def _scalar_type(dtype: np.dtype) -> DataType:
+    if dtype.kind == "f" and dtype.itemsize in _FLOAT_NAMES:
+        return DataType(_FLOAT_NAMES[dtype.itemsize])
+    if dtype.kind in "iu":
+        return DataType(f"{'u' if dtype.kind == 'u' else ''}int"
+                        f"{8 * dtype.itemsize}")
+    if dtype.kind == "b":
+        return DataType("bool")
+    if dtype.kind in "SO":
+        return DataType("binary" if dtype.kind == "S" else "null")
+    if dtype.kind == "U":
+        return DataType("string")
+    if dtype.kind in "mM":
+        unit = np.datetime_data(dtype)[0]
+        if dtype.kind == "M" and unit == "D":
+            return DataType("date32[day]")
+        if unit in _TIME_UNITS:
+            kind = "timestamp" if dtype.kind == "M" else "duration"
+            return DataType(f"{kind}[{unit}]")
+    raise TypeError(f"no arrow type for numpy dtype {dtype}")
+
+
+def _nested(name: str, children: list) -> DataType:
+    t = DataType(name)
+    t.children = tuple(children)
+    return t
+
+
+def _list_type(item: DataType, size: int | None = None) -> DataType:
+    return _nested(f"list<item: {item}>" if size is None
+                   else f"fixed_size_list<item: {item}>[{size}]",
+                   [("item", item)])
+
+
+def _value_type(x) -> DataType | None:
+    """The arrow type pyarrow infers for one Python or numpy value (None
+    for None)."""
+    if x is None:
+        return None
+    if isinstance(x, str):
+        return DataType("string")
+    if isinstance(x, (bytes, bytearray)):
+        return DataType("binary")
+    if isinstance(x, np.ndarray):
+        return _list_type(_column_type(x) if x.ndim == 1 else
+                          _object_type(list(x)))
+    if isinstance(x, (list, tuple)):
+        return _list_type(_object_type(list(x)))
+    if isinstance(x, dict):
+        fields = [(str(k), _value_type(v) or DataType("null"))
+                  for k, v in x.items()]
+        return _nested("struct<" + ", ".join(f"{k}: {t}" for k, t in fields)
+                       + ">", fields)
+    if isinstance(x, bool):
+        return DataType("bool")
+    if isinstance(x, int):
+        return DataType("int64")
+    if isinstance(x, float):
+        return DataType("double")
+    return _scalar_type(np.asarray(x).dtype)
+
+
+def _object_type(values) -> DataType:
+    """The type of an object column: that of its first value that is not
+    None (arrow's ``null`` where every value is None)."""
+    for x in values:
+        t = _value_type(x)
+        if t is not None:
+            return t
+    return DataType("null")
+
+
+def _column_type(col: np.ndarray) -> DataType:
+    """The arrow type of a block column as ``to_arrow`` would hold it: an
+    N-d column nests ``fixed_size_list`` once for each trailing
+    dimension."""
+    t = (_object_type(col) if col.dtype == object
+         else _scalar_type(col.dtype))
+    for size in reversed(col.shape[1:]):
+        t = _list_type(t, size)
+    return t
+
+
+class Schema:
+    """Column names and arrow types of a block (the counterpart of
+    ``pyarrow.Schema`` for ``Dataset.schema()``): ``types`` are
+    :class:`DataType` names, and ``str()`` prints the schema as pyarrow
+    prints it, with the ``child`` lines of its nested types."""
+
+    def __init__(self, names: list[str], types: list[DataType]):
         self.names = list(names)
         self.types = list(types)
 
@@ -43,10 +152,13 @@ class Schema:
         return (isinstance(other, Schema) and self.names == other.names
                 and self.types == other.types)
 
-    def __repr__(self) -> str:
-        cols = ", ".join(f"{n}: {t}" for n, t in zip(self.names,
-                                                      self.types))
-        return f"Schema({cols})"
+    def __str__(self) -> str:
+        lines = []
+        for name, t in zip(self.names, self.types):
+            lines += [f"{name}: {t}", *t.child_lines()]
+        return "\n".join(lines)
+
+    __repr__ = __str__
 
 
 class Block:
@@ -79,7 +191,7 @@ class Block:
     @property
     def schema(self) -> Schema:
         return Schema(list(self._cols),
-                      [v.dtype for v in self._cols.values()])
+                      [_column_type(v) for v in self._cols.values()])
 
     @property
     def nbytes(self) -> int:
@@ -246,14 +358,18 @@ def concat_blocks(blocks: list) -> Block:
         return Block({})
     if len(blocks) == 1:
         return blocks[0]
-    schema = blocks[0].schema
+    names = blocks[0].column_names
+
+    def dtypes(b):
+        return (b.column_names, [b.column(k).dtype for k in b.column_names])
+
     for b in blocks[1:]:
-        if b.schema != schema:
+        if dtypes(b) != dtypes(blocks[0]):
             # pyarrow.concat_tables refuses the same way.
             raise ValueError(f"cannot concatenate blocks of schemas "
-                             f"{schema} and {b.schema}")
+                             f"{blocks[0].schema} and {b.schema}")
     return Block({k: np.concatenate([b.column(k) for b in blocks])
-                  for k in schema.names})
+                  for k in names})
 
 
 def slice_block(block, start: int, end: int) -> Block:

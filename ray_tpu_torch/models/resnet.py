@@ -38,6 +38,23 @@ ways that do not show in the output's shape:
   ranks (differentiably: the backward allreduces their gradients) and
   divides by the global count, so the running statistics are equal on
   every rank too.
+- On a ``tp`` mesh the rule table cuts every convolution's output
+  channels over ``tp``, as the JAX table does (``conv.*kernel``), and
+  keeps BatchNorm and the classifier replicated. Each convolution
+  computes this rank's channels from the whole input; BatchNorm
+  normalises them with this rank's slice of its replicated scale and
+  bias, taken through ``collective.device.copy_to`` so that their
+  gradients are summed over ``tp``, and gathers its new running
+  statistics over ``tp``, so that they are whole on every rank; the
+  residual adds the blocks locally; before the next convolution the
+  channels are gathered (:func:`gather_channels`, in ``channels_last``
+  memory), and the backward sums each rank's share of the input
+  gradient over ``tp`` (a reduce-scatter).
+  The global pooling runs on this rank's channels, which are gathered
+  (``gather_from``: the classifier's gradient is equal on every rank)
+  for the replicated classifier. The ``sp`` ranks of a mesh are
+  replicas, as in the JAX model, which never reads ``sp``: the batch is
+  cut over ``dp`` and ``fsdp`` only.
 - The residual branch is projected where its shape differs from the
   block's output, so stage 0's first block projects at stride 1.
 - The global mean over H and W takes a float32 sum and rounds to the
@@ -63,6 +80,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ray_tpu_torch.collective import device as coll
 from ray_tpu_torch.collective.device import allreduce
 from ray_tpu_torch.core.accelerator import resolve_device
 
@@ -153,17 +171,68 @@ def max_pool_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.max_pool2d(x, kernel, stride)
 
 
+class _GatherChannels(torch.autograd.Function):
+    """Every rank's channels of NCHW ``x`` in ``channels_last`` memory,
+    concatenated in rank order; backward, this rank's channels of the
+    gradient summed over the ranks (a reduce-scatter). Each rank's block
+    goes over the wire as its own contiguous NHWC memory, and the result
+    and the gradient are ``channels_last`` again, so that cuDNN runs the
+    same layout as off a mesh."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n, c, h, w = x.shape
+        nhwc = x.permute(0, 2, 3, 1).contiguous()   # a view when channels_last
+        parts = coll._all_gather(nhwc.unsqueeze(0), group, 0)
+        r = parts.shape[0]
+        return (parts.permute(1, 2, 3, 0, 4).reshape(n, h, w, r * c)
+                .permute(0, 3, 1, 2))
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c, h, w = g.shape
+        r = dist.get_world_size(ctx.group)
+        parts = g.permute(0, 2, 3, 1).reshape(n, h, w, r, c // r) \
+            .permute(3, 0, 1, 2, 4)
+        mine = coll._reduce_scatter(parts, ctx.group, 0)[0]
+        return mine.permute(0, 3, 1, 2), None
+
+
+def gather_channels(x: torch.Tensor, tp) -> torch.Tensor:
+    """Every ``tp`` rank's channels of NCHW ``x``, whole, for a
+    convolution whose output channels ``tp`` cuts (``x`` itself without
+    ``tp``): each rank's convolution gives only its share of the input's
+    gradient, which the backward sums over ``tp``."""
+    if tp is None:
+        return x
+    return _GatherChannels.apply(x, tp.group)
+
+
+def replicated_block(p: torch.Tensor, tp, n: int) -> torch.Tensor:
+    """This ``tp`` rank's ``n`` entries of the replicated parameter ``p``
+    (all of ``p`` without ``tp``), through ``copy_to``: each rank's
+    gradient covers its entries only, and the sum over ``tp`` makes it
+    whole and equal on every rank, as the step expects of a replicated
+    parameter."""
+    if tp is None:
+        return p
+    return coll.copy_to(p, tp.group).narrow(0, tp.index * n, n)
+
+
 class _Norms:
     """What the BatchNorm layers of one forward share: the mode, the
     running statistics they read (``{buffer name: tensor}``), in training
-    the new ones they return, and the process group of the batch ranks
-    whose rows the statistics span (None: this rank's rows)."""
+    the new ones they return, the process group of the batch ranks
+    whose rows the statistics span (None: this rank's rows) and the
+    ``tp`` Split that cuts the channels (None: every channel here)."""
 
     def __init__(self, train: bool, stats: Mapping[str, torch.Tensor],
-                 group=None):
+                 group=None, tp=None):
         self.train = train
         self.stats = stats
         self.group = group
+        self.tp = tp
         self.new_stats: dict[str, torch.Tensor] = {}
 
     def moments(self, xf: torch.Tensor):
@@ -196,25 +265,31 @@ class BatchNorm(nn.Module):
                                                device=device))
 
     def forward(self, x: torch.Tensor, norms: _Norms) -> torch.Tensor:
-        ra_mean = norms.stats[f"{self.path}.mean"]
-        ra_var = norms.stats[f"{self.path}.var"]
         # Rows of channels, [N*H*W, C]: a view of channels_last memory, so
         # the per-channel statistics and the normalisation broadcast along
-        # the contiguous last axis.
+        # the contiguous last axis. Under tp, C is this rank's channels.
         n, c, h, w = x.shape
+        tp = norms.tp
+        ra_mean, ra_var = (norms.stats[f"{self.path}.{k}"]
+                           for k in ("mean", "var"))
+        if tp is not None:
+            ra_mean, ra_var = (ra.narrow(0, tp.index * c, c)
+                               for ra in (ra_mean, ra_var))
         xf = x.permute(0, 2, 3, 1).reshape(-1, c).float()
         if norms.train:
             mean, mean_sq = norms.moments(xf)
             var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
-                norms.new_stats[f"{self.path}.mean"] = (
-                    BN_MOMENTUM * ra_mean + (1 - BN_MOMENTUM) * mean)
-                norms.new_stats[f"{self.path}.var"] = (
-                    BN_MOMENTUM * ra_var + (1 - BN_MOMENTUM) * var)
+                for k, ra, batch in (("mean", ra_mean, mean),
+                                     ("var", ra_var, var)):
+                    new = BN_MOMENTUM * ra + (1 - BN_MOMENTUM) * batch
+                    norms.new_stats[f"{self.path}.{k}"] = (
+                        new if tp is None
+                        else coll._all_gather(new, tp.group))
         else:
             mean, var = ra_mean, ra_var
-        mul = torch.rsqrt(var + BN_EPS) * self.scale
-        y = (xf - mean) * mul + self.bias
+        mul = torch.rsqrt(var + BN_EPS) * replicated_block(self.scale, tp, c)
+        y = (xf - mean) * mul + replicated_block(self.bias, tp, c)
         return y.to(self.dtype).view(n, h, w, c).permute(0, 3, 1, 2)
 
 
@@ -246,12 +321,16 @@ class Bottleneck(nn.Module):
             self.bn_proj = norm(4 * features)
 
     def forward(self, x: torch.Tensor, norms: _Norms) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x), norms))
-        y = F.relu(self.bn2(self.conv2(y), norms))
-        y = self.bn3(self.conv3(y), norms)
+        """``x`` and the result: this ``tp`` rank's channels (all of them
+        without ``tp``)."""
+        tp = norms.tp
+        whole = gather_channels(x, tp)
+        y = F.relu(self.bn1(self.conv1(whole), norms))
+        y = F.relu(self.bn2(self.conv2(gather_channels(y, tp)), norms))
+        y = self.bn3(self.conv3(gather_channels(y, tp)), norms)
         residual = x
         if self.conv_proj is not None:
-            residual = self.bn_proj(self.conv_proj(x), norms)
+            residual = self.bn_proj(self.conv_proj(whole), norms)
         return F.relu(y + residual)
 
 
@@ -263,17 +342,15 @@ class ResNet(nn.Module):
     which raises without one), or to ``mesh.device``; pass
     ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
     on a ``torch.Generator`` of that device. On ``mesh`` the batch
-    statistics span the ``dp`` and ``fsdp`` ranks; sequence and tensor
-    axes are not in the port's ResNet (NotImplementedError)."""
+    statistics span the ``dp`` and ``fsdp`` ranks; placed over ``tp``
+    the channels are cut (module docstring); ``sp`` ranks are replicas."""
+
+    tensor_parallel = True      # place_params may split it over tp
+    tp = None                   # the Split of a tensor-parallel placement
 
     def __init__(self, config: ResNet50Config = ResNet50Config(), *,
                  device=None, seed: int = 0, mesh=None):
         super().__init__()
-        for axis in ("sp", "tp"):
-            if mesh is not None and mesh.shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"ResNet on a mesh with {axis}={mesh.shape[axis]} is "
-                    "not in the port yet (ROADMAP §1)")
         self.config = c = config
         self.mesh = mesh
         self._bn_group = None
@@ -317,7 +394,7 @@ class ResNet(nn.Module):
         averages into the ones it returns."""
         c = self.config
         norms = _Norms(train, self.batch_stats() if batch_stats is None
-                       else batch_stats, self._bn_group)
+                       else batch_stats, self._bn_group, self.tp)
         # [B, H, W, 3] memory seen as NCHW: the channels_last format.
         x = image.to(c.dtype).permute(0, 3, 1, 2)
         x = F.relu(self.bn_init(self.conv_init(x), norms))
@@ -325,6 +402,8 @@ class ResNet(nn.Module):
         for name in self.block_names:
             x = getattr(self, name)(x, norms)
         x = x.mean((2, 3), dtype=torch.float32).to(c.dtype)
+        if self.tp is not None:
+            x = coll.gather_from(x, self.tp.group, 1).contiguous()
         logits = F.linear(x.float(), self.classifier.weight,
                           self.classifier.bias)
         return (logits, norms.new_stats) if train else logits

@@ -25,9 +25,16 @@ the ``"nothing"`` policy, the counterpart of ``nn.remat`` with no policy.
 
 ``ViT(config, mesh=mesh)`` runs on a ``dp``/``fsdp`` mesh: each rank
 holds its block of the batch, and attention needs nothing from the other
-ranks. The JAX model also names the ``sp`` axis, where XLA gathers the
-sequence for its dense attention; a ViT over sequence or tensor ranks is
-not in the port yet (ROADMAP §1) and raises NotImplementedError.
+ranks. On a ``tp`` mesh it cuts what the JAX rule table cuts: only each
+block's ``mlp_proj``, whose input rows (the MLP's hidden units) are split
+over ``tp`` (``parallel.sharding``). Every rank computes ``fc`` whole,
+takes its block of the hidden units after GELU through
+``collective.device.copy_to`` (so that ``fc``'s gradient, which each
+rank holds only for its block, is summed over ``tp``), runs ``mlp_proj``
+on its rows, sums the partial products over ``tp`` (``reduce_from``) and
+adds the bias once. The JAX model also names the ``sp`` axis, where XLA
+pads T = 197 to split it; a ViT over sequence ranks is not in the port
+yet (ROADMAP §1) and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ray_tpu_torch.core.accelerator import resolve_device
-from ray_tpu_torch.models.gpt2 import LayerNorm, remat_call
+from ray_tpu_torch.models.gpt2 import LayerNorm, enter, leave, remat_call
 from ray_tpu_torch.models.resnet import Conv, lecun_normal_, \
     softmax_cross_entropy
 from ray_tpu_torch.ops.cuda.flash_attention import flash_attention
@@ -111,6 +118,8 @@ class EncoderBlock(nn.Module):
     """Pre-LN block: ``x + proj(attn(ln_1(x)))``, then ``x +
     mlp_proj(gelu(fc(ln_2(x))))``."""
 
+    tp = None       # the Split of a tensor-parallel placement
+
     def __init__(self, config: ViTConfig, device, gen):
         super().__init__()
         c = config
@@ -133,7 +142,15 @@ class EncoderBlock(nn.Module):
                    .view(b, t, c.n_head, c.head_dim) for name in "qkv")
         x = x + _apply(self.proj, attn_fn(q, k, v).reshape(b, t, e), dt)
         h = F.gelu(_apply(self.fc, self.ln_2(x), dt), approximate="tanh")
-        return x + _apply(self.mlp_proj, h, dt)
+        # Under tp this rank's hidden units meet its rows of mlp_proj and
+        # the partial products are summed over tp. The bias is added to
+        # the rounded product, as flax's Dense adds it, so at tp = 1 the
+        # two routes agree bit for bit.
+        if self.tp is not None:
+            n = self.mlp_proj.weight.shape[1]
+            h = enter(h, self.tp).narrow(-1, self.tp.index * n, n)
+        y = F.linear(h, self.mlp_proj.weight.to(dt))
+        return x + (leave(y, self.tp) + self.mlp_proj.bias.to(dt))
 
 
 class ViT(nn.Module):
@@ -144,14 +161,15 @@ class ViT(nn.Module):
     ``device="cpu"`` to run on the CPU. Weights are random from ``seed``
     on a ``torch.Generator`` of that device."""
 
+    tensor_parallel = True      # place_params may split it over tp
+
     def __init__(self, config: ViTConfig, *, device=None, seed: int = 0,
                  attn_fn: Callable = _attention, mesh=None):
         super().__init__()
-        for axis in ("sp", "tp"):
-            if mesh is not None and mesh.shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"ViT on a mesh with {axis}={mesh.shape[axis]} is not "
-                    "in the port yet (ROADMAP §1)")
+        if mesh is not None and mesh.shape.get("sp", 1) > 1:
+            raise NotImplementedError(
+                f"ViT on a mesh with sp={mesh.shape['sp']} is not in the "
+                "port yet (ROADMAP §1): T = 197 does not split evenly")
         self.config = c = config
         self.mesh = mesh
         self.attn_fn = attn_fn

@@ -39,6 +39,10 @@ from ray_tpu_torch.core.accelerator import detect_gpus, resolve_device
 from ray_tpu_torch.parallel.mesh import initialize
 
 
+# Seconds the other ranks get to answer once one has raised.
+FAILED_GRACE_S = 10.0
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -88,7 +92,10 @@ def spawn(fn: Callable, n: int, args: tuple = (), device=None,
     every failing rank's traceback when a rank raises or dies, and
     TimeoutError when the ranks have not all answered within ``timeout``
     seconds (the process group waits as long); either way every process
-    is gone when it returns."""
+    is gone when it returns. Once a rank has raised, the others get
+    FAILED_GRACE_S more to answer: a rank left waiting in a collective
+    for the failed one would otherwise hold its card until the
+    timeout."""
     kind = resolve_device(device).type
     if kind == "cuda" and n > detect_gpus():
         raise ValueError(f"{n} NCCL ranks need {n} GPUs, {detect_gpus()} "
@@ -107,6 +114,8 @@ def spawn(fn: Callable, n: int, args: tuple = (), device=None,
         while len(results) < n:
             left = deadline - time.monotonic()
             if left <= 0:
+                if any(not ok for ok, _ in results.values()):
+                    break
                 raise TimeoutError(f"{n - len(results)} of {n} ranks did "
                                    f"not answer within {timeout} s")
             try:
@@ -120,6 +129,8 @@ def spawn(fn: Callable, n: int, args: tuple = (), device=None,
                                        " without a result") from None
                 continue
             results[rank] = (ok, value)
+            if not ok:
+                deadline = min(deadline, time.monotonic() + FAILED_GRACE_S)
         for p in procs:
             p.join(max(deadline - time.monotonic(), 1.0))
     finally:

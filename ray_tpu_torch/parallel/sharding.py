@@ -307,8 +307,8 @@ def place_params(model: nn.Module, mesh, patterns=None,
     ``ep`` is then cut to this rank's block, and every layer that declares
     a ``tp`` or ``ep`` attribute gets the :class:`Split` it runs its
     collectives over; a model that does not declare ``tensor_parallel``
-    raises NotImplementedError for a cut over ``tp`` (ViT and ResNet,
-    ROADMAP §1). Where the ``fsdp`` axis holds more than one rank, the
+    raises NotImplementedError for a cut over ``tp`` (every model of the
+    port declares it). Where the ``fsdp`` axis holds more than one rank, the
     parameters that the table shards over it are then sharded by FSDP2
     along that dimension: ``fully_shard`` on each block and on the model,
     with ``shard_placement_fn`` from the table and the other parameters
@@ -348,7 +348,7 @@ def _place(model: nn.Module, mesh, patterns, rules, forced) -> nn.Module:
             raise NotImplementedError(
                 f"{type(model).__name__} under tp: {name} would be split "
                 f"over {AXIS_TP}, and its layers have no tensor-parallel "
-                "route in the port yet (ROADMAP §1)")
+                "route")
         fsdp = (axes.index(AXIS_FSDP) if AXIS_FSDP in axes
                 and (mesh.shape[AXIS_FSDP] > 1 or AXIS_FSDP in forced)
                 else None)

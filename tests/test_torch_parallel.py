@@ -17,8 +17,11 @@ groups; ``place_params`` on ``dp 4`` broadcasting rank 0's weights to
 replicas that started apart; FSDP2 on ``fsdp 4`` splitting ``wte`` on its
 embed dimension, as ``tests/test_models.py`` checks the JAX model; on
 ``fsdp 2 × tp 2`` each rank keeping its ``tp`` block of rank 0's weights,
-FSDP2 sharding that block, and each parameter's placement record; and
-NotImplementedError for a model with no tensor-parallel route (ViT) on a
+FSDP2 sharding that block, and each parameter's placement record;
+ViT and ResNet on ``tp 4`` cut as the JAX table cuts them (ViT's
+``mlp_proj`` rows alone; every ResNet convolution's output channels,
+BatchNorm and the classifier replicated), each block rank 0's; and
+NotImplementedError for a model with no tensor-parallel route on a
 ``tp`` mesh.
 """
 
@@ -154,8 +157,9 @@ def _jax_tree(name):
 
 
 @pytest.mark.parametrize("axes", [{"fsdp": 2, "tp": 2},
-                                  {"fsdp": 2, "ep": 2}],
-                         ids=["fsdp2_tp2", "fsdp2_ep2"])
+                                  {"fsdp": 2, "ep": 2},
+                                  {"dp": 1, "tp": 4}],
+                         ids=["fsdp2_tp2", "fsdp2_ep2", "tp4"])
 @pytest.mark.parametrize("name", ["gpt2", "llama", "vit", "resnet", "moe"])
 def test_every_parameter_on_the_axes_of_its_flax_counterpart(name, axes):
     params, model = _jax_tree(name)
@@ -319,5 +323,34 @@ def test_fsdp_beside_tp_shards_each_ranks_tp_block(world):
 
 
 def test_tp_placement_of_a_model_without_a_tp_route_raises(world):
-    for r in _case(world, "vit_tp_raises"):
-        assert "ROADMAP §1" in r
+    for r in _case(world, "no_tp_route_raises"):
+        assert "mlp.fc.weight" in r and "no tensor-parallel route" in r
+
+
+def test_vision_models_on_tp_cut_what_the_jax_table_cuts(world):
+    """ViT: only each block's ``mlp_proj`` weight, on its input (hidden)
+    dimension; ResNet: every convolution on its output channels. The
+    rest stays whole, and every block is rank 0's weights cut."""
+    want = {"vit": models.ViT(models.ViTConfig.tiny(), device="cpu",
+                              seed=0),
+            "resnet": models.ResNet(models.ResNet50Config.tiny(),
+                                    device="cpu", seed=0)}
+    for r in _case(world, "vision_tp"):
+        for name, model in want.items():
+            params = dict(model.named_parameters())
+            assert sorted(r[name]) == sorted(params)
+            for pname, got in r[name].items():
+                if name == "vit":
+                    cut = pname.endswith("mlp_proj.weight")
+                    split = ((1, "tp", r["tp"], 4),) if cut else ()
+                else:
+                    cut = ".weight" in pname and "conv" in pname
+                    split = ((0, "tp", r["tp"], 4),) if cut else ()
+                assert got["split"] == split, pname
+                np.testing.assert_array_equal(
+                    got["block"],
+                    _tp_block(params[pname].detach().numpy(), split),
+                    err_msg=pname)
+        # ResNet tiny's 9 convolutions; ViT tiny's 2 blocks.
+        assert [sum(bool(g["split"]) for g in r[name].values())
+                for name in ("resnet", "vit")] == [9, 2]

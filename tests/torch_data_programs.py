@@ -262,6 +262,30 @@ def all_filtered_schema(rt):
     return [ds.count(), ds.columns(), list(schema.names), ds.take_all()]
 
 
+def schema_types(rt):
+    """``str(ds.schema())`` and ``.types`` (by name) over float, string,
+    int, bool, bytes, N-d tensor, list, struct and narrow numeric
+    columns, from rows and from a batch function."""
+    data = _data(rt)
+    rows = [{"f": 0.5 * i, "s": f"s{i}", "i": i, "b": i % 2 == 0,
+             "y": bytes([i]), "t": np.full((2, 3), i, np.float32),
+             "l": [i, i + 1], "h": np.int16(i), "u": np.uint8(i),
+             "f16": np.float16(i),
+             "d": {"a": i, "b": f"b{i}", "c": [0.5 * i]}} for i in range(4)]
+    batch = data.range(4, parallelism=2).map_batches(
+        lambda b: {"x": b["id"].astype(np.int32),
+                   "z": np.zeros((len(b["id"]), 5), np.int8),
+                   "d": np.full(len(b["id"]), "2020-01-02",
+                                dtype="datetime64[D]")})
+    out = []
+    for ds in (data.from_items(rows), data.from_numpy(np.zeros((4, 2, 2))),
+               batch):
+        schema = ds.schema()
+        out.append([str(schema), [str(t) for t in schema.types],
+                    list(schema.names)])
+    return out
+
+
 def all_filtered_to_pandas(rt):
     ds = _data(rt).range(6).map(lambda r: {"x": r["id"]}).filter(
         lambda r: False)
@@ -426,6 +450,7 @@ TABLE = {f.__name__: f for f in (
     sort_ascending_ties, sort_descending_ties, groupby_aggregates,
     groupby_float_statistics, groupby_map_groups, zip_and_union, splits, streaming_split_two,
     iter_batches_drop_last, take_count_columns, all_filtered_schema,
+    schema_types,
     all_filtered_to_pandas, from_pandas_frames, torch_batches, tfrecords_across_packages,
     tfrecords_raw_bytes, numpy_text_binary_files, parquet_csv_json_files,
     aggregate_functions, preprocessors, context_knob)}

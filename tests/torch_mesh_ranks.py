@@ -134,15 +134,41 @@ def parallel_cases() -> dict:
                           else p).detach()}
         return out
 
-    def vit_tp_raises():
-        from ray_tpu_torch.models import ViT, ViTConfig
+    def no_tp_route_raises():
+        """A model whose layers declare no tensor-parallel route, with a
+        weight the table cuts over tp."""
+        class Plain(torch.nn.Module):
+            def __init__(self):
+                super().__init__()
+                self.mlp = torch.nn.Module()
+                self.mlp.fc = torch.nn.Linear(8, 16)
+
         mesh = make_mesh({"tp": 4}, device="cpu")
-        return _raises(lambda: place_params(
-            ViT(ViTConfig.tiny(), device="cpu"), mesh), NotImplementedError)
+        return _raises(lambda: place_params(Plain(), mesh),
+                       NotImplementedError)
+
+    def vision_tp():
+        """ViT and ResNet tiny placed on tp 4, replicas started apart:
+        each parameter's split and its block."""
+        from ray_tpu_torch.models import (ResNet, ResNet50Config, ViT,
+                                          ViTConfig)
+        mesh = make_mesh({"tp": 4}, device="cpu")
+        out = {"tp": mesh.axis_index("tp")}
+        for name, model in (
+                ("vit", ViT(ViTConfig.tiny(), device="cpu",
+                            seed=dist.get_rank())),
+                ("resnet", ResNet(ResNet50Config.tiny(), device="cpu",
+                                  seed=dist.get_rank()))):
+            place_params(model, mesh)
+            out[name] = {n: {"split": model.placements[n].split,
+                             "block": p.detach()}
+                         for n, p in model.named_parameters()}
+        return out
 
     return _run({"shapes": shapes, "dp_broadcast": dp_broadcast,
                  "fsdp": fsdp, "hsdp": hsdp, "fsdp_tp": fsdp_tp,
-                 "vit_tp_raises": vit_tp_raises})
+                 "no_tp_route_raises": no_tp_route_raises,
+                 "vision_tp": vision_tp})
 
 
 # ---------------------------------------------------------------------------
@@ -609,4 +635,108 @@ def checkpoint_cases(inputs: dict, directory: str) -> dict:
         "restored_fsdp4": lambda: train({"fsdp": 4}, True),
         "restored_tp4": lambda: train({"tp": 4}, True),
         "whole": whole,
+    })
+
+
+# ---------------------------------------------------------------------------
+# tests/test_torch_vision_tp.py
+# ---------------------------------------------------------------------------
+
+# The planted faults of the vision tp routes, by name: each swaps one
+# module-level helper of the model for a version without its tp sum.
+def _no_channel_sum(x, tp):
+    """ResNet's channel gather without the sum of the input gradient
+    over tp: ``gather_from``, whose backward only narrows."""
+    from ray_tpu_torch.collective import device as coll
+    return x if tp is None else coll.gather_from(x, tp.group, 1)
+
+
+def _no_norm_sum(p, tp, n):
+    """BatchNorm's slice of its replicated scale and bias without
+    ``copy_to``: their gradients are not summed over tp."""
+    return p if tp is None else p.narrow(0, tp.index * n, n)
+
+
+VISION_FAULTS = {
+    "gather_from": ("ray_tpu_torch.models.resnet", "gather_channels",
+                    _no_channel_sum),
+    "norm_params": ("ray_tpu_torch.models.resnet", "replicated_block",
+                    _no_norm_sum),
+    "vit_fc": ("ray_tpu_torch.models.vit", "enter", lambda x, split: x),
+}
+
+
+def vision_tp_cases(inputs: dict) -> dict:
+    import importlib
+
+    from ray_tpu_torch.models import (ResNet, ResNet50Config, ViT,
+                                      ViTConfig, resnet_loss_fn,
+                                      vit_loss_fn)
+    from ray_tpu_torch.parallel.sharding import place_params
+    from ray_tpu_torch.train import (init_train_state, make_train_step,
+                                     sgd, shard_batch)
+
+    def build(kind, mesh):
+        if kind == "vit":
+            model = ViT(ViTConfig.tiny(dtype=torch.float32), mesh=mesh)
+            model.load_jax_params(inputs["vit_params"])
+        else:
+            model = ResNet(ResNet50Config.tiny(dtype=torch.float32),
+                           mesh=mesh)
+            model.load_jax_params(*inputs["resnet_variables"])
+        return model
+
+    def logits(kind, axes):
+        """The eval-mode logits of this rank's block of the batch."""
+        mesh = make_mesh(axes, device="cpu")
+        model = place_params(build(kind, mesh), mesh)
+        key = "images" if kind == "vit" else "image"
+        batch = shard_batch(inputs[f"{kind}_batches"][0], mesh)
+        with torch.no_grad():
+            out = model(batch[key])
+        return {"logits": out, "dp": mesh.axis_index("dp")}
+
+    def train(kind, axes, fault=None):
+        """Two SGD steps (ViT: lr 0.1; ResNet: Nesterov, its BatchNorm
+        statistics through the step) with ``fault`` planted."""
+        patched = None
+        if fault is not None:
+            module, attr, fn = VISION_FAULTS[fault]
+            module = importlib.import_module(module)
+            patched = (module, attr, getattr(module, attr))
+            setattr(module, attr, fn)
+        try:
+            mesh = make_mesh(axes, device="cpu")
+            model = build(kind, mesh)
+            if kind == "vit":
+                opt = sgd(0.1)
+                state = init_train_state(model, opt, mesh=mesh)
+                step = make_train_step(vit_loss_fn(), opt)
+            else:
+                opt = sgd(0.1, momentum=0.9, nesterov=True)
+                state = init_train_state(model, opt, mesh=mesh,
+                                         extra=model.batch_stats())
+                step = make_train_step(resnet_loss_fn(), opt,
+                                       has_extra=True)
+            metrics = []
+            for batch in inputs[f"{kind}_batches"]:
+                state, m = step(state, shard_batch(batch, mesh))
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            if patched is not None:
+                setattr(*patched)
+        return {"metrics": metrics, "params": local_params(model),
+                "stats": {k: v.clone() for k, v in (state.extra or {})
+                          .items()}}
+
+    dp_tp = {"dp": 2, "tp": 2}
+    return _run({
+        "vit_logits": lambda: logits("vit", dp_tp),
+        "resnet_logits": lambda: logits("resnet", dp_tp),
+        "vit_train": lambda: train("vit", dp_tp),
+        "resnet_train": lambda: train("resnet", dp_tp),
+        "resnet_sp": lambda: train("resnet", {"dp": 2, "sp": 2}),
+        "fault_gather_from": lambda: train("resnet", dp_tp, "gather_from"),
+        "fault_norm_params": lambda: train("resnet", dp_tp, "norm_params"),
+        "fault_vit_fc": lambda: train("vit", dp_tp, "vit_fc"),
     })
