@@ -6,6 +6,7 @@
     python3 chip_smoke.py --plant-fault KERNEL    (any kernel of FAULTS)
     python3 chip_smoke.py --cards 4               (phase 16, on four cards)
     python3 chip_smoke.py --cards 4 --plant-fault ring_dkv_home
+    python3 chip_smoke.py --plant-fault serve_left_pad
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -239,11 +240,50 @@ exits non-zero without its result line:
    the one-card step's, the NCCL kernels of one profiled step (the bucket
    all-reduce, tp's all-reduces, the ring's send/receive), peak memory per
    rank and the launch counts per rank, beside every card's name and power
-   limit and ``nvidia-smi topo -m``. Phases 1-15 do not run under
-   ``--cards``; the last line keeps its form. With ``--plant-fault
+   limit and ``nvidia-smi topo -m``. Then its serve leg: phase 17's
+   deployment with N replicas at ``num_gpus=1``, which must sit on N
+   distinct cards (UUIDs, ``CUDA_VISIBLE_DEVICES`` 0..N-1);
+   SERVE_CARDS_REQUESTS requests at 32 callers, each replica serving some;
+   every response bit-equal to its batch recomputed on card 0 and within
+   SERVE_ALONE_TOL of its request alone; requests/s. Phases 1-15 and 17
+   do not run under ``--cards``; the last line keeps its form. With ``--plant-fault
    ring_dkv_home`` (``multicard.FAULTS``) it runs (c) with the ring
    backward's dk, dv stopped one rotation short of home and exits 0 only
    if the checks fail it.
+
+17. Serve (``ray_tpu_torch.serve``) on the port's runtime: GPT-2 124M
+   (``GPT2Config.small()``, bf16, random weights from seed 0 passed to the
+   replicas by object ref) behind ``GPT2Server``, a deployment whose
+   ``@serve.batch(max_batch_size=8, batch_wait_timeout_s=0.01)`` method
+   runs one forward a batch under ``inference_mode``, right-padded to its
+   longest request rounded up to 64; a request gets back its last valid
+   position's float32 logits, its top-1 id and its batch's signature.
+   Requests: SERVE_REQUESTS token sequences, lengths uniform in 64-1024
+   (numpy seed 0). (a) A replica that holds no card cannot start (no CPU
+   fallback); then ``serve.run`` of a ``num_gpus=1`` replica, with the
+   HTTP proxy, to the first answer; the replica warms every padded length
+   at batch 8 and profiles one forward's attention ops. (b) Every response
+   bit-equal to its batch recomputed in this process by the same module
+   and weights (the signature's requests, padded to its T), and within
+   SERVE_ALONE_TOL of its request run alone, batch 1, unpadded. (c) In
+   the replica: 12 ``flash_fwd`` launches a batch and no backward one,
+   counted from the end of its warm-up, and the flash op, not SDPA, in
+   its forward. (d) The requests through the handle at 1, 8 and 32
+   callers (requests/s, tokens/s, p50 and p99 ms, mean batch), beside
+   them the in-process forward of a full batch (8 x 1024) and of one
+   request alone at the requests' mean length (padded to 64), each on
+   the host clock as the replica runs it (tokens in, forward, logits
+   out) with the card's busy time in it (torch.profiler), and
+   SERVE_HTTP_REQUESTS requests over HTTP through the proxy with the
+   checks of (b) (no HTTP leg, and a line saying so, where aiohttp does
+   not import). (e) Two replicas at ``num_gpus=0.5`` on the one card: each
+   serves some of SERVE_HALF_REQUESTS requests at 32 callers, and (b) and
+   (c) hold for both. ``--plant-fault serve_left_pad`` runs (a) and (b)
+   with the deployment padding on the left, takes (b)'s readings without
+   raising and prints ``{"fault": ..., "caught": ...}``: caught when every
+   response differs from its batch recomputed and one is off its request
+   alone by more than SERVE_FAULT_MARGIN x SERVE_ALONE_TOL. It exits 1
+   when caught, 2 when missed or when the run failed before (b).
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -255,7 +295,9 @@ CAPTURE_STEPS losses against the same step under ``disable_capture()``
 from the same weights (CAPTURE_LOSS_RTOL).
 
 Then it prints the ``kernels`` JSON line (the ViT run's non-causal
-readings as entries with ``"causal": false``), the card line again, and
+readings as entries with ``"causal": false``; ``flash_fwd`` at phase 17's
+full batch, 8 x 1024, with the replica's launches, as the entry with
+``"path": "serve"``), the card line again, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
 GPU is visible, and when the package is not beside it.
 
@@ -288,10 +330,13 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -317,7 +362,11 @@ from ray_tpu_torch.models import (
     resnet_loss_fn,
     vit_loss_fn,
 )
-from ray_tpu_torch.models.gpt2 import chunked_cross_entropy, gpt2_loss_fn
+from ray_tpu_torch.models.gpt2 import (
+    chunked_cross_entropy,
+    gpt2_loss_fn,
+    matmul_f32,
+)
 from ray_tpu_torch.ops.attention import (
     causal_attention,
     ring_finish,
@@ -339,6 +388,7 @@ from ray_tpu_torch.parallel.dryrun import dryrun_multichip
 from ray_tpu_torch.parallel.mesh import DATA_AXES
 from ray_tpu_torch.parallel.pipeline import spmd_pipeline
 from ray_tpu_torch.parallel.sharding import _place_forced
+from ray_tpu_torch import serve
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -425,6 +475,20 @@ PIPE_LOSS_RTOL = 1e-5
 PIPE_GRAD_RTOL = 1e-3
 PIPE_WHOLE_GRAD_RTOL = 1e-2
 MOE_FORM_GRAD_TOL = 1e-3
+# Phase 17: a served request's last-position logits (float32, from the
+# bf16 model) against the same request run alone, batch 1, unpadded:
+# max |served - alone| <= SERVE_ALONE_TOL * rms(alone). The attention of a
+# valid row sees the same keys either way (the causal mask hides the
+# padding), but every product runs at another M (B x T rows against 1 x
+# len), so cuBLAS may sum in another order and round an element to the
+# other bf16 neighbour (2^-8 relative) in any of the 12 layers, which the
+# residual stream carries to the LM head. That is the rounding chain the
+# kernel checks hold within 2^-3 rms (flash_attention.AGREEMENT_TOL).
+# A left-padded batch moves the positions and lets attention see the
+# padding: its logits are another function, off by O(rms).
+SERVE_ALONE_TOL = 2.0 ** -3
+# ``serve_left_pad`` is caught when (b) fails it by this many limits.
+SERVE_FAULT_MARGIN = 8
 
 # The host's wait on each side of a profiled dispatch (profile_dispatch).
 PROFILE_MARGIN_S = 0.1
@@ -469,6 +533,15 @@ RUNTIME_TASKS = 1000               # no-op tasks of the host rate
 RUNTIME_ACTOR_CALLS = 2000         # calls to one actor of the host rate
 DATA_STEPS = 12                    # steps (batches) of the Data feed
 DATA_FILES = 8                     # TFRecord files the rows are cut into
+SERVE_REQUESTS = 256               # requests of each load leg of phase 17
+SERVE_CALLERS = (1, 8, 32)         # concurrent callers of the load legs
+SERVE_LENGTHS = (64, 1024)         # request lengths, uniform (numpy seed 0)
+SERVE_BATCH = 8                    # @serve.batch(max_batch_size=)
+SERVE_WAIT_S = 0.01                # @serve.batch(batch_wait_timeout_s=)
+PAD_MULTIPLE = 64                  # a batch's T: its longest, rounded up
+SERVE_HTTP_REQUESTS = 32           # requests of the HTTP leg
+SERVE_HALF_REQUESTS = 64           # requests to the two half-card replicas
+SERVE_CARDS_REQUESTS = 128         # requests to the four-card replicas
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -506,6 +579,8 @@ _DQ_MASK = ("      bool masked = min(a.tk, a.causal ? a.row0 + wrow0 + 1 : a.tk)
             " < kBK;\n")
 _DKV_QEND = "    int q_end = a.tq;\n"
 _ARGS_ROW0 = "  args.row0 = row0;"
+# Faults of phase 17's deployment (user code, not a kernel).
+SERVE_FAULTS = {"serve_left_pad": "GPT2Server pads each batch on the left"}
 FAULTS = {
     "flash_fwd": (_FWD_MASK, _FWD_MASK + "    if (j == 3 && q0 + kFwdBQ >= a.tq)"
                   " masked = true, lim[0] = lim[1] = 0;\n"),
@@ -2982,6 +3057,551 @@ def data_phase(card: str, main_run: dict, runtime: dict) -> None:
                  {name: n for name in SQUARE}, "the TorchTrainer Data feed")
 
 
+# -- phase 17: Serve ---------------------------------------------------------
+
+
+def serve_requests(n: int, vocab: int, seed: int = 0,
+                   lengths: tuple[int, int] = SERVE_LENGTHS) -> list[dict]:
+    """``n`` requests ``{"id", "tokens"}`` (int32), lengths uniform in
+    ``lengths`` (inclusive), from numpy ``seed``."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lengths[0], lengths[1] + 1, n)
+    return [{"id": i, "tokens": rng.integers(0, vocab, k).astype(np.int32)}
+            for i, k in enumerate(lengths)]
+
+
+def pad_batch(seqs, left: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """A batch's ``[B, T]`` int32 tokens, padded with 0 to its longest
+    request rounded up to PAD_MULTIPLE, and each row's last valid
+    position. Right padding leaves a causal forward's valid rows as they
+    are; ``left`` (the planted fault ``serve_left_pad``) pads in front."""
+    t = -(-max(len(s) for s in seqs) // PAD_MULTIPLE) * PAD_MULTIPLE
+    tokens = np.zeros((len(seqs), t), np.int32)
+    last = np.empty(len(seqs), np.int64)
+    for i, seq in enumerate(seqs):
+        if left:
+            tokens[i, t - len(seq):], last[i] = seq, t - 1
+        else:
+            tokens[i, :len(seq)], last[i] = seq, len(seq) - 1
+    return tokens, last
+
+
+def last_logits(model, tokens, last):
+    """GPT-2's float32 logits at each row's position ``last`` (``[B,
+    vocab]``): the LM head on those rows only."""
+    h = model(tokens, return_hidden=True)
+    rows = h[torch.arange(len(last), device=h.device), last]
+    dt = model.config.dtype
+    return matmul_f32(rows.to(dt), model.wte.weight.to(dt).t())
+
+
+def logits_of(model, tokens: np.ndarray, last: np.ndarray) -> np.ndarray:
+    dev = model.wte.weight.device
+    with torch.inference_mode():
+        return last_logits(model, torch.from_numpy(tokens).to(dev),
+                           torch.from_numpy(last).to(dev)).cpu().numpy()
+
+
+class GPT2Server:
+    """The deployment of phase 17 (user code): GPT-2 124M on the card
+    the replica holds (``default_device()``, which raises without one),
+    its weights from the object store. Each ``@serve.batch`` batch is one
+    forward of the right-padded batch under ``inference_mode`` (entered
+    in the batch's worker thread, where the forward runs). A request gets
+    back its last valid position's float32 logits (numpy), the top-1 id
+    and the batch's signature: the request ids in order, the padded T,
+    the replica's pid and card and the flash launches of that forward."""
+
+    def __init__(self, weights, left_pad: bool = False):
+        import ray_tpu_torch
+        t_init = time.time()
+        t0 = time.perf_counter()
+        self.left_pad = left_pad
+        self.model = GPT2(GPT2Config.small(), seed=1)   # other weights ...
+        load_weights(self.model, ray_tpu_torch.get(weights))  # ... replaced
+        self.dev = self.model.wte.weight.device
+        t1 = time.perf_counter()
+        # Warm every padded length the batches can have, at a full batch.
+        with torch.inference_mode():
+            for t in range(PAD_MULTIPLE, SERVE_LENGTHS[1] + 1, PAD_MULTIPLE):
+                last_logits(self.model, torch.zeros(
+                    SERVE_BATCH, t, dtype=torch.int32, device=self.dev),
+                    torch.full((SERVE_BATCH,), t - 1, device=self.dev))
+            # The ops of one full batch's forward, as the profiler sees
+            # them: the attention is the flash kernel's op, not SDPA.
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+                last_logits(self.model, torch.zeros(
+                    SERVE_BATCH, SERVE_LENGTHS[1], dtype=torch.int32,
+                    device=self.dev), torch.full(
+                        (SERVE_BATCH,), SERVE_LENGTHS[1] - 1, device=self.dev))
+        torch.cuda.synchronize()
+        # (An attribute named "ops" would make cloudpickle ship the
+        # unpicklable torch.ops module with this class.)
+        self.attention_ops = sorted({e.key for e in prof.key_averages()
+                                     if "attention" in e.key
+                                     or "flash" in e.key})
+        fa.reset_launch_counts()
+        self.info = {"pid": os.getpid(),
+                     "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                     "device": str(self.dev),
+                     "card": str(torch.cuda.get_device_properties(
+                         self.dev).uuid),
+                     "model_s": t1 - t0, "warm_s": time.perf_counter() - t1,
+                     "t_init": t_init, "t_ready": time.time()}
+
+    @serve.batch(max_batch_size=SERVE_BATCH, batch_wait_timeout_s=SERVE_WAIT_S)
+    def forward(self, reqs):
+        tokens, last = pad_batch([r["tokens"] for r in reqs], self.left_pad)
+        before = fa.launch_counts()
+        logits = logits_of(self.model, tokens, last)
+        after = fa.launch_counts()
+        sig = {"ids": [r["id"] for r in reqs], "T": int(tokens.shape[1]),
+               "pid": self.info["pid"], "card": self.info["card"],
+               "launches": {k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}}
+        return [{"id": r["id"], "logits": logits[i],
+                 "top1": int(logits[i].argmax()), "batch": sig}
+                for i, r in enumerate(reqs)]
+
+    def __call__(self, request):
+        out = self.forward(request)
+        if isinstance(request["tokens"], list):      # over HTTP: JSON
+            out = dict(out, logits=out["logits"].tolist())
+        return out
+
+    def stats(self) -> dict:
+        """The replica's card, start-up times, the attention ops of one
+        forward, and the launches since its warm-up ended."""
+        return dict(self.info, attention_ops=self.attention_ops,
+                    counts=fa.launch_counts())
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def drive(call, reqs: list[dict], callers: int) -> dict:
+    """Every request through ``call`` from ``callers`` threads at once
+    (each takes the next request when its last is answered): responses in
+    request order, per-request latency, requests/s, tokens/s (prompt
+    tokens), p50 and p99 latency and the mean batch size."""
+    out, lat, errors = [None] * len(reqs), [0.0] * len(reqs), []
+    nxt, lock = iter(range(len(reqs))), threading.Lock()
+
+    def caller():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t = time.perf_counter()
+            try:
+                out[i] = call(reqs[i])
+            except Exception as e:  # noqa: BLE001 — re-raised below
+                errors.append(e)
+                return
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=caller) for _ in range(callers)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    batches = {(o["batch"]["pid"], tuple(o["batch"]["ids"])) for o in out}
+    ms = np.asarray(lat) * 1e3
+    return {"responses": out, "wall": wall, "rps": len(reqs) / wall,
+            "tps": sum(len(r["tokens"]) for r in reqs) / wall,
+            "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)),
+            "mean_batch": len(reqs) / len(batches), "batches": batches}
+
+
+def forward_times(model, b: int, n: int) -> dict:
+    """The in-process forward of ``b`` requests of ``n`` tokens, padded as
+    the replica pads them, run as the replica's batch runs it
+    (``logits_of``: tokens in, forward, logits out), one call at a time:
+    its mean time on the host clock over 20 calls, and the card's busy
+    time in it (the device time torch.profiler records over 5 calls, None
+    where it records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens, last = pad_batch([np.zeros(n, np.int32)] * b)
+    logits_of(model, tokens, last)
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        logits_of(model, tokens, last)
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)     # as in profile_dispatch
+        for _ in range(5):
+            logits_of(model, tokens, last)
+        time.sleep(PROFILE_MARGIN_S)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return {"T": tokens.shape[1], "wall_ms": float(np.mean(walls)) * 1e3,
+            "busy_ms": busy_us / 5e3 if busy_us else None}
+
+
+def describe_forward(f: dict) -> str:
+    if f["busy_ms"] is None:
+        return (f"host clock {f['wall_ms']:.3f} ms, device busy not "
+                f"measured")
+    return (f"host clock {f['wall_ms']:.3f} ms, device busy "
+            f"{f['busy_ms']:.3f} ms of it ({f['busy_ms'] / f['wall_ms']:.1%})")
+
+
+def describe_leg(leg: dict) -> str:
+    return (f"{leg['rps']:.2f} requests/s, {leg['tps']:.0f} tokens/s, p50 "
+            f"{leg['p50']:.2f} ms, p99 {leg['p99']:.2f} ms, mean batch "
+            f"{leg['mean_batch']:.2f} ({len(leg['batches'])} batches) in "
+            f"{leg['wall']:.2f} s")
+
+
+class Reference:
+    """The driver's in-process GPT-2 (the replicas' weights, seed 0, on
+    cuda:0): each served batch recomputed (cached by its signature) and
+    each request run alone, batch 1, unpadded."""
+
+    def __init__(self, model, reqs: list[dict]):
+        self.model, self.reqs = model, {r["id"]: r["tokens"] for r in reqs}
+        self.batches: dict[tuple, np.ndarray] = {}
+        self.alone: dict[int, np.ndarray] = {}
+
+    def batch(self, ids: tuple, t: int) -> np.ndarray:
+        if (ids, t) not in self.batches:
+            tokens, last = pad_batch([self.reqs[i] for i in ids])
+            check(tokens.shape[1] == t, f"batch {ids} padded to {t}")
+            self.batches[(ids, t)] = logits_of(self.model, tokens, last)
+        return self.batches[(ids, t)]
+
+    def single(self, i: int) -> np.ndarray:
+        if i not in self.alone:
+            seq = self.reqs[i]
+            self.alone[i] = logits_of(self.model, seq[None], np.asarray(
+                [len(seq) - 1]))[0]
+        return self.alone[i]
+
+
+def serve_readings(legs: list[list[dict]], ref: Reference) -> dict:
+    """(b) and (c) over the responses of one or more runs (``legs``):
+    bit-equality with each batch recomputed in process, the worst |served
+    - alone| / rms(alone), top-1 against the logits' argmax, and the
+    launches of every batch, keyed by (run, replica pid, request ids)."""
+    unequal, worst_batch, worst_alone, top1, n = 0, 0.0, 0.0, True, 0
+    launches = {}
+    vocab = GPT2Config.small().vocab_size
+    for k, responses in enumerate(legs):
+        for o in responses:
+            n += 1
+            sig = o["batch"]
+            got = np.asarray(o["logits"], dtype=np.float32)
+            want = ref.batch(tuple(sig["ids"]), sig["T"])[
+                sig["ids"].index(o["id"])]
+            if not np.array_equal(got.view(np.int32), want.view(np.int32)):
+                unequal += 1
+                worst_batch = max(worst_batch,
+                                  float(np.abs(got - want).max()))
+            alone = ref.single(o["id"])
+            rms = float(np.sqrt(np.mean(alone.astype(np.float64) ** 2)))
+            worst_alone = max(worst_alone,
+                              float(np.abs(got - alone).max()) / rms)
+            top1 = (top1 and got.shape == (vocab,)
+                    and bool(np.isfinite(got).all())
+                    and o["top1"] == int(got.argmax()))
+            launches[(k, sig["pid"], tuple(sig["ids"]))] = sig["launches"]
+    return {"n": n, "unequal": unequal, "worst_batch": worst_batch,
+            "worst_alone": worst_alone, "top1": top1, "launches": launches}
+
+
+def batches_of(r: dict, pid: int) -> int:
+    """Batches that replica ``pid`` served in readings ``r``."""
+    return sum(1 for _, p, _ in r["launches"] if p == pid)
+
+
+def describe_readings(r: dict) -> str:
+    n = GPT2Config.small().n_layer
+    bad = [v for v in r["launches"].values() if v != {"flash_fwd": n}]
+    return (f"{r['n']} responses: {r['n'] - r['unequal']} bit-equal to their "
+            f"batch recomputed in process (worst |diff| {r['worst_batch']:.3g})"
+            f"; against each request alone (batch 1, unpadded) worst "
+            f"|diff| / rms {r['worst_alone']:.4g} (limit {SERVE_ALONE_TOL}); "
+            f"top-1 the argmax of finite logits of the vocabulary "
+            f"{r['top1']}; {len(r['launches'])} batches, each {n} flash_fwd "
+            f"launches and no other: {not bad}")
+
+
+def check_serve(r: dict, what: str) -> None:
+    check(r["unequal"] == 0, f"{what}: every response bit-equal to its batch "
+          f"recomputed in process ({r['unequal']} of {r['n']} not; worst "
+          f"|diff| {r['worst_batch']:.4g})")
+    check(r["worst_alone"] <= SERVE_ALONE_TOL, f"{what}: every response "
+          f"within {SERVE_ALONE_TOL} rms of its request alone (worst "
+          f"{r['worst_alone']:.4g})")
+    check(r["top1"], f"{what}: finite logits of the vocabulary, top-1 their "
+          f"argmax")
+    n = GPT2Config.small().n_layer
+    check(all(v == {"flash_fwd": n} for v in r["launches"].values()),
+          f"{what}: {n} flash_fwd launches a batch (one a layer) and no "
+          f"backward")
+
+
+def check_replica(stats: dict, cuda_visible: str, batches: int,
+                  what: str) -> None:
+    """(c) in the replica: on its card, the flash op in the forward and
+    no SDPA, one flash_fwd launch a layer a batch served, no backward
+    launch."""
+    check(stats["device"] == "cuda:0" and stats["cuda_visible"] ==
+          cuda_visible, f"{what}: the replica holds its card "
+          f"(CUDA_VISIBLE_DEVICES {stats['cuda_visible']}, {stats['device']})")
+    ops = stats["attention_ops"]
+    check("ray_tpu_torch::flash_fwd" in ops and not any(
+        "scaled_dot_product" in op for op in ops),
+        f"{what}: the forward's attention is the flash op, no SDPA ({ops})")
+    n = GPT2Config.small().n_layer
+    want = {name: n * batches if name == "flash_fwd" else 0
+            for name in stats["counts"]}
+    check(stats["counts"] == want, f"{what}: launches since the warm-up "
+          f"{stats['counts']}, want {want}")
+
+
+def http_call(port: int):
+    import urllib.request
+
+    def call(req: dict) -> dict:
+        body = json.dumps({"id": req["id"],
+                           "tokens": req["tokens"].tolist()}).encode()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/", data=body, headers={
+                    "Content-Type": "application/json"}), timeout=120) as r:
+            return json.loads(r.read())
+    return call
+
+
+def handle_call(handle):
+    return lambda req: handle.remote(req).result(timeout_s=120)
+
+
+def replica_stats(rt, name: str) -> list[dict]:
+    """stats() of every replica of deployment ``name``, straight from the
+    controller's replica handles."""
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+    controller = rt.get_actor(CONTROLLER_NAME)
+    _, replicas = rt.get(controller.get_replicas.remote(name), timeout=60)
+    return [rt.get(r.handle_request.remote("stats", (), {}), timeout=60)
+            for r in replicas]
+
+
+def serve_phase(card: str, dev, fault: str | None = None) -> dict:
+    """Phase 17 (module docstring). With ``fault`` (``serve_left_pad``),
+    only (a) and (b) on the first requests, and (b) must fail it."""
+    import ray_tpu_torch as rt
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    weights = numpy_weights(model)
+    reqs = serve_requests(SERVE_REQUESTS, cfg.vocab_size)
+    ref = Reference(model, reqs)
+    kernel_row = None if fault else kernel_phase(SERVE_BATCH,
+                                                 SERVE_LENGTHS[1], dev)
+    rt.init()
+    try:
+        return serve_legs(rt, card, weights, reqs, ref, kernel_row, fault)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+
+
+def serve_legs(rt, card, weights, reqs, ref, kernel_row, fault):
+    from ray_tpu_torch.serve.replica import Replica
+    weights_ref = rt.put(weights)
+    # (a') No CPU fallback: a replica that holds no card cannot start.
+    nocard = Replica.options(num_cpus=0).remote(GPT2Server, (weights_ref,),
+                                                {}, "gpt2#nocard")
+    try:
+        rt.get(nocard.handle_request.remote("stats", (), {}), timeout=300)
+        refused = "started"
+    except Exception as e:  # noqa: BLE001 — the replica's start failed
+        refused = str(e)
+    rt.kill(nocard)
+    said = [line for line in refused.splitlines() if "CUDA" in line]
+    print(f"serve (a) a GPT2Server replica without a card refuses to start: "
+          f"{'no CUDA device' in refused} ({(said or [refused])[-1][:200]})",
+          flush=True)
+    check("no CUDA device" in refused, "a replica without a card refuses "
+          "to start (no CPU fallback)")
+
+    # (a) Start: serve.run to the first answer, HTTP ingress on.
+    try:
+        import aiohttp  # noqa: F401 — the proxy's server
+        port = free_port()
+    except ImportError:
+        port = None
+        print("serve: aiohttp does not import on this machine, so no HTTP "
+              "proxy and no HTTP leg (an optional dependency of the JAX "
+              "package's Serve too)", flush=True)
+    app = serve.deployment(GPT2Server).options(
+        name="gpt2", ray_actor_options={"num_gpus": 1}).bind(
+            weights_ref, left_pad=fault == "serve_left_pad")
+    t0, t_run = time.perf_counter(), time.time()
+    handle = serve.run(app, name="gpt2", http_port=port)
+    t_returned = time.time()
+    first = handle.remote(reqs[0]).result(timeout_s=300)
+    start_s = time.perf_counter() - t0
+    (stats,) = replica_stats(rt, "gpt2")
+    print(f"serve (a) GPT-2 124M behind a num_gpus=1 replica (pid "
+          f"{stats['pid']}, CUDA_VISIBLE_DEVICES {stats['cuda_visible']}, "
+          f"{stats['device']}): serve.run to the first answer "
+          f"{start_s:.2f} s: to the replica's __init__ "
+          f"{stats['t_init'] - t_run:.2f} s (the controller, the worker's "
+          f"start, its imports and the class's unpickling), __init__ "
+          f"{stats['t_ready'] - stats['t_init']:.2f} s (the model and its "
+          f"weights {stats['model_s']:.2f} s, the warm-up of "
+          f"{SERVE_LENGTHS[1] // PAD_MULTIPLE} padded lengths at batch "
+          f"{SERVE_BATCH} and one profiled forward {stats['warm_s']:.2f} s), "
+          f"then to serve.run's return {t_returned - stats['t_ready']:.2f} s "
+          f"(readiness probe, routing table); "
+          f"attention ops of a forward {stats['attention_ops']}; card "
+          f"{card}",
+          flush=True)
+    check(first["id"] == 0, "the first answer is the first request's")
+
+    if fault:
+        leg = drive(handle_call(handle), reqs[:SERVE_HALF_REQUESTS], 8)
+        r = serve_readings([leg["responses"]], ref)
+        print(f"serve (b) with the fault {fault}: {describe_readings(r)}; "
+              f"card {card}", flush=True)
+        return r
+
+    # (d) Load through the handle, then (b) and (c) on every response.
+    legs = {}
+    for callers in SERVE_CALLERS:
+        legs[callers] = leg = drive(handle_call(handle), reqs, callers)
+        print(f"serve (d) {len(reqs)} requests through the handle at "
+              f"{callers} caller(s): {describe_leg(leg)}; card {card}",
+              flush=True)
+    full = forward_times(ref.model, SERVE_BATCH, SERVE_LENGTHS[1])
+    floor_ms = full["wall_ms"]
+    mean_len = round(float(np.mean([len(r["tokens"]) for r in reqs])))
+    alone = forward_times(ref.model, 1, mean_len)
+    print(f"serve (d) the in-process forward, one call at a time as the "
+          f"replica runs it (tokens in, forward, logits out): a full batch "
+          f"({SERVE_BATCH} x {SERVE_LENGTHS[1]}) {describe_forward(full)}, "
+          f"so {SERVE_BATCH / floor_ms * 1e3:.1f} requests/s at most from "
+          f"one replica; one request alone at the requests' mean length "
+          f"({mean_len} tokens, 1 x {alone['T']} padded) "
+          f"{describe_forward(alone)}; card {card}", flush=True)
+    responses = [[first]] + [leg["responses"] for leg in legs.values()]
+    http = None
+    if port is not None:
+        http = drive(http_call(port), reqs[:SERVE_HTTP_REQUESTS], 8)
+        hr = serve_readings([http["responses"]], ref)
+        print(f"serve (d) {SERVE_HTTP_REQUESTS} requests over HTTP through "
+              f"the proxy at 8 callers: {describe_leg(http)}; "
+              f"{describe_readings(hr)}; card {card}", flush=True)
+        check_serve(hr, "over HTTP")
+        responses.append(http["responses"])
+    r = serve_readings(responses, ref)
+    print(f"serve (b), (c) {describe_readings(r)}; card {card}", flush=True)
+    check_serve(r, "through the handle")
+    (stats,) = replica_stats(rt, "gpt2")
+    print(f"serve (c) the replica's launches since its warm-up "
+          f"{stats['counts']} for {len(r['launches'])} batches; card {card}",
+          flush=True)
+    check_replica(stats, "0", len(r["launches"]), "the replica")
+    launches = stats["counts"]["flash_fwd"]
+    serve.delete("gpt2")
+
+    # (e) Two replicas at num_gpus=0.5 on the one card.
+    app = serve.deployment(GPT2Server).options(
+        name="gpt2half", num_replicas=2,
+        ray_actor_options={"num_gpus": 0.5}).bind(weights_ref)
+    t0 = time.perf_counter()
+    handle = serve.run(app, name="gpt2half")
+    first = handle.remote(reqs[0]).result(timeout_s=300)
+    half_start_s = time.perf_counter() - t0
+    half = drive(handle_call(handle), reqs[:SERVE_HALF_REQUESTS], 32)
+    # The rate beside (d)'s single replica, on the same SERVE_REQUESTS.
+    half_rate = drive(handle_call(handle), reqs, 32)
+    hr = serve_readings([[first], half["responses"],
+                         half_rate["responses"]], ref)
+    served = {}
+    for o in half["responses"]:
+        served[o["batch"]["pid"]] = served.get(o["batch"]["pid"], 0) + 1
+    stats = replica_stats(rt, "gpt2half")
+    print(f"serve (e) two replicas at num_gpus=0.5 on the one card (started "
+          f"in {half_start_s:.2f} s; CUDA_VISIBLE_DEVICES "
+          f"{[s['cuda_visible'] for s in stats]}): requests per replica "
+          f"{sorted(served.values())} of {SERVE_HALF_REQUESTS} at 32 "
+          f"callers; {len(reqs)} requests at 32 callers "
+          f"{describe_leg(half_rate)} (one replica, (d): "
+          f"{legs[32]['rps']:.2f} requests/s); {describe_readings(hr)}; card "
+          f"{card}", flush=True)
+    check(len(served) == 2 and min(served.values()) >= 1,
+          "both half-card replicas served requests")
+    check_serve(hr, "the half-card replicas")
+    for st in stats:
+        check_replica(st, "0", batches_of(hr, st["pid"]),
+                      "a half-card replica")
+    return {"start_s": start_s, "legs": legs, "http": http,
+            "floor_ms": floor_ms, "alone": alone, "half": half_rate,
+            "kernel": dict(kernel_row["flash_fwd"], launches=launches)}
+
+
+def serve_cards_phase(n: int, card: str) -> None:
+    """Phase 16's serve leg on ``n`` cards (module docstring)."""
+    import ray_tpu_torch as rt
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    weights = numpy_weights(model)
+    reqs = serve_requests(SERVE_CARDS_REQUESTS, cfg.vocab_size)
+    ref = Reference(model, reqs)
+    rt.init()
+    try:
+        app = serve.deployment(GPT2Server).options(
+            name="gpt2cards", num_replicas=n,
+            ray_actor_options={"num_gpus": 1}).bind(rt.put(weights))
+        t0 = time.perf_counter()
+        handle = serve.run(app, name="gpt2cards")
+        first = handle.remote(reqs[0]).result(timeout_s=300)
+        start_s = time.perf_counter() - t0
+        leg = drive(handle_call(handle), reqs, 32)
+        r = serve_readings([[first], leg["responses"]], ref)
+        stats = replica_stats(rt, "gpt2cards")
+        served = {s["pid"]: batches_of(r, s["pid"]) for s in stats}
+        requests = {}
+        for o in leg["responses"]:
+            requests[o["batch"]["card"]] = requests.get(
+                o["batch"]["card"], 0) + 1
+        print(f"multicard serve: {n} replicas at num_gpus=1 (started in "
+              f"{start_s:.2f} s) on cards {[s['card'] for s in stats]} "
+              f"(CUDA_VISIBLE_DEVICES {[s['cuda_visible'] for s in stats]}); "
+              f"requests per card {sorted(requests.values())}, batches per "
+              f"replica {sorted(served.values())}; {len(reqs)} requests at "
+              f"32 callers {describe_leg(leg)}; against card 0's in-process "
+              f"recompute: {describe_readings(r)}; card {card}", flush=True)
+        check(len({s["card"] for s in stats}) == n
+              and sorted(s["cuda_visible"] for s in stats)
+              == [str(i) for i in range(n)],
+              f"{n} replicas on {n} distinct cards")
+        check(len(requests) == n, "every replica served requests")
+        check_serve(r, "the replicas on four cards, against card 0")
+        for st in stats:
+            check_replica(st, st["cuda_visible"], served[st["pid"]],
+                          "a replica on its own card")
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+
+
 def plant_fault(name: str) -> str:
     """Build kernel ``name``'s source with the fault of FAULTS, under the
     build directory, and bind that kernel's wrapper (and only it) to it.
@@ -3066,6 +3686,35 @@ def band_fault_result(name: str, dev) -> dict:
                        and all(layer_caught.values()))}
 
 
+def serve_fault_main(name: str, dev, card: str) -> int:
+    """``--plant-fault serve_left_pad``: the build, then phase 17's (a) and
+    (b) with the deployment padding its batches on the left, (b) read
+    without raising. Exits 1 when (b) catches the fault (every response
+    unequal to its batch recomputed, and off its request alone by more
+    than SERVE_FAULT_MARGIN limits), 2 when it does not, and 2 when the run
+    failed before (b)."""
+    print(f"planted fault {name}: {SERVE_FAULTS[name]}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        build.ensure_built()
+        print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+        r = serve_phase(card, dev, fault=name)
+    except Exception:  # noqa: BLE001 — the harness failed, not (b)
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_b": True}), flush=True)
+        return 2
+    caught = (r["unequal"] == r["n"]
+              and r["worst_alone"] > SERVE_FAULT_MARGIN * SERVE_ALONE_TOL)
+    print(json.dumps({"fault": name, "responses": r["n"],
+                      "unequal_to_their_batch": r["unequal"],
+                      "worst_alone_over_rms": r["worst_alone"],
+                      "limit": SERVE_ALONE_TOL,
+                      "caught_above": SERVE_FAULT_MARGIN * SERVE_ALONE_TOL,
+                      "caught": caught}), flush=True)
+    return 1 if caught else 2
+
+
 def fault_main(name: str, dev) -> int:
     build.ensure_built()
     tmp = plant_fault(name)
@@ -3147,12 +3796,15 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     build.ensure_built()
     print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
     held = multicard_phase(n, fault)
-    print(f"chip_smoke --cards {n}: {time.perf_counter() - t0:.1f} s after "
-          "the build began", flush=True)
     if fault:
         print(json.dumps({"fault": fault, "caught": not held}), flush=True)
         return 0 if not held else 1
     check(held, "phase 16: every multi-card check held")
+    t16 = time.perf_counter()
+    serve_cards_phase(n, card)
+    print(f"multicard serve: {time.perf_counter() - t16:.1f} s; chip_smoke "
+          f"--cards {n}: {time.perf_counter() - t0:.1f} s after the build "
+          "began", flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3163,7 +3815,8 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plant-fault",
-                        choices=sorted(FAULTS) + sorted(multicard.FAULTS))
+                        choices=sorted(FAULTS) + sorted(multicard.FAULTS)
+                        + list(SERVE_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -3183,6 +3836,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     if args.cards:
         return cards_main(args.cards, args.plant_fault, card)
+    if args.plant_fault in SERVE_FAULTS:
+        return serve_fault_main(args.plant_fault, dev, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -3235,6 +3890,11 @@ def run_all(dev, card: str) -> int:
     data_phase(card, main_run, runtime)
     print(f"data: phase 15 {time.perf_counter() - t15:.1f} s; card "
           f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    t17 = time.perf_counter()
+    served = serve_phase(card, dev)
+    print(f"serve: phase 17 {time.perf_counter() - t17:.1f} s; card "
+          f"{card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
     print("phase 16 (the mesh routes across cards) needs --cards 4 and four "
@@ -3256,6 +3916,12 @@ def run_all(dev, card: str) -> int:
                  "replaces": REPLACES[name], "causal": False,
                  "launches": vit_run["counts"][name], **vit_rows[name]}
                 for name in SQUARE]
+    # The forward kernel on the serving path: timed at a full batch
+    # (SERVE_BATCH x 1024), launched by the replica of phase 17 (d).
+    kernels.append({"name": "flash_fwd", "route": "cuda",
+                    "source": SOURCES["flash_fwd"],
+                    "replaces": REPLACES["flash_fwd"], "path": "serve",
+                    **served["kernel"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ CUDA flash kernels (``ops``), the train step, optimizers, checkpoints
 and the trainer (``train``), the mesh and its collectives (``parallel``,
 ``collective``), the single-node core runtime (``core``): tasks,
 actors, the shared-memory object store and placement groups, with the
-GPU as a scheduler resource, and the Data library on it (``data``).
+GPU as a scheduler resource, the Data library on it (``data``) and
+Serve (``serve``), whose replicas hold cards.
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.
@@ -80,3 +81,19 @@ __all__ = [
     "get_current_placement_group", "placement_group_table",
     "LoggingConfig",
 ]
+
+
+_SUBPACKAGES = ("data", "train", "serve", "experimental", "util",
+                "runtime_env")
+
+
+def __getattr__(name: str):
+    """Lazy subpackage attributes, as ``ray_tpu``'s: ``import
+    ray_tpu_torch`` is enough for ``ray_tpu_torch.serve.run(...)``,
+    without every library's import cost up front."""
+    if name in _SUBPACKAGES:
+        import importlib
+        mod = importlib.import_module(f"ray_tpu_torch.{name}")
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")

@@ -117,7 +117,7 @@ def init(num_cpus: int | None = None,
         raise NotImplementedError(
             "init(address=...) connects a client to a running head, "
             "which is multi-node; ray_tpu_torch does not run it yet "
-            "(ROADMAP.md §1)")
+            "(ROADMAP.md §1, item 7: multi-node)")
     if include_dashboard:
         raise NotImplementedError(
             "the dashboard is not ported to ray_tpu_torch yet "

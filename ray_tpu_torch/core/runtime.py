@@ -76,7 +76,7 @@ def _multi_node(what: str) -> NotImplementedError:
     daemon, remote clients): this package runs one node so far."""
     return NotImplementedError(
         f"{what} is multi-node, which ray_tpu_torch does not run yet "
-        f"(ROADMAP.md §1)")
+        f"(ROADMAP.md §1, item 7: multi-node)")
 
 
 def _sendable(obj: SerializedObject) -> tuple[bytes, list[bytes]]:
@@ -802,6 +802,10 @@ class DriverRuntime:
         sock_dir = f"{session_root()}/{os.getpid()}"
         os.makedirs(sock_dir, exist_ok=True)
         self.client_address = os.path.join(sock_dir, "runtime.sock")
+        # The session's secret. Nothing dials in over TCP on one node;
+        # Serve's gRPC ingress token derives from it
+        # (serve.api.grpc_ingress_token), as in the JAX package.
+        self.cluster_token: bytes = os.urandom(16)
         # Per-worker log capture + driver-side republish (reference:
         # log_monitor.py). log_dir=None disables capture.
         self.log_dir: str | None = None
@@ -3647,6 +3651,13 @@ class DriverRuntime:
             "Labels": dict(n.labels),
             "alive_workers": per_node.get(n.node_id, 0),
         } for n in recs]
+
+    def drain_node(self, node_id: str, reason: str = "",
+                   deadline_s: float | None = None,
+                   remove: bool = False) -> bool:
+        """Drain a node ahead of its loss (the JAX package's
+        ``Runtime.drain_node``): the one node here is the head."""
+        raise _multi_node("draining a node")
 
     def list_state(self, kind: str, filters=None):
         """State-API read usable from the driver process (workers

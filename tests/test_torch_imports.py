@@ -41,7 +41,10 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.core.worker_entry", "ray_tpu_torch.native.store",
            "ray_tpu_torch.runtime_env.plugins", "ray_tpu_torch.util.tracing",
            "ray_tpu_torch.observability.plane",
-           "ray_tpu_torch.train.trainer"} - set(names)
+           "ray_tpu_torch.train.trainer", "ray_tpu_torch.serve.api",
+           "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.grpc_proxy",
+           "ray_tpu_torch.experimental.internal_kv",
+           "ray_tpu_torch.cluster_utils"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
