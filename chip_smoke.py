@@ -7,6 +7,7 @@
     python3 chip_smoke.py --cards 4               (phase 16, on four cards)
     python3 chip_smoke.py --cards 4 --plant-fault ring_dkv_home
     python3 chip_smoke.py --plant-fault serve_left_pad
+    python3 chip_smoke.py --plant-fault pbt_own_restore
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -245,8 +246,16 @@ exits non-zero without its result line:
    distinct cards (UUIDs, ``CUDA_VISIBLE_DEVICES`` 0..N-1);
    SERVE_CARDS_REQUESTS requests at 32 callers, each replica serving some;
    every response bit-equal to its batch recomputed on card 0 and within
-   SERVE_ALONE_TOL of its request alone; requests/s. Phases 1-15 and 17
-   do not run under ``--cards``; the last line keeps its form. With ``--plant-fault
+   SERVE_ALONE_TOL of its request alone; requests/s. Then its Tune legs:
+   (f) phase 18's (a) with N trials at ``GPU: 1``, all at once, on N
+   distinct card UUIDs, with (a)'s checks; (g) ``train.torch.TorchTrainer``
+   on N NCCL ranks, one card each, with ``prepare_model`` (DDP) and
+   ``prepare_data_loader`` (each rank 32 / N of the 32 rows): the eager
+   losses and gradient norms of TUNE_TORCH_STEPS steps against the
+   one-card eager loop on the whole batch within ``parallel.multicard``'s
+   dp limits, 12 launches of each kernel a step on every rank. Phases
+   1-15, 17 and 18 do not run under ``--cards``; the last line keeps its
+   form. With ``--plant-fault
    ring_dkv_home`` (``multicard.FAULTS``) it runs (c) with the ring
    backward's dk, dv stopped one rotation short of home and exits 0 only
    if the checks fail it.
@@ -284,6 +293,57 @@ exits non-zero without its result line:
    response differs from its batch recomputed and one is off its request
    alone by more than SERVE_FAULT_MARGIN x SERVE_ALONE_TOL. It exits 1
    when caught, 2 when missed or when the run failed before (b).
+18. Tune (``ray_tpu_torch.tune``) on the port's runtime: GPT-2 124M
+   (``GPT2Config.small()``, random weights from seed 0, handed to every
+   trial by ``tune.with_parameters`` as host arrays) trained by
+   ``gpt2_trial``: the captured step with ``adamw(lr, weight_decay=0.1,
+   mu_dtype=bf16)`` on TUNE_BATCHES fixed batches of 32 x 1025 token ids
+   (numpy seed 0), each step's loss (taken before the update) reported
+   with the trial's launches since it started, its card and times; a
+   checkpoint is the train state (``save_train_state``) and a token that
+   the next step's report names. Trial directories live under one
+   temporary directory, removed at the end. Each leg's references run in
+   this process after its trials have exited. (a) ASHA
+   (``max_t=TUNE_STEPS, grace_period=2, reduction_factor=2``) over lr
+   TUNE_LRS, trials at ``{"CPU": 1, "GPU": 0.5}``, two at a time,
+   checkpointing at their last step: no trial errors; two trials
+   overlapped on the same card UUID; each trial's losses against the same
+   steps in this process (CAPTURE_LOSS_RTOL, bit-equal expected); ASHA
+   stopped exactly the trials a fresh ASHAScheduler, fed the results in
+   the order Tune recorded them, stops; ``compile_count`` 1 and 12
+   launches of each kernel a step counted in every trial; the best lr
+   printed. (b) PBT (``perturbation_interval=2``, lr mutations
+   TUNE_MUTATIONS, ``quantile_fraction=0.5``, seed 0) over lr
+   TUNE_PBT_LRS, both trials at ``GPU: 0.5`` and started together,
+   checkpointing every 2 steps: an exploit, each from a donor of the upper
+   quantile; each restart's first loss bit-equal to the donor's own loss
+   from the same checkpoint (the loss precedes the update, so the new lr
+   does not reach it), and the donor's checkpoint restored here giving
+   that loss and, one step later at the new lr, the trial's weights
+   (per-parameter sums within CAPTURE_LOSS_RTOL: the restored AdamW
+   moments at work); the launches as in (a). (c) ``Tuner(TorchTrainer(
+   gpt2_trainer_loop, ScalingConfig(num_workers=1, gpus_per_worker=1)),
+   param_space={"train_loop_config": {"lr": 3e-4}})``, one trial: its
+   losses against (a)'s trial at 3e-4, or the same steps in this process
+   where ASHA stopped that trial early (bit-equal expected), NCCL, the
+   launches; ``Tuner.fit()`` to the trainer's first step beside phase
+   14's ``fit()`` to its first report. (d) ``train.torch.TorchTrainer(
+   torch_trainer_loop, torch_config=TorchConfig())``: backend NCCL,
+   ``get_device()`` the card the scheduler gave; a plain eager loop of
+   TUNE_TORCH_STEPS steps through ``prepare_model`` against
+   ``disable_capture()`` here (CAPTURE_LOSS_RTOL); ``TorchCheckpoint
+   .from_model`` round trips on the card bit-equal. (e) At
+   ``dropout=0.1``: ``gpt2_loss`` bit-equal to ``dropout=0``; a
+   ``deterministic=False`` forward with a CUDA ``torch.Generator`` keeps
+   0.9 of the activations at every site within 4 sigma, each kept value
+   x/0.9 exactly; two draws differ; the same seed gives the same output.
+   Prints each leg's time and each trial's start to first report.
+   ``--plant-fault pbt_own_restore`` runs (b) with every exploited trial
+   restoring its own latest checkpoint instead of its donor's, reads (b)'s
+   checks without raising and prints ``{"fault": ..., "caught": ...}``:
+   caught when an exploit happened and a restart's first report is not
+   its donor's. It exits 1 when caught, 2 when missed or when the run
+   failed before (b)'s checks.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -388,7 +448,7 @@ from ray_tpu_torch.parallel.dryrun import dryrun_multichip
 from ray_tpu_torch.parallel.mesh import DATA_AXES
 from ray_tpu_torch.parallel.pipeline import spmd_pipeline
 from ray_tpu_torch.parallel.sharding import _place_forced
-from ray_tpu_torch import serve
+from ray_tpu_torch import serve, tune
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -542,6 +602,21 @@ PAD_MULTIPLE = 64                  # a batch's T: its longest, rounded up
 SERVE_HTTP_REQUESTS = 32           # requests of the HTTP leg
 SERVE_HALF_REQUESTS = 64           # requests to the two half-card replicas
 SERVE_CARDS_REQUESTS = 128         # requests to the four-card replicas
+TUNE_STEPS = 8                     # steps of each trial (ASHA's max_t)
+TUNE_BATCHES = 4                   # fixed batches a trial cycles through
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)   # (a)'s grid
+TUNE_PBT_LRS = (1e-5, 1e-3)        # (b)'s population
+TUNE_MUTATIONS = [1e-5, 1e-4, 1e-3]   # PBT's lr choices
+TUNE_PBT_INTERVAL = 2              # PBT's perturbation interval, and (b)'s
+#                                    checkpoint interval
+TUNE_SHARE = 0.5                   # each trial's share of the card
+TUNE_TRAINER_LR = 3e-4             # (c)'s trial, one of (a)'s grid
+TUNE_TORCH_STEPS = 4               # (d)'s and (g)'s eager steps
+DROPOUT_RATE = 0.1                 # (e)
+DROPOUT_BATCH = 8                  # (e)'s forward batch (x TRAIN_SEQ)
+# Faults of phase 18's trials (user code, not a kernel).
+TUNE_FAULTS = {"pbt_own_restore": "a PBT-exploited trial restores its own "
+               "latest checkpoint, not its donor's"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1162,8 +1237,10 @@ def train_batch(vocab: int, b: int = TRAIN_BATCH, t: int = TRAIN_SEQ):
 
 
 def device_batch(toks, tgts, dev) -> dict:
-    return {"tokens": torch.from_numpy(toks).to(dev),
-            "targets": torch.from_numpy(tgts).to(dev)}
+    """Host token ids on ``dev`` (a copy first of an array the object
+    store handed out read-only)."""
+    return {k: torch.from_numpy(np.require(v, requirements="W")).to(dev)
+            for k, v in (("tokens", toks), ("targets", tgts))}
 
 
 # Kernel-name markers of each device-time group of ``profile_dispatch``,
@@ -3602,6 +3679,965 @@ def serve_cards_phase(n: int, card: str) -> None:
         rt.shutdown()
 
 
+# -- phase 18: Tune -------------------------------------------------------------
+
+
+def tune_batches(vocab: int, n: int = TUNE_BATCHES, b: int = TRAIN_BATCH,
+                 t: int = TRAIN_SEQ) -> list:
+    """``n`` fixed batches of ``b`` rows of ``t`` + 1 token ids (numpy seed
+    0), each as host (tokens, targets)."""
+    rows = np.random.default_rng(0).integers(0, vocab, (n, b, t + 1)) \
+        .astype(np.int32)
+    return [(r[:, :-1].copy(), r[:, 1:].copy()) for r in rows]
+
+
+def tune_spec(model_cfg, device: str = "cuda", steps: int = TUNE_STEPS,
+              **kw) -> dict:
+    """What a phase-18 trial runs (its ``with_parameters`` object): the
+    model config, its device ("cuda": the card it holds; "cpu" for the CPU
+    tests), steps, when to checkpoint (every ``ckpt_every`` steps before
+    the last, and at the last with ``ckpt_last``), the population that
+    starts together behind ``gate``, the directory of the controller's
+    marks that each step waits for (``acks``, set by :func:`tune_pbt`) and
+    a planted fault."""
+    spec = {"model": model_cfg, "device": device, "steps": steps,
+            "ckpt_every": 0, "ckpt_last": False, "population": 0, "gate": "",
+            "acks": "", "fault": None, "capture": CAPTURE}
+    spec.update(kw)
+    return spec
+
+
+def card_uuid(dev) -> str:
+    return (str(torch.cuda.get_device_properties(dev).uuid)
+            if dev.type == "cuda" else "cpu")
+
+
+def wait_for_population(gate: str, n: int, timeout: float = 300.0) -> None:
+    """Wait until ``n`` trials have reached this point (a file each in
+    ``gate``), so that a population's trials start together."""
+    with open(os.path.join(gate, f"{os.getpid()}-{time.time_ns()}"), "w"):
+        pass
+    deadline = time.monotonic() + timeout
+    while len(os.listdir(gate)) < n:
+        check(time.monotonic() < deadline, f"{n} trials reach the gate")
+        time.sleep(0.01)
+
+
+def wait_for_ack(acks: str, trial_id: str, iteration: int,
+                 timeout: float = 300.0) -> None:
+    """Wait until the Tune controller has handled this trial's result
+    ``iteration`` (:class:`ResultAcks` marked it)."""
+    path = os.path.join(acks, f"{trial_id}-{iteration}")
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline,
+              f"the controller handles {trial_id}'s result {iteration}")
+        time.sleep(0.005)
+
+
+def param_digest(model) -> list[float]:
+    """Each parameter's float64 sum: a fingerprint of the weights."""
+    with torch.no_grad():
+        return [float(p.double().sum()) for p in model.parameters()]
+
+
+def own_latest_checkpoint(trial_dir: str) -> str | None:
+    """The newest complete checkpoint of a trial's own directory."""
+    names = sorted(d for d in os.listdir(trial_dir)
+                   if d.startswith("checkpoint_") and os.path.exists(
+                       os.path.join(trial_dir, d, ".complete_rank_0")))
+    return os.path.join(trial_dir, names[-1]) if names else None
+
+
+def spec_device(spec: dict):
+    return torch.device("cpu") if spec["device"] == "cpu" \
+        else default_device()
+
+
+def tune_lm_state(weights: dict, spec: dict, lr: float, dev):
+    """GPT-2 of ``spec``'s config from ``weights`` on ``dev``, its train
+    state under ``adamw(lr, weight_decay=0.1, mu_dtype=bf16)`` and the
+    step: what a trial and the in-process references build."""
+    model = GPT2(spec["model"], seed=1, device=dev)   # other weights ...
+    load_weights(model, weights)                      # ... replaced
+    opt = adamw(lr, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    state = init_train_state(model, opt)
+    step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt,
+                           grad_norm=False)
+    return model, state, step
+
+
+def gpt2_tune_steps(config: dict, weights: dict, batches: list, spec: dict,
+                    report) -> list[float]:
+    """Phase 18's trial: GPT-2 at ``config["lr"]`` from ``weights`` on its
+    device, the captured step on the fixed ``batches`` (step i on batch i
+    mod their count) up to ``spec["steps"]``, each step's loss (taken
+    before the update) passed to ``report`` with the launch counts since
+    the trial started, its card and times. A trial that Tune restarted
+    (PBT) restores the checkpoint it was given, then reports first the
+    loss of that checkpoint's weights. A checkpoint holds the train state
+    (``save_train_state``) and a token that the next step's report names
+    (``from_token``), so a restart's first loss can be matched with the
+    donor's. Returns the losses."""
+    from ray_tpu_torch import train
+    t_start = time.time()
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    ctx = train.get_context()
+    dev = spec_device(spec)
+    model, state, step = tune_lm_state(weights, spec, config["lr"], dev)
+    trial_id = os.path.basename(os.path.normpath(ctx.trial_dir))
+    restored = ctx.restored_checkpoint_dir or ""
+    token = ""
+    if restored:
+        source = restored
+        if spec["fault"] == "pbt_own_restore":
+            source = own_latest_checkpoint(ctx.trial_dir) or restored
+        restore_train_state(os.path.join(source, "state"), state)
+        with open(os.path.join(source, "meta.json")) as f:
+            token = json.load(f)["token"]
+    elif spec["population"]:
+        wait_for_population(spec["gate"], spec["population"])
+    placed = [device_batch(*b, dev) for b in batches]
+    card = card_uuid(dev)
+    losses: list[float] = []
+    with contextlib.nullcontext() if spec["capture"] else disable_capture():
+        fa.reset_launch_counts()
+        while state.step < spec["steps"]:
+            batch = placed[state.step % len(placed)]
+            losses.append(float(step(state, batch)[1]["loss"]))
+            m = {"loss": losses[-1], "training_iteration": state.step,
+                 "ran": len(losses), "from_token": token,
+                 "restored": restored, "card": card, "pid": os.getpid(),
+                 "t_start": t_start, "t": time.time(),
+                 "counts": fa.launch_counts(),
+                 "compile_count": compile_count(step)}
+            if restored and len(losses) == 1:
+                m["digest"] = param_digest(model)
+            token, ckpt = "", None
+            every = spec["ckpt_every"]
+            if ((every and state.step % every == 0
+                 and state.step < spec["steps"])
+                    or (spec["ckpt_last"] and state.step == spec["steps"])):
+                ckpt = tempfile.mkdtemp(prefix="chip_smoke_trial_")
+                save_train_state(state, os.path.join(ckpt, "state"))
+                token = os.urandom(8).hex()
+                with open(os.path.join(ckpt, "meta.json"), "w") as f:
+                    json.dump({"token": token, "step": state.step}, f)
+            try:
+                report(m, checkpoint=None if ckpt is None
+                       else train.Checkpoint.from_directory(ckpt))
+            finally:
+                if ckpt is not None:
+                    shutil.rmtree(ckpt, ignore_errors=True)
+            if spec["acks"]:
+                wait_for_ack(spec["acks"], trial_id, state.step)
+    return losses
+
+
+def gpt2_trial(config: dict, weights: dict, batches: list, spec: dict):
+    """Phase 18's function trainable (bound by ``tune.with_parameters``)."""
+    from ray_tpu_torch import train
+    gpt2_tune_steps(config, weights, batches, spec, train.report)
+
+
+def gpt2_trainer_loop(config: dict) -> None:
+    """(c)'s TorchTrainer loop: the trial on the rank's card, each step
+    reported to the trainer, then every loss in one last report (the
+    result a Tuner over a trainer records)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    seen: list[dict] = []
+
+    def report(metrics, checkpoint=None):
+        seen.append(metrics)
+        train.report(metrics, checkpoint=checkpoint)
+
+    losses = gpt2_tune_steps(config["train_loop_config"],
+                             ray_tpu_torch.get(config["weights"]),
+                             config["batches"], config["spec"], report)
+    last = seen[-1]
+    train.report({"loss": losses[-1], "losses": losses,
+                  "t_first": seen[0]["t"], "t_start": last["t_start"],
+                  "counts": last["counts"], "ran": last["ran"],
+                  "compile_count": last["compile_count"],
+                  "card": last["card"], "backend": dist.get_backend()})
+
+
+def eager_lm_steps(module, model, batches: list, steps: int, lr: float,
+                   world: int = 1) -> tuple[list[float], list[float]]:
+    """A plain eager loop, as a user of ``train.torch`` writes it: each
+    step the forward of ``module`` (``model`` itself, or ``model`` under
+    DDP) to the hidden states, the chunked LM loss on ``model``'s tied
+    embedding, ``backward()``, the gradient norm and an
+    ``adamw(lr, weight_decay=0.1, mu_dtype=bf16)`` update. Returns the
+    losses (the mean over the ``world`` ranks) and gradient norms."""
+    from ray_tpu_torch.train.optim import global_norm
+    opt = adamw(lr, weight_decay=0.1, mu_dtype=torch.bfloat16)
+    params = list(model.parameters())
+    opt_state = opt.init(params)
+    losses, norms = [], []
+    for i in range(steps):
+        batch = batches[i % len(batches)]
+        for p in params:
+            p.grad = None
+        hidden = module(batch["tokens"], return_hidden=True)
+        loss = chunked_cross_entropy(hidden, model.wte.weight,
+                                     batch["targets"], chunk_size=2048)
+        loss.backward()
+        grads = [p.grad for p in params]
+        norms.append(float(global_norm(grads)))
+        mean = loss.detach().clone()
+        if world > 1:
+            dist.all_reduce(mean)
+            mean /= world
+        losses.append(float(mean))
+        opt.update(grads, opt_state, params)
+    return losses, norms
+
+
+def torch_trainer_loop(config: dict) -> None:
+    """(d)'s and (g)'s ``train.torch.TorchTrainer`` loop: GPT-2 on
+    ``get_device()`` through ``prepare_model``, the rows of ``config
+    ["rows"]`` through ``prepare_data_loader`` (batches of
+    ``config["batch"]`` rows a rank, unshuffled), the eager loop of
+    :func:`eager_lm_steps` on the rank's first batch; with ``round_trip``
+    a ``TorchCheckpoint.from_model`` round trip on the card. Rank 0
+    reports every rank's rows, card and launches."""
+    from torch.utils.data import DataLoader, TensorDataset
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train import torch as tt
+
+    dev = tt.get_device()
+    spec = config["spec"]
+    model = GPT2(spec["model"], seed=1, device=dev)
+    load_weights(model, ray_tpu_torch.get(config["weights"]))
+    module = tt.prepare_model(model)
+    rows = config["rows"]
+    loader = tt.prepare_data_loader(DataLoader(
+        TensorDataset(torch.arange(len(rows)), torch.from_numpy(rows)),
+        batch_size=config["batch"], shuffle=False))
+    index, block = next(iter(loader))
+    block = block.to(dev)
+    batch = {"tokens": block[:, :-1].contiguous(),
+             "targets": block[:, 1:].contiguous()}
+    fa.reset_launch_counts()
+    losses, norms = eager_lm_steps(module, model, [batch], config["steps"],
+                                   config["lr"], dist.get_world_size())
+    mine = {"rows": index.tolist(), "card": card_uuid(dev),
+            "device": str(dev), "counts": fa.launch_counts(),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids()}
+    if config.get("round_trip"):
+        with tempfile.TemporaryDirectory() as d:
+            ck = tt.TorchCheckpoint.from_model(model, directory=d)
+            other = ck.get_model(GPT2(spec["model"], seed=3, device=dev))
+        mine["round_trip"] = all(torch.equal(a, b) for a, b in zip(
+            model.parameters(), other.parameters()))
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    train.report({"losses": losses, "norms": norms, "ranks": ranks,
+                  "backend": dist.get_backend()})
+
+
+class ResultLog(tune.Callback):
+    """The results and completions a Tuner's scheduler saw, in its order
+    (for ASHA's replay)."""
+
+    def __init__(self):
+        self.events: list[tuple] = []
+
+    def on_trial_result(self, iteration, trials, trial, result):
+        self.events.append(("result", trial.trial_id, dict(result)))
+
+    def on_trial_complete(self, iteration, trials, trial):
+        self.events.append(("complete", trial.trial_id, None))
+
+
+class ResultAcks(tune.Callback):
+    """Marks each result the Tune controller handles (``on_trial_result``
+    runs just before the scheduler decides on it), for trials that wait
+    on the mark after each report: none then runs ahead of the
+    scheduler's decisions, or ends before them, however busy the
+    controller."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+
+    def on_trial_result(self, iteration, trials, trial, result):
+        with open(os.path.join(self.directory, f"{trial.trial_id}-"
+                               f"{result['training_iteration']}"), "w"):
+            pass
+
+
+class RecordedPBT(tune.PopulationBasedTraining):
+    """PBT recording, at each exploit, the trial, the donor's checkpoint,
+    the new config and whether the donor was in the upper quantile."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.log: list[dict] = []
+
+    def exploit(self, trial_id):
+        _, upper = self._quantiles()
+        config, ckpt = super().exploit(trial_id)
+        self.log.append({"trial": trial_id, "ckpt": ckpt,
+                         "config": dict(config),
+                         "upper": any(self._ckpt.get(u) == ckpt
+                                      for u in upper)})
+        return config, ckpt
+
+
+def asha_kwargs(steps: int) -> dict:
+    return {"metric": "loss", "mode": "min", "max_t": steps,
+            "grace_period": 2, "reduction_factor": 2}
+
+
+def tune_sweep(weights, batches, spec: dict, lrs, resources: dict,
+               concurrent: int, storage: str, name: str = "asha") -> dict:
+    """(a): ``Tuner`` over ``grid_search(lrs)`` under ASHA, each trial
+    holding ``resources``, ``concurrent`` at a time."""
+    from ray_tpu_torch.train import RunConfig
+    log = ResultLog()
+    trainable = tune.with_parameters(gpt2_trial, weights=weights,
+                                     batches=batches, spec=spec)
+    t0 = time.time()
+    grid = tune.Tuner(
+        trainable, param_space={"lr": tune.grid_search(list(lrs))},
+        tune_config=tune.TuneConfig(
+            metric="loss", mode="min",
+            scheduler=tune.ASHAScheduler(**asha_kwargs(spec["steps"])),
+            resources_per_trial=resources,
+            max_concurrent_trials=concurrent, seed=0),
+        run_config=RunConfig(name=name, storage_path=storage,
+                             callbacks=[log])).fit()
+    return {"grid": grid, "events": log.events, "t0": t0,
+            "wall_s": time.time() - t0}
+
+
+def tune_pbt(weights, batches, spec: dict, lrs, resources: dict,
+             storage: str, name: str = "pbt") -> dict:
+    """(b): PBT over ``lrs``, every trial started together (``spec``'s
+    gate), checkpointing every TUNE_PBT_INTERVAL steps, each step waiting
+    until the controller has handled the last (:class:`ResultAcks`)."""
+    from ray_tpu_torch.train import RunConfig
+    sched = RecordedPBT(
+        metric="loss", mode="min", perturbation_interval=TUNE_PBT_INTERVAL,
+        hyperparam_mutations={"lr": TUNE_MUTATIONS}, quantile_fraction=0.5,
+        seed=0)
+    acks = tempfile.mkdtemp(prefix="chip_smoke_acks_")
+    try:
+        trainable = tune.with_parameters(gpt2_trial, weights=weights,
+                                         batches=batches,
+                                         spec={**spec, "acks": acks})
+        t0 = time.time()
+        grid = tune.Tuner(
+            trainable, param_space={"lr": tune.grid_search(list(lrs))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=sched,
+                resources_per_trial=resources,
+                max_concurrent_trials=len(lrs), seed=0),
+            run_config=RunConfig(name=name, storage_path=storage,
+                                 callbacks=[ResultAcks(acks)])).fit()
+    finally:
+        shutil.rmtree(acks, ignore_errors=True)
+    return {"grid": grid, "log": sched.log, "exploits": sched.exploit_count,
+            "t0": t0, "wall_s": time.time() - t0}
+
+
+def reference_losses(weights, batches, spec: dict, lr: float, steps: int,
+                     capture: bool | None = None) -> list[float]:
+    """The trial's steps at ``lr`` in this process, from the same weights
+    on the same batches (captured as the trials, or eager)."""
+    dev = spec_device(spec)
+    model, state, step = tune_lm_state(weights, spec, lr, dev)
+    placed = [device_batch(*b, dev) for b in batches]
+    capture = spec["capture"] if capture is None else capture
+    with contextlib.nullcontext() if capture else disable_capture():
+        out = [float(step(state, placed[i % len(placed)])[1]["loss"])
+               for i in range(steps)]
+    del model, state, step, placed
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def restored_step(weights, batches, spec: dict, ckpt: str, lr: float
+                  ) -> tuple[float, list[float]]:
+    """A checkpoint restored in this process into other weights, one step
+    at ``lr``: its loss and the weights' digest after it."""
+    dev = spec_device(spec)
+    model, state, step = tune_lm_state(weights, spec, lr, dev)
+    restore_train_state(os.path.join(ckpt, "state"), state)
+    batch = device_batch(*batches[state.step % len(batches)], dev)
+    with contextlib.nullcontext() if spec["capture"] else disable_capture():
+        loss = float(step(state, batch)[1]["loss"])
+    digest = param_digest(model)
+    del model, state, step, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return loss, digest
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+
+def launch_checks(grid, spec: dict, what: str) -> list[tuple]:
+    """Every result's launches (12 of each square kernel a step since its
+    trial started) and captures, on the card."""
+    if spec["device"] == "cpu":
+        return []
+    per_step = GPT2Config.small().n_layer
+    want = 1 if spec["capture"] else None
+    bad = [(r.trial_id, m["ran"], m["counts"]) for r in grid
+           for m in r.metrics_history
+           if any(m["counts"].get(k, 0) != per_step * m["ran"]
+                  for k in SQUARE) or m["compile_count"] != want]
+    return [(f"{what}: {per_step} launches of each kernel a step counted "
+             f"in every trial, compile_count {want}", not bad,
+             bad[:3] or "all held")]
+
+
+def overlaps(spans: dict) -> list[tuple]:
+    """Pairs of trials whose [start, last report] spans intersect."""
+    ids = sorted(spans)
+    return [(a, b) for i, a in enumerate(ids) for b in ids[i + 1:]
+            if spans[a][0] < spans[b][1] and spans[b][0] < spans[a][1]]
+
+
+def trial_spans(grid) -> dict:
+    return {r.trial_id: (min(m["t_start"] for m in r.metrics_history),
+                         max(m["t"] for m in r.metrics_history))
+            for r in grid if r.metrics_history}
+
+
+def sweep_readings(run: dict, weights, batches, spec: dict, cards: int = 1
+                   ) -> tuple[dict, list[tuple]]:
+    """(a)'s readings and checks: no errors; on one card two trials
+    overlapped on it (``cards`` > 1: every trial on its own card, all at
+    once); each trial's losses against the same steps in this process;
+    ASHA's stops against a fresh ASHAScheduler fed the recorded results;
+    the launches."""
+    grid = run["grid"]
+    hist = {r.trial_id: r.metrics_history for r in grid}
+    lr_of = {r.trial_id: r.config["lr"] for r in grid}
+    longest = max((len(h) for h in hist.values()), default=0)
+    refs = {lr: reference_losses(weights, batches, spec, lr, longest)
+            for lr in sorted(set(lr_of.values()))}
+    rel = {tid: _rel([m["loss"] for m in h], refs[lr_of[tid]][:len(h)])
+           for tid, h in hist.items() if h}
+    equal = {tid: [m["loss"] for m in h] == refs[lr_of[tid]][:len(h)]
+             for tid, h in hist.items() if h}
+    sched = tune.ASHAScheduler(**asha_kwargs(spec["steps"]))
+    replay = set()
+    for kind, tid, result in run["events"]:
+        if kind == "complete":
+            sched.on_trial_complete(tid)
+        elif (sched.on_result(tid, result) == "STOP"
+              and result["training_iteration"] < spec["steps"]):
+            replay.add(tid)
+    early = {tid for tid, h in hist.items() if len(h) < spec["steps"]}
+    spans = trial_spans(grid)
+    card_of = {tid: h[0]["card"] for tid, h in hist.items() if h}
+    pairs = [(a, b) for a, b in overlaps(spans) if card_of[a] == card_of[b]]
+    best = grid.get_best_result("loss", "min")
+    readings = {
+        "trials": {tid: {"lr": lr_of[tid], "losses": [m["loss"] for m in h],
+                         "card": card_of.get(tid),
+                         "first_report_s": (h[0]["t"] - h[0]["t_start"]
+                                            if h else None)}
+                   for tid, h in hist.items()},
+        "rel": rel, "bit_equal": equal, "early": sorted(early),
+        "replay": sorted(replay), "same_card_overlaps": pairs,
+        "best_lr": best.config["lr"], "wall_s": run["wall_s"],
+        "errors": [r.error for r in grid.errors]}
+    checks = [("(a) no trial errors", not grid.errors,
+               readings["errors"] or "none"),
+              ("(a) each trial's losses against the same steps in this "
+               f"process (limit {CAPTURE_LOSS_RTOL})",
+               all(v <= CAPTURE_LOSS_RTOL for v in rel.values())
+               and len(rel) == len(grid), rel),
+              ("(a) ASHA stopped exactly the trials a fresh ASHAScheduler "
+               "fed the recorded results stops", replay == early,
+               {"tune": sorted(early), "replay": sorted(replay)})]
+    if cards == 1:
+        checks.append(("(a) two trials overlapped on the same card", bool(
+            pairs), pairs))
+    else:
+        ids = sorted(spans)
+        common = (max(spans[t][0] for t in ids), min(spans[t][1]
+                                                   for t in ids))
+        checks.append((f"(f) {cards} trials at once on {cards} distinct "
+                       "cards", len(set(card_of.values())) == cards
+                       and len(ids) == cards and common[0] < common[1],
+                       card_of))
+    checks += launch_checks(grid, spec, "(a)")
+    return readings, checks
+
+
+def pbt_readings(run: dict, weights, batches, spec: dict
+                 ) -> tuple[dict, list[tuple]]:
+    """(b)'s readings and checks: no errors; an exploit happened, each
+    from a donor of the upper quantile; for each restart that stepped, its
+    first report names the donor checkpoint's token and its loss equals
+    the donor's own loss from that checkpoint, bit for bit, and the same
+    checkpoint restored in this process gives that loss and, one step
+    later at the new lr, the trial's weights (the restored AdamW moments
+    at work); two trials overlapped on one card; the launches."""
+    grid = run["grid"]
+    hist = {r.trial_id: r.metrics_history for r in grid}
+    restarts = []
+    for e in run["log"]:
+        with open(os.path.join(e["ckpt"], "meta.json")) as f:
+            meta = json.load(f)
+        after = [m for m in hist[e["trial"]] if m["restored"] == e["ckpt"]]
+        row = {"trial": e["trial"], "donor": os.path.basename(
+            os.path.dirname(e["ckpt"])), "step": meta["step"],
+            "lr": e["config"]["lr"], "upper": e["upper"],
+            "stepped": bool(after)}
+        if after:
+            first = after[0]
+            donor = [m["loss"] for tid, h in hist.items() if tid != e["trial"]
+                     for m in h if m["from_token"] == meta["token"]]
+            ref_loss, ref_digest = restored_step(weights, batches, spec,
+                                                 e["ckpt"], e["config"]["lr"])
+            row.update(
+                from_donor=first["from_token"] == meta["token"],
+                loss=first["loss"], donor_loss=donor[0] if donor else None,
+                ref_loss=ref_loss,
+                donor_equal=(not donor) or first["loss"] == donor[0],
+                loss_rel=_rel(first["loss"], ref_loss),
+                digest_rel=_rel(first["digest"], ref_digest))
+        restarts.append(row)
+    stepped = [r for r in restarts if r["stepped"]]
+    spans = trial_spans(grid)
+    card_of = {tid: h[0]["card"] for tid, h in hist.items() if h}
+    pairs = [(a, b) for a, b in overlaps(spans) if card_of[a] == card_of[b]]
+    readings = {"exploits": run["exploits"], "restarts": restarts,
+                "losses": {tid: [(m["training_iteration"], m["loss"])
+                                 for m in h] for tid, h in hist.items()},
+                "configs": {r.trial_id: r.config for r in grid},
+                "same_card_overlaps": pairs, "wall_s": run["wall_s"],
+                "errors": [r.error for r in grid.errors]}
+    restore_ok = bool(stepped) and all(
+        r["from_donor"] and r["donor_equal"]
+        and r["loss_rel"] <= CAPTURE_LOSS_RTOL
+        and r["digest_rel"] <= CAPTURE_LOSS_RTOL for r in stepped)
+    checks = [("(b) no trial errors", not grid.errors,
+               readings["errors"] or "none"),
+              ("(b) at least one exploit, each from a donor of the upper "
+               "quantile", run["exploits"] >= 1
+               and all(r["upper"] for r in restarts), run["exploits"]),
+              ("(b) each restart's first loss is its donor's, bit for bit, "
+               "and the donor's checkpoint restored here gives it and the "
+               f"next weights (limit {CAPTURE_LOSS_RTOL})", restore_ok,
+               stepped),
+              ("(b) the two trials overlapped on the same card",
+               bool(pairs), pairs)]
+    checks += launch_checks(grid, spec, "(b)")
+    return readings, checks
+
+
+def tune_trainer(weights_ref, batches, spec: dict, storage: str) -> dict:
+    """(c): a Tuner over ``TorchTrainer(gpt2_trainer_loop)``, one worker
+    (holding a card, or none on the CPU), one trial at
+    ``train_loop_config={"lr": TUNE_TRAINER_LR}``."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    trainer = TorchTrainer(
+        gpt2_trainer_loop,
+        train_loop_config={"weights": weights_ref, "batches": batches,
+                           "spec": spec},
+        scaling_config=ScalingConfig(
+            num_workers=1, gpus_per_worker=0 if spec["device"] == "cpu"
+            else 1),
+        run_config=RunConfig(storage_path=storage))
+    t0 = time.time()
+    grid = tune.Tuner(
+        trainer, param_space={"train_loop_config": {"lr": TUNE_TRAINER_LR}},
+        tune_config=tune.TuneConfig(max_concurrent_trials=1),
+        run_config=RunConfig(name="trainer", storage_path=storage)).fit()
+    return {"grid": grid, "t0": t0, "wall_s": time.time() - t0}
+
+
+def trainer_readings(run: dict, ref: list[float], spec: dict
+                     ) -> tuple[dict, list[tuple]]:
+    """(c)'s readings and checks: the trial's losses against ``ref`` (the
+    same steps at TUNE_TRAINER_LR: (a)'s trial, or in this process)."""
+    grid = run["grid"]
+    r = grid[0]
+    m = r.metrics
+    losses = m.get("losses", [])
+    readings = {"losses": losses, "ref": ref[:len(losses)],
+                "bit_equal": losses == ref[:len(losses)],
+                "first_report_s": m.get("t_first", run["t0"]) - run["t0"],
+                "wall_s": run["wall_s"], "backend": m.get("backend"),
+                "error": r.error}
+    checks = [("(c) the trainer trial ran", r.error is None
+               and len(losses) == spec["steps"], r.error or len(losses)),
+              (f"(c) its losses against the same steps (limit "
+               f"{CAPTURE_LOSS_RTOL})", bool(losses) and _rel(
+                   losses, ref[:len(losses)]) <= CAPTURE_LOSS_RTOL,
+               readings["bit_equal"])]
+    if spec["device"] != "cpu":
+        want = 1 if spec["capture"] else None
+        counts = m.get("counts", {})
+        checks.append(("(c) 12 launches of each kernel a step in the "
+                       "trainer's rank, compile_count once, NCCL",
+                       all(counts.get(k) == 12 * m.get("ran", 0)
+                           for k in SQUARE)
+                       and m.get("compile_count") == want
+                       and m.get("backend") == "nccl", counts))
+    return readings, checks
+
+
+def torch_trainer_fit(weights_ref, rows: np.ndarray, spec: dict,
+                      workers: int, storage: str, round_trip: bool) -> dict:
+    """(d), (g): ``train.torch.TorchTrainer(torch_trainer_loop,
+    torch_config=TorchConfig())`` on ``workers`` ranks, one card each (or
+    gloo on the CPU), each rank ``len(rows) // workers`` rows."""
+    from ray_tpu_torch.train import RunConfig, ScalingConfig
+    from ray_tpu_torch.train import torch as tt
+    t0 = time.time()
+    result = tt.TorchTrainer(
+        torch_trainer_loop,
+        train_loop_config={"weights": weights_ref, "rows": rows,
+                           "batch": len(rows) // workers, "spec": spec,
+                           "steps": TUNE_TORCH_STEPS, "lr": TUNE_TRAINER_LR,
+                           "round_trip": round_trip},
+        scaling_config=ScalingConfig(
+            num_workers=workers,
+            gpus_per_worker=0 if spec["device"] == "cpu" else 1),
+        run_config=RunConfig(name=f"torch{workers}", storage_path=storage),
+        torch_config=tt.TorchConfig()).fit()
+    check(result.error is None, f"train.torch.TorchTrainer: {result.error}")
+    return {"metrics": result.metrics, "wall_s": time.time() - t0}
+
+
+def dropout_check(card: str) -> None:
+    """(e): GPT-2 124M at ``dropout=DROPOUT_RATE`` on the card (module
+    docstring)."""
+    from ray_tpu_torch.models import gpt2 as gpt2_module
+    cfg = GPT2Config.small()
+    host = tune_batches(cfg.vocab_size, n=1)[0]
+    plain = GPT2(cfg, seed=0)
+    dev = next(plain.parameters()).device
+    batch = device_batch(*host, dev)
+    loss_fn = gpt2_loss_fn(ce_chunk=2048)
+    with torch.no_grad():
+        l0 = loss_fn(plain, batch)
+        del plain
+        model = GPT2(GPT2Config.small(dropout=DROPOUT_RATE), seed=0)
+        l1 = loss_fn(model, batch)
+    seen = []
+    inner = gpt2_module.dropout
+
+    def recording(x, keep, rate):
+        out = inner(x, keep, rate)
+        seen.append((x, keep, out))
+        return out
+
+    tokens = batch["tokens"][:DROPOUT_BATCH]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gpt2_module.dropout = recording
+    try:
+        with torch.no_grad():
+            a = model(tokens, deterministic=False, generator=gen,
+                      return_hidden=True)
+    finally:
+        gpt2_module.dropout = inner
+    keep_p = 1.0 - DROPOUT_RATE
+    shares, scaled = [], True
+    for x, keep, out in seen:
+        shares.append(float(keep.float().mean()))
+        scaled = scaled and torch.equal(out[keep], (x / keep_p)[keep]) \
+            and not out[~keep].any()
+    sigma = (keep_p * DROPOUT_RATE / seen[0][1].numel()) ** 0.5
+    worst = max(abs(s - keep_p) for s in shares) / sigma
+    del seen
+    with torch.no_grad():
+        b = model(tokens, deterministic=False, generator=gen,
+                  return_hidden=True)
+        c = model(tokens, deterministic=False, return_hidden=True,
+                  generator=torch.Generator(device=dev).manual_seed(0))
+    print(f"tune (e) dropout {DROPOUT_RATE} on GPT-2 124M: gpt2_loss "
+          f"{float(l1)} vs {float(l0)} at dropout 0 (bit-equal "
+          f"{bool(torch.equal(l0, l1))}); deterministic=False at "
+          f"{DROPOUT_BATCH} x {TRAIN_SEQ}: {len(shares)} sites keep "
+          f"{min(shares):.5f}-{max(shares):.5f} (worst {worst:.2f} sigma "
+          f"from {keep_p}), kept values x/{keep_p} exactly {scaled}, two "
+          f"draws differ {not torch.equal(a, b)}, the same seed gives the "
+          f"same output {bool(torch.equal(a, c))}; card {card}", flush=True)
+    check(bool(torch.equal(l0, l1)), "(e) the loss at dropout 0.1 is the "
+          "loss without dropout, bit for bit")
+    check(len(shares) == 1 + 2 * cfg.n_layer and worst <= 4.0 and scaled,
+          "(e) every site keeps 0.9 within 4 sigma, at scale 1/0.9")
+    check(not torch.equal(a, b) and bool(torch.equal(a, c)),
+          "(e) two draws differ; the same seed gives the same output")
+    del model, a, b, c, batch
+    torch.cuda.empty_cache()
+
+
+def report_checks(checks: list[tuple], card: str, strict: bool = True
+                  ) -> bool:
+    """Print each (what, held, reading); raise on the first that failed
+    when ``strict``. Returns whether all held."""
+    for what, ok, reading in checks:
+        print(f"tune check {'held' if ok else 'FAILED'}: {what}: {reading}; "
+              f"card {card}", flush=True)
+    held = all(ok for _, ok, _ in checks)
+    if strict:
+        for what, ok, _ in checks:
+            check(ok, what)
+    return held
+
+
+def describe_sweep(r: dict) -> str:
+    return "; ".join(
+        f"lr {t['lr']:g} on {str(t['card'])[:13]}: {len(t['losses'])} steps "
+        f"{[round(x, 4) for x in t['losses']]}, first report "
+        f"{t['first_report_s']:.1f} s after the trial started"
+        for t in sorted(r["trials"].values(), key=lambda t: t["lr"]))
+
+
+def tune_phase(card: str, runtime: dict | None = None) -> dict:
+    """Phase 18: Tune on the card (module docstring). Returns the phase's
+    times."""
+    import ray_tpu_torch as rt
+    cfg = GPT2Config.small()
+    weights = numpy_weights(GPT2(cfg, seed=0))
+    torch.cuda.empty_cache()
+    batches = tune_batches(cfg.vocab_size)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    gate = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    free_gb = shutil.disk_usage(storage).free / 1e9
+    share = {"CPU": 1, "GPU": TUNE_SHARE}
+    times = {}
+    try:
+        rt.init()
+        try:
+            sweep = tune_sweep(weights, batches,
+                               tune_spec(cfg, ckpt_last=True), TUNE_LRS,
+                               share, 2, storage)
+            pbt = tune_pbt(weights, batches,
+                           tune_spec(cfg, ckpt_every=TUNE_PBT_INTERVAL,
+                                     population=len(TUNE_PBT_LRS),
+                                     gate=gate), TUNE_PBT_LRS, share,
+                           storage)
+            weights_ref = rt.put(weights)
+            trainer = tune_trainer(weights_ref, batches, tune_spec(cfg),
+                                   storage)
+            rows = np.concatenate([batches[0][0], batches[0][1][:, -1:]],
+                                  axis=1)
+            torch_run = torch_trainer_fit(weights_ref, rows, tune_spec(cfg),
+                                          1, storage, round_trip=True)
+        finally:
+            rt.shutdown()
+        # The references, in this process once every trial has exited.
+        spec = tune_spec(cfg)
+        ra, checks = sweep_readings(sweep, weights, batches, spec)
+        print(f"tune (a) ASHA over lr {list(TUNE_LRS)}, {len(TUNE_LRS)} "
+              f"trials at GPU {TUNE_SHARE}, 2 at a time, {TUNE_STEPS} steps "
+              f"of B={TRAIN_BATCH} T={TRAIN_SEQ}: {describe_sweep(ra)}; "
+              f"stopped early {ra['early']} (replay {ra['replay']}); "
+              f"against this process: relative {ra['rel']}, bit-equal "
+              f"{ra['bit_equal']}; overlapping on one card "
+              f"{ra['same_card_overlaps']}; best lr {ra['best_lr']:g}; "
+              f"{ra['wall_s']:.1f} s; disk free {free_gb:.0f} GB; card "
+              f"{card}", flush=True)
+        rb, more = pbt_readings(pbt, weights, batches, spec)
+        checks += more
+        print(f"tune (b) PBT over lr {list(TUNE_PBT_LRS)} at GPU "
+              f"{TUNE_SHARE}, interval {TUNE_PBT_INTERVAL}: {rb['exploits']} "
+              f"exploits, restarts {rb['restarts']}; losses "
+              f"{rb['losses']}; final configs {rb['configs']}; "
+              f"{rb['wall_s']:.1f} s; card {card}", flush=True)
+        # (a)'s trial at the same lr, or, where ASHA stopped it early, the
+        # same steps in this process.
+        ref = next((t["losses"] for t in ra["trials"].values()
+                    if t["lr"] == TUNE_TRAINER_LR), [])
+        ref_of = "(a)'s trial"
+        if len(ref) < TUNE_STEPS:
+            ref = reference_losses(weights, batches, spec, TUNE_TRAINER_LR,
+                                   TUNE_STEPS)
+            ref_of = "the same steps here"
+        rc, more = trainer_readings(trainer, ref, spec)
+        checks += more
+        phase14 = (f"phase 14's fit() to its first report "
+                   f"{runtime['first_s']:.1f} s" if runtime else
+                   "phase 14 not run")
+        print(f"tune (c) Tuner(TorchTrainer), one worker on the card at lr "
+              f"{TUNE_TRAINER_LR:g}: losses {rc['losses']} vs {ref_of} "
+              f"{rc['ref']} (bit-equal {rc['bit_equal']}); Tuner.fit() to "
+              f"the trainer's first step {rc['first_report_s']:.1f} s "
+              f"({phase14}), whole {rc['wall_s']:.1f} s; card {card}",
+              flush=True)
+        m = torch_run["metrics"]
+        rank = m["ranks"][0]
+        eager = reference_losses(weights, batches[:1], spec,
+                                 TUNE_TRAINER_LR, TUNE_TORCH_STEPS,
+                                 capture=False)
+        torch.cuda.empty_cache()
+        rel = _rel(m["losses"], eager)
+        print(f"tune (d) train.torch.TorchTrainer(torch_config="
+              f"TorchConfig()): backend {m['backend']}, get_device() "
+              f"{rank['device']} ({rank['card'][:13]}, gpu ids "
+              f"{rank['gpu_ids']}); eager losses through prepare_model "
+              f"{m['losses']} vs disable_capture() here {eager} (relative "
+              f"{rel:.3g}, bit-equal {m['losses'] == eager}); launches "
+              f"{rank['counts']}; TorchCheckpoint round trip bit-equal "
+              f"{rank['round_trip']}; {torch_run['wall_s']:.1f} s; card "
+              f"{card}", flush=True)
+        checks += [
+            ("(d) NCCL, get_device() the card the scheduler gave",
+             m["backend"] == "nccl" and rank["device"] == "cuda:0"
+             and rank["gpu_ids"] == [0]
+             and rank["card"] == card_uuid(torch.device("cuda", 0)),
+             rank["device"]),
+            (f"(d) the eager losses through prepare_model against "
+             f"disable_capture() here (limit {CAPTURE_LOSS_RTOL})",
+             rel <= CAPTURE_LOSS_RTOL, rel),
+            ("(d) 12 launches of each kernel a step",
+             all(rank["counts"].get(k) == 12 * TUNE_TORCH_STEPS
+                 for k in SQUARE), rank["counts"]),
+            ("(d) TorchCheckpoint.from_model round trips bit-equal",
+             rank["round_trip"], rank["round_trip"])]
+        report_checks(checks, card)
+        times = {"a": ra["wall_s"], "b": rb["wall_s"], "c": rc["wall_s"],
+                 "d": torch_run["wall_s"]}
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        shutil.rmtree(gate, ignore_errors=True)
+    dropout_check(card)
+    return times
+
+
+def tune_cards_phase(n: int, card: str) -> None:
+    """``--cards n``'s Tune legs: (f) ``n`` trials of (a) at ``GPU: 1``,
+    (g) ``train.torch.TorchTrainer`` on ``n`` NCCL ranks (DDP) against the
+    one-card eager loop on the whole batch."""
+    import ray_tpu_torch as rt
+    cfg = GPT2Config.small()
+    weights = numpy_weights(GPT2(cfg, seed=0))
+    torch.cuda.empty_cache()
+    batches = tune_batches(cfg.vocab_size)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    spec = tune_spec(cfg)
+    try:
+        rt.init()
+        try:
+            sweep = tune_sweep(weights, batches, spec, TUNE_LRS,
+                               {"CPU": 1, "GPU": 1}, n, storage)
+            rows = np.concatenate([batches[0][0], batches[0][1][:, -1:]],
+                                  axis=1)
+            ddp = torch_trainer_fit(rt.put(weights), rows, spec, n, storage,
+                                    round_trip=False)
+        finally:
+            rt.shutdown()
+        ra, checks = sweep_readings(sweep, weights, batches, spec, cards=n)
+        print(f"multicard tune (f) ASHA over lr {list(TUNE_LRS)} at GPU 1, "
+              f"{n} at once: {describe_sweep(ra)}; stopped early "
+              f"{ra['early']} (replay {ra['replay']}); relative "
+              f"{ra['rel']}; {ra['wall_s']:.1f} s; card {card}", flush=True)
+        model = GPT2(cfg, seed=1)
+        load_weights(model, weights)
+        whole = device_batch(*batches[0], next(model.parameters()).device)
+        fa.reset_launch_counts()
+        losses, norms = eager_lm_steps(model, model, [whole],
+                                       TUNE_TORCH_STEPS, TUNE_TRAINER_LR)
+        del model, whole
+        torch.cuda.empty_cache()
+        m = ddp["metrics"]
+        loss_rel = [_rel(a, b) for a, b in zip(m["losses"], losses)]
+        norm_rel = [_rel(a, b) for a, b in zip(m["norms"], norms)]
+        rows_seen = sorted(i for r in m["ranks"] for i in r["rows"])
+        print(f"multicard tune (g) train.torch.TorchTrainer on {n} NCCL "
+              f"ranks (DDP, {len(rows) // n} rows a rank): losses "
+              f"{m['losses']} vs one card's whole batch {losses} (relative "
+              f"{loss_rel}); gradient norms {m['norms']} vs {norms} "
+              f"(relative {norm_rel}); ranks' rows "
+              f"{[r['rows'] for r in m['ranks']]} on cards "
+              f"{[r['card'][:13] for r in m['ranks']]}; launches "
+              f"{[r['counts'] for r in m['ranks']]}; {ddp['wall_s']:.1f} s; "
+              f"card {card}", flush=True)
+        checks += [
+            (f"(g) {n} ranks on {n} distinct cards, NCCL, each "
+             f"{len(rows) // n} of the {len(rows)} rows",
+             m["backend"] == "nccl"
+             and len({r["card"] for r in m["ranks"]}) == n
+             and rows_seen == list(range(len(rows)))
+             and all(len(r["rows"]) == len(rows) // n for r in m["ranks"]),
+             [r["rows"] for r in m["ranks"]]),
+            (f"(g) step-0 loss and gradient norm within "
+             f"{multicard.STEP0_LOSS_RTOL} and {multicard.STEP0_GNORM_RTOL}, "
+             f"later within {multicard.LOSS_RTOL} and {multicard.GNORM_RTOL}",
+             loss_rel[0] <= multicard.STEP0_LOSS_RTOL
+             and norm_rel[0] <= multicard.STEP0_GNORM_RTOL
+             and all(v <= multicard.LOSS_RTOL for v in loss_rel[1:])
+             and all(v <= multicard.GNORM_RTOL for v in norm_rel[1:]),
+             (loss_rel, norm_rel)),
+            ("(g) 12 launches of each kernel a step on every rank",
+             all(r["counts"].get(k) == 12 * TUNE_TORCH_STEPS
+                 for r in m["ranks"] for k in SQUARE),
+             [r["counts"] for r in m["ranks"]])]
+        report_checks(checks, card)
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+
+
+def tune_fault_main(name: str, card: str) -> int:
+    """``--plant-fault pbt_own_restore``: the build, then phase 18's (b)
+    with every exploited trial restoring its own latest checkpoint, (b)'s
+    checks read without raising. Exits 1 when (b)'s restore check fails it
+    (caught), 2 when it does not, and 2 when the run failed before (b)'s
+    checks."""
+    import ray_tpu_torch as rt
+    print(f"planted fault {name}: {TUNE_FAULTS[name]}", flush=True)
+    storage = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    gate = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    try:
+        t0 = time.perf_counter()
+        build.ensure_built()
+        print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+        cfg = GPT2Config.small()
+        weights = numpy_weights(GPT2(cfg, seed=0))
+        torch.cuda.empty_cache()
+        batches = tune_batches(cfg.vocab_size)
+        spec = tune_spec(cfg, ckpt_every=TUNE_PBT_INTERVAL,
+                         population=len(TUNE_PBT_LRS), gate=gate, fault=name)
+        rt.init()
+        try:
+            run = tune_pbt(weights, batches, spec, TUNE_PBT_LRS,
+                           {"CPU": 1, "GPU": TUNE_SHARE}, storage)
+        finally:
+            rt.shutdown()
+        readings, checks = pbt_readings(run, weights, batches, spec)
+        print(f"tune (b) with {name}: {readings['exploits']} exploits, "
+              f"restarts {readings['restarts']}", flush=True)
+        report_checks(checks, card, strict=False)
+    except Exception:  # noqa: BLE001 — the harness failed, not (b)
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_b": True}), flush=True)
+        return 2
+    finally:
+        shutil.rmtree(storage, ignore_errors=True)
+        shutil.rmtree(gate, ignore_errors=True)
+    exploited = [ok for what, ok, _ in checks if "exploit" in what]
+    missed = [r for r in readings["restarts"] if r["stepped"]
+              and not (r["from_donor"] and r["donor_equal"])]
+    caught = all(exploited) and bool(missed)
+    print(json.dumps({"fault": name, "exploits": readings["exploits"],
+                      "restarts_read_wrong": len(missed),
+                      "restore_check_fails_it": not all(
+                          ok for what, ok, _ in checks
+                          if "first loss" in what),
+                      "caught": caught}), flush=True)
+    return 1 if caught else 2
+
+
 def plant_fault(name: str) -> str:
     """Build kernel ``name``'s source with the fault of FAULTS, under the
     build directory, and bind that kernel's wrapper (and only it) to it.
@@ -3802,7 +4838,10 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     check(held, "phase 16: every multi-card check held")
     t16 = time.perf_counter()
     serve_cards_phase(n, card)
-    print(f"multicard serve: {time.perf_counter() - t16:.1f} s; chip_smoke "
+    print(f"multicard serve: {time.perf_counter() - t16:.1f} s", flush=True)
+    t18 = time.perf_counter()
+    tune_cards_phase(n, card)
+    print(f"multicard tune: {time.perf_counter() - t18:.1f} s; chip_smoke "
           f"--cards {n}: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
     print(f"card: {card}", flush=True)
@@ -3816,7 +4855,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plant-fault",
                         choices=sorted(FAULTS) + sorted(multicard.FAULTS)
-                        + list(SERVE_FAULTS))
+                        + list(SERVE_FAULTS) + list(TUNE_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -3838,6 +4877,8 @@ def main() -> int:
         return cards_main(args.cards, args.plant_fault, card)
     if args.plant_fault in SERVE_FAULTS:
         return serve_fault_main(args.plant_fault, dev, card)
+    if args.plant_fault in TUNE_FAULTS:
+        return tune_fault_main(args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -3895,6 +4936,12 @@ def run_all(dev, card: str) -> int:
     served = serve_phase(card, dev)
     print(f"serve: phase 17 {time.perf_counter() - t17:.1f} s; card "
           f"{card}", flush=True)
+    torch.cuda.empty_cache()
+    t18 = time.perf_counter()
+    legs = tune_phase(card, runtime)
+    print(f"tune: phase 18 {time.perf_counter() - t18:.1f} s ((a) "
+          f"{legs['a']:.1f} s, (b) {legs['b']:.1f} s, (c) {legs['c']:.1f} "
+          f"s, (d) {legs['d']:.1f} s); card {card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
     print("phase 16 (the mesh routes across cards) needs --cards 4 and four "

@@ -6,8 +6,9 @@ CUDA flash kernels (``ops``), the train step, optimizers, checkpoints
 and the trainer (``train``), the mesh and its collectives (``parallel``,
 ``collective``), the single-node core runtime (``core``): tasks,
 actors, the shared-memory object store and placement groups, with the
-GPU as a scheduler resource, the Data library on it (``data``) and
-Serve (``serve``), whose replicas hold cards.
+GPU as a scheduler resource, the Data library on it (``data``),
+Serve (``serve``), whose replicas hold cards, and Tune (``tune``), whose
+trials hold cards or shares of one.
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.
@@ -83,7 +84,7 @@ __all__ = [
 ]
 
 
-_SUBPACKAGES = ("data", "train", "serve", "experimental", "util",
+_SUBPACKAGES = ("data", "train", "serve", "tune", "experimental", "util",
                 "runtime_env")
 
 

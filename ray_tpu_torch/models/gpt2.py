@@ -47,6 +47,17 @@ a masked local lookup summed over ``tp`` (:func:`vocab_embedding`), and
 the chunked cross-entropy is vocab-parallel. The placement gives each of
 those layers its ``tp`` attribute (a ``parallel.sharding.Split``).
 
+``GPT2Config.dropout`` acts as flax's ``nn.Dropout`` does in the JAX
+model: at the embedding sum, the attention projection's output and the
+MLP's output, and only in a forward with ``deterministic=False``, which
+draws its masks from the ``torch.Generator`` passed as ``generator=`` (the
+counterpart of ``rngs={"dropout": key}``). Each element is kept with
+probability 1 − ``dropout`` and scaled by 1/(1 − ``dropout``). The loss
+(:func:`gpt2_loss_fn`) and so the train step run the model
+deterministically, as the JAX package's loss does: a config with dropout
+trains as one without. A block's masks are drawn before it runs, so a
+block under remat recomputes its forward with the same masks.
+
 ``GPT2Config.remat`` runs each block under activation checkpointing
 (``torch.utils.checkpoint``, non-reentrant), the counterpart of
 ``nn.remat`` per block; ``remat_policy`` names what the forward may keep,
@@ -323,8 +334,29 @@ class MLP(nn.Module):
         return leave(y, self.tp) + self.proj.bias.to(dt)
 
 
+def dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float
+            ) -> torch.Tensor:
+    """flax ``nn.Dropout(rate)`` with its mask given: ``x / (1 − rate)``
+    where ``keep``, else 0; ``x`` itself without a mask."""
+    if keep is None:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def keep_mask(shape, rate: float, device, generator: torch.Generator
+              ) -> torch.Tensor:
+    """Which elements a dropout of ``rate`` keeps: each with probability
+    1 − ``rate``, from ``generator`` (flax's ``bernoulli(rng, 1 − rate)``
+    draw, not its bits)."""
+    return torch.rand(shape, device=device, generator=generator) < 1.0 - rate
+
+
 class Block(nn.Module):
-    """Pre-LN transformer block (LayerNorm eps 1e-5)."""
+    """Pre-LN transformer block (LayerNorm eps 1e-5). ``keep``: the masks
+    of its two dropouts (attention output, MLP output), or None."""
 
     def __init__(self, config: GPT2Config, device, gen):
         super().__init__()
@@ -334,9 +366,11 @@ class Block(nn.Module):
         self.ln_2 = LayerNorm(c.n_embd, 1e-5, c.dtype, c.param_dtype, device)
         self.mlp = MLP(c, device, gen)
 
-    def forward(self, x, attn_fn: Callable):
-        x = x + self.attn(self.ln_1(x), attn_fn)
-        return x + self.mlp(self.ln_2(x))
+    def forward(self, x, attn_fn: Callable, keep=None):
+        rate = self.attn.config.dropout
+        keep_attn, keep_mlp = keep or (None, None)
+        x = x + dropout(self.attn(self.ln_1(x), attn_fn), keep_attn, rate)
+        return x + dropout(self.mlp(self.ln_2(x)), keep_mlp, rate)
 
     @torch.no_grad()
     def load_jax_params(self, p: dict) -> None:
@@ -410,8 +444,6 @@ class GPT2(nn.Module):
     def __init__(self, config: GPT2Config, *, device=None, seed: int = 0,
                  attn_fn: Callable | None = None, mesh=None):
         super().__init__()
-        if config.dropout > 0:
-            raise NotImplementedError("dropout > 0 is not ported yet")
         if config.remat:
             remat_policy(config.remat_policy)   # unknown names raise here
         self.config = config
@@ -431,18 +463,39 @@ class GPT2(nn.Module):
         self.h = nn.ModuleList(Block(c, device, gen) for _ in range(c.n_layer))
         self.ln_f = LayerNorm(c.n_embd, 1e-5, c.dtype, c.param_dtype, device)
 
-    def forward(self, tokens: torch.Tensor, return_hidden: bool = False):
-        dt = self.config.dtype
+    def forward(self, tokens: torch.Tensor, deterministic: bool = True,
+                return_hidden: bool = False,
+                generator: torch.Generator | None = None):
+        """Logits, or with ``return_hidden`` the final hidden states.
+        ``deterministic=False`` applies the config's dropout with masks
+        from ``generator`` (ValueError without one)."""
+        c = self.config
+        dt = c.dtype
         b, t = tokens.shape
-        pos0 = seq_offset(self.mesh, self.config.sp_axis, t)
+        rate = c.dropout if not deterministic else 0.0
+        if rate > 0 and generator is None:
+            raise ValueError(
+                "deterministic=False with dropout > 0 draws its masks from "
+                "generator= (a torch.Generator on the model's device), as "
+                "the JAX model draws them from rngs={'dropout': key}")
+
+        def masks(n: int):
+            if rate <= 0:
+                return None
+            return tuple(keep_mask((b, t, c.n_embd), rate, tokens.device,
+                                   generator) for _ in range(n))
+
+        pos0 = seq_offset(self.mesh, c.sp_axis, t)
         x = vocab_embedding(tokens, self.wte.weight, self.tp, dt) \
             + self.wpe.weight[pos0:pos0 + t].to(dt)
+        if rate > 0:
+            x = dropout(x, masks(1)[0], rate)
         for block in self.h:
-            if self.config.remat:
-                x = remat_call(block, x, self.attn_fn,
-                               policy=self.config.remat_policy)
+            if c.remat:
+                x = remat_call(block, x, self.attn_fn, masks(2),
+                               policy=c.remat_policy)
             else:
-                x = block(x, self.attn_fn)
+                x = block(x, self.attn_fn, masks(2))
         x = self.ln_f(x)
         if return_hidden:
             # Final hidden states for the chunked LM-head loss, which

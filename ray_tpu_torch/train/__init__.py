@@ -1,53 +1,60 @@
 """ray_tpu_torch.train — the train step (captured as a CUDA graph on the
 card), its optimizers, the input pipeline, sharded checkpoints, and
 ``TorchTrainer``, which runs a loop on a gang of runtime actors
-(counterpart of ``ray_tpu.train`` and its ``JaxTrainer``)."""
+(counterpart of ``ray_tpu.train`` and its ``JaxTrainer``). The framework
+modules keep the JAX package's names: ``train.torch`` (``TorchConfig``,
+``prepare_model``, ``prepare_data_loader``, ``get_device``),
+``train.huggingface`` (``TransformersTrainer``) and ``train.sklearn``
+(``SklearnTrainer``).
 
-from ray_tpu_torch.train.checkpoint import (
-    restore_pytree,
-    restore_train_state,
-    save_pytree,
-    save_train_state,
-)
-from ray_tpu_torch.train.optim import (
-    SGD,
-    AdamW,
-    AdamWState,
-    SGDState,
-    adamw,
-    global_norm,
-    sgd,
-)
-from ray_tpu_torch.train.config import (
-    TRAIN_DATASET_KEY,
-    BackendConfig,
-    CheckpointConfig,
-    DataConfig,
-    FailureConfig,
-    RunConfig,
-    ScalingConfig,
-    SyncConfig,
-)
-from ray_tpu_torch.train.prefetch import DevicePrefetcher, prefetch_to_device
-from ray_tpu_torch.train.session import (
-    Checkpoint,
-    get_checkpoint,
-    get_context,
-    get_dataset_shard,
-    report,
-)
-from ray_tpu_torch.train.step import (
-    TrainState,
-    batch_spec,
-    buffers_donated,
-    compile_count,
-    disable_capture,
-    init_train_state,
-    make_multi_train_step,
-    make_train_step,
-    shard_batch,
-)
-from ray_tpu_torch.train.trainer import Result, TorchTrainer
+The names below load their module on first use, as ``ray_tpu_torch``'s
+subpackages do: a runtime worker that only runs a trial or a loop's
+session imports no torch until its code does."""
+
+import importlib
+
+_HOME = {
+    "restore_pytree": "checkpoint",
+    "restore_train_state": "checkpoint",
+    "save_pytree": "checkpoint",
+    "save_train_state": "checkpoint",
+    "SGD": "optim",
+    "AdamW": "optim",
+    "AdamWState": "optim",
+    "SGDState": "optim",
+    "adamw": "optim",
+    "global_norm": "optim",
+    "sgd": "optim",
+    "TRAIN_DATASET_KEY": "config",
+    "BackendConfig": "config",
+    "CheckpointConfig": "config",
+    "DataConfig": "config",
+    "FailureConfig": "config",
+    "RunConfig": "config",
+    "ScalingConfig": "config",
+    "SyncConfig": "config",
+    "DevicePrefetcher": "prefetch",
+    "prefetch_to_device": "prefetch",
+    "Checkpoint": "session",
+    "get_checkpoint": "session",
+    "get_context": "session",
+    "get_dataset_shard": "session",
+    "report": "session",
+    "TrainState": "step",
+    "batch_spec": "step",
+    "buffers_donated": "step",
+    "compile_count": "step",
+    "disable_capture": "step",
+    "init_train_state": "step",
+    "make_multi_train_step": "step",
+    "make_train_step": "step",
+    "shard_batch": "step",
+    "Result": "trainer",
+    "TorchTrainer": "trainer",
+}
+_SUBMODULES = ("checkpoint", "config", "huggingface", "optim", "prefetch",
+               "session", "sklearn", "step", "torch", "trainer",
+               "worker_group")
 
 __all__ = [
     "TrainState", "init_train_state", "make_train_step", "batch_spec",
@@ -62,3 +69,20 @@ __all__ = [
     "Checkpoint", "get_checkpoint", "get_context", "get_dataset_shard",
     "report", "TorchTrainer", "Result",
 ]
+
+
+def __getattr__(name: str):
+    if name in _HOME:
+        value = getattr(importlib.import_module(
+            f"{__name__}.{_HOME[name]}"), name)
+    elif name in _SUBMODULES:
+        value = importlib.import_module(f"{__name__}.{name}")
+    else:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_HOME) | set(_SUBMODULES))

@@ -16,48 +16,77 @@ the mesh where this rank holds a block of it (cut over ``tp`` or ``ep``,
 sharded by FSDP2, or both), views of the state's own storage, so that
 restoring into the tree restores the state.
 
-A ``scheme://`` directory (the JAX module uploads through
-``ray_tpu.util.storage``) raises NotImplementedError until the storage
-layer is ported (ROADMAP §1).
+Remote destinations, as in the JAX module: a ``scheme://`` directory
+routes through ``util.storage``. The save is staged in a local temporary
+directory (``core.config.temp_path``), then the tree uploads through the
+scheme's byte-copy backend; a restore downloads it into one first. Under
+a process group each rank stages and uploads the files it wrote, which
+together are the checkpoint.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
-import re
+import shutil
+import tempfile
 from typing import Any
 
 import torch
 import torch.distributed.checkpoint as dcp
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ray_tpu_torch.core.config import temp_path
 from ray_tpu_torch.parallel.mesh import AXIS_FSDP
 from ray_tpu_torch.parallel.sharding import Placement, is_sharded, local
+from ray_tpu_torch.util.storage import is_uri, storage_for_uri
 
 
-def _local_directory(directory: str) -> str:
-    if re.match(r"^[a-zA-Z][a-zA-Z0-9+.-]*://", directory):
-        raise NotImplementedError(
-            f"{directory}: remote checkpoints go through util.storage, "
-            "which is not in the port yet (ROADMAP §1)")
-    return directory
+@contextlib.contextmanager
+def _staging(prefix: str):
+    """A local temporary directory for a remote checkpoint, removed
+    after."""
+    base = temp_path("ray_tpu_torch_ckpt_staging")
+    os.makedirs(base, exist_ok=True)
+    staging = tempfile.mkdtemp(prefix=prefix, dir=base)
+    try:
+        yield staging
+    finally:
+        shutil.rmtree(staging, ignore_errors=True)
 
 
 def save_pytree(tree: Any, directory: str) -> str:
-    """Save ``tree`` to ``directory``; every rank of the process group
-    calls it together. Returns the directory."""
-    directory = _local_directory(directory)
+    """Save ``tree`` to ``directory`` (a path or a ``scheme://`` URI);
+    every rank of the process group calls it together. Returns the
+    directory."""
+    if is_uri(directory):
+        with _staging("up_") as staging:
+            _save_local(tree, staging)
+            storage_for_uri(directory).upload_dir(staging, directory)
+        return directory
+    return _save_local(tree, directory)
+
+
+def _save_local(tree: Any, directory: str) -> str:
     os.makedirs(directory, exist_ok=True)
     dcp.save(tree, checkpoint_id=directory)
     return directory
 
 
 def restore_pytree(directory: str, target: Any = None) -> Any:
-    """The tree saved in ``directory``. With ``target`` (a tree of the
-    same keys), read in place into its tensors, each rank the blocks its
-    tensors hold, and return it; without, whole tensors on the CPU."""
-    directory = _local_directory(directory)
+    """The tree saved in ``directory`` (a path or a ``scheme://`` URI).
+    With ``target`` (a tree of the same keys), read in place into its
+    tensors, each rank the blocks its tensors hold, and return it;
+    without, whole tensors on the CPU."""
+    if is_uri(directory):
+        with _staging("down_") as staging:
+            storage_for_uri(directory).download_dir(directory, staging)
+            return _restore_local(staging, target)
+    return _restore_local(directory, target)
+
+
+def _restore_local(directory: str, target: Any = None) -> Any:
     if target is None:
         target = _whole_tree(directory)
     dcp.load(target, checkpoint_id=directory)

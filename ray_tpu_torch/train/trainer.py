@@ -196,8 +196,11 @@ class TorchTrainer:
                 gang_cards = sorted(
                     {i for ids in group.run("gpu_ids", timeout=60)
                      for i in ids}, key=str)
+            # Backend knobs (train.torch.TorchConfig's timeout) ride the
+            # rendezvous payload.
             group.run("setup_distributed", group.coordinator(),
-                      self.scaling.device, gang_cards, timeout=120)
+                      self.scaling.device, gang_cards, timeout=120,
+                      **(getattr(self, "_backend_setup_extra", None) or {}))
             ctx_kwargs = {
                 "experiment_name": os.path.basename(trial_dir),
                 "storage_path": self.run_config.storage_path,

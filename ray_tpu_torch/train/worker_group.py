@@ -56,7 +56,8 @@ class TrainWorker:
         return ray_tpu_torch.get_gpu_ids()
 
     def setup_distributed(self, coordinator: str, device: str = "cpu",
-                          gang_cards: list | None = None) -> bool:
+                          gang_cards: list | None = None,
+                          timeout_s: float | None = None) -> bool:
         """Join the gang's default process group through
         ``parallel.initialize``: NCCL with one card a rank for
         ``device="cuda"``, gloo for ``"cpu"``. Rendezvous through
@@ -68,7 +69,10 @@ class TrainWorker:
         gang: the rank widens its ``CUDA_VISIBLE_DEVICES`` to them
         before CUDA starts in this process, and ``LOCAL_RANK`` is the
         index of its own first card among them, so the rank's device
-        ``cuda:LOCAL_RANK`` is the card the scheduler gave it."""
+        ``cuda:LOCAL_RANK`` is the card the scheduler gave it.
+        ``timeout_s`` (``train.torch.TorchConfig``) is the group's
+        timeout."""
+        import datetime
         import os
 
         import torch
@@ -90,7 +94,9 @@ class TrainWorker:
                           RANK=str(self.rank),
                           WORLD_SIZE=str(self.world_size),
                           LOCAL_RANK=str(local))
-        self._device = initialize(device)
+        kwargs = {} if timeout_s is None else {
+            "timeout": datetime.timedelta(seconds=timeout_s)}
+        self._device = initialize(device, **kwargs)
         return True
 
     def start_loop(self, fn_and_config: tuple, context_kwargs: dict) -> bool:

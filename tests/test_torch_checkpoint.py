@@ -13,8 +13,8 @@ their losses must match the uninterrupted run's within 2e-5 (the second
 reads the restored moments and count), and the step count must be
 restored. A restore with no target gives whole tensors of the model's
 shapes. In this process, outside any process group: a tree of whole
-tensors and a step round-trips bit for bit, and a ``scheme://``
-directory raises NotImplementedError.
+tensors and a step round-trips bit for bit, and so does a ``scheme://``
+directory with a storage backend (``mock-s3://``).
 """
 
 from __future__ import annotations
@@ -101,8 +101,18 @@ def test_whole_tree_round_trips_outside_a_process_group(tmp_path):
     assert torch.equal(target["params"]["w"], tree["params"]["w"])
 
 
-def test_remote_directory_raises_until_storage_is_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="util.storage"):
+def test_remote_directory_raises_until_storage_is_ported(tmp_path,
+                                                         monkeypatch):
+    """util.storage is ported: a ``scheme://`` directory goes through its
+    backend (``mock-s3://`` here; tests/test_torch_train_frameworks.py has
+    the train-state round trips), and a scheme with no backend raises,
+    naming ``register_storage``."""
+    monkeypatch.setenv("RAY_TPU_MOCK_S3_DIR", str(tmp_path / "s3"))
+    tree = {"w": torch.arange(6.0).reshape(2, 3), "step": 4}
+    save_pytree(tree, "mock-s3://bucket/ckpt")
+    back = restore_pytree("mock-s3://bucket/ckpt")
+    assert torch.equal(back["w"], tree["w"]) and back["step"] == 4
+    with pytest.raises(ValueError, match="register_storage"):
         save_pytree({"w": torch.zeros(2)}, "gs://bucket/ckpt")
-    with pytest.raises(NotImplementedError, match="util.storage"):
+    with pytest.raises(ValueError, match="register_storage"):
         restore_pytree("s3://bucket/ckpt")

@@ -199,8 +199,11 @@ def test_return_hidden_and_seeded_init():
 
 
 def test_dropout_and_bad_params_raise():
-    with pytest.raises(NotImplementedError):
-        GPT2(GPT2Config.tiny(dropout=0.1), device="cpu")
+    """A dropout config builds (tests/test_torch_gpt2_dropout.py holds it
+    to the JAX model); its dropping forward without a generator raises."""
+    dropping = GPT2(GPT2Config.tiny(dropout=0.1), device="cpu")
+    with pytest.raises(ValueError, match="generator="):
+        dropping(torch.zeros(1, 8, dtype=torch.long), deterministic=False)
     _, jparams, model = _pair("f32")
     bad = jax.tree_util.tree_map(np.asarray, jparams)
     bad["wte"]["embedding"] = bad["wte"]["embedding"][:10]

@@ -44,7 +44,13 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.train.trainer", "ray_tpu_torch.serve.api",
            "ray_tpu_torch.serve.proxy", "ray_tpu_torch.serve.grpc_proxy",
            "ray_tpu_torch.experimental.internal_kv",
-           "ray_tpu_torch.cluster_utils"} - set(names)
+           "ray_tpu_torch.cluster_utils", "ray_tpu_torch.tune.tune",
+           "ray_tpu_torch.tune.search", "ray_tpu_torch.tune.schedulers",
+           "ray_tpu_torch.tune.pb2", "ray_tpu_torch.tune.registry",
+           "ray_tpu_torch.tune.classic", "ray_tpu_torch.tune.compat",
+           "ray_tpu_torch.tune.optuna", "ray_tpu_torch.train.torch",
+           "ray_tpu_torch.train.huggingface",
+           "ray_tpu_torch.train.sklearn"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
