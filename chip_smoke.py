@@ -8,6 +8,7 @@
     python3 chip_smoke.py --cards 4 --plant-fault ring_dkv_home
     python3 chip_smoke.py --plant-fault serve_left_pad
     python3 chip_smoke.py --plant-fault pbt_own_restore
+    python3 chip_smoke.py --plant-fault learner_no_allreduce
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -254,7 +255,8 @@ exits non-zero without its result line:
    losses and gradient norms of TUNE_TORCH_STEPS steps against the
    one-card eager loop on the whole batch within ``parallel.multicard``'s
    dp limits, 12 launches of each kernel a step on every rank. Phases
-   1-15, 17 and 18 do not run under ``--cards``; the last line keeps its
+   1-15 and 17-19 do not run under ``--cards`` (19's (e) and (h) do); the
+   last line keeps its
    form. With ``--plant-fault
    ring_dkv_home`` (``multicard.FAULTS``) it runs (c) with the ring
    backward's dk, dv stopped one rotation short of home and exits 0 only
@@ -344,6 +346,59 @@ exits non-zero without its result line:
    caught when an exploit happened and a restart's first report is not
    its donor's. It exits 1 when caught, 2 when missed or when the run
    failed before (b)'s checks.
+19. RLlib (``ray_tpu_torch.rllib``) on the port's runtime: PPO's learner
+   on ``cuda:0`` in this process (full float32: TF32 off inside the
+   learner's calls), its env runners actors on the CPU. CartPole is
+   gymnasium's ``CartPole-v1`` where gymnasium imports, else a numpy copy
+   of its dynamics registered as ``chip_cartpole`` (printed). (a) PPO on
+   CartPole with the JAX test's settings (2 runners, ``train_batch_size
+   =1024``, ``lr=3e-3``, minibatch 128 x 6 epochs, RLLIB_ITERS
+   iterations): the best ``episode_reward_mean`` past the first by 30;
+   the learner's parameters on ``cuda:0``; every runner process sees
+   ``CUDA_VISIBLE_DEVICES=""``, keeps its model on the CPU and runs one
+   torch thread (read on the actor by ``__ray_call__``); one capture of
+   the minibatch update, and Adam's count equal to every update made.
+   (b) A learner on the card against the same learner with
+   ``device="cpu"`` here, from (a)'s initial weights, on (a)'s first
+   episodes: one update on the first minibatch (the gradients within
+   LEARNER_GRAD_RTOL, L2; the updates within LEARNER_UPDATE_RTOL of the
+   update's size, L2 over the model), then one ``update_from_episodes``
+   (the parameters within LEARNER_UPDATE_RTOL of the update, the metrics
+   within LEARNER_METRIC_RTOL). (c) PPO on ``chip_frames`` (ChipFrames: [84, 84,
+   4] uint8 frames from numpy seed 0, 6 actions, 1000-step episodes) with
+   the catalog's CNN at the Nature-DQN filters and ``hidden=(512,)``
+   (about 4.0 M parameters), 2 runners, batch FRAMES_BATCH, minibatch
+   FRAMES_MINIBATCH x FRAMES_EPOCHS epochs, FRAMES_ITERS iterations: the
+   losses finite, one capture, (b)'s one-update comparison on the first
+   iteration's batch (the CNN's updates on raw frames amplify float32
+   rounding itself, so the card-vs-CPU distance after the iteration's
+   first epoch, 16 updates, is printed beside the CPU's
+   float32-vs-float64 distance over the same updates, not checked);
+   prints sample and learn seconds an iteration, env steps/s, updates/s,
+   one runner's sample of SPLIT_STEPS timed inside its actor and through
+   the object store, the card's busy share of one profiled learn phase
+   and the peak memory. (d) The recurrent learner (GRU RECURRENT_HIDDEN) on
+   RECURRENT_EPISODES episodes of the JAX test's memory task: (b)'s
+   comparison and the captured shapes. (e) ``LearnerGroup`` of two
+   learners at ``GPU: 0.5`` on (c)'s model and a fixed GROUP_ROWS-row batch
+   (numpy seed 0), 3 updates: equal ``weights_digests``, one card UUID,
+   the first update against an in-process update on the card with the mean
+   of the two shards' gradients (LEARNER_UPDATE_RTOL); prints the ring
+   all-reduce's time and bytes an update. (f) (a)'s state through
+   ``save_to_path`` and ``PPO.from_checkpoint``: bit-equal, the same
+   greedy action on 16 observations; ``Tuner(PPO.as_trainable(builder,
+   num_iterations=2))`` over lr RLLIB_TUNE_LRS at ``{"CPU": 1, "GPU":
+   0.5}``: both trials at ``training_iteration`` 2, each trial's process
+   on this card. Prints each leg's time. ``--plant-fault
+   learner_no_allreduce`` runs (e) with learners that apply their own
+   shard's gradients, reads (e)'s checks without raising and prints
+   ``{"fault": ..., "caught": ...}``: exit 1 when the digests or the
+   mean-gradient comparison fail it, 2 when missed or when the run failed
+   before (e). Under ``--cards N``, after phase 16's Tune legs: (e) again
+   (a runtime of one card) and (h) ``LearnerGroup`` of N learners at
+   ``GPU: 1``: N distinct card UUIDs, equal digests after 3 updates, the
+   first update against the in-process mean-gradient update on card 0;
+   the ring all-reduce's time beside (e)'s.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -397,6 +452,7 @@ import tempfile
 import threading
 import time
 import traceback
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -448,7 +504,10 @@ from ray_tpu_torch.parallel.dryrun import dryrun_multichip
 from ray_tpu_torch.parallel.mesh import DATA_AXES
 from ray_tpu_torch.parallel.pipeline import spmd_pipeline
 from ray_tpu_torch.parallel.sharding import _place_forced
+import ray_tpu_torch
 from ray_tpu_torch import serve, tune
+from ray_tpu_torch.rllib import learner_group
+from ray_tpu_torch.rllib.learner_group import LearnerGroup
 from ray_tpu_torch.train import (
     adamw,
     buffers_donated,
@@ -617,6 +676,41 @@ DROPOUT_BATCH = 8                  # (e)'s forward batch (x TRAIN_SEQ)
 # Faults of phase 18's trials (user code, not a kernel).
 TUNE_FAULTS = {"pbt_own_restore": "a PBT-exploited trial restores its own "
                "latest checkpoint, not its donor's"}
+RLLIB_ITERS = 12                   # (a)'s iterations, as the JAX test's
+NATURE_FILTERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))   # Nature-DQN's convs
+FRAME_SHAPE = (84, 84, 4)          # Atari's stacked frames
+FRAME_POOL = 64                    # distinct frames of chip_frames
+RLLIB_ACTIONS = 6                  # chip_frames' actions
+FRAMES_EPISODE = 1000              # chip_frames' episode length
+FRAMES_BATCH = 4096                # (c)'s train_batch_size
+FRAMES_MINIBATCH = 256
+FRAMES_EPOCHS = 4                  # 64 captured updates an iteration
+FRAMES_ITERS = 2
+SPLIT_STEPS = 256                  # (c)'s runner sample timed alone
+RECURRENT_HIDDEN = 64              # (d)'s GRU width
+RECURRENT_EPISODES = 40            # (d)'s episodes, as the JAX test's
+GROUP_ROWS = 512                   # (e)'s fixed batch
+RLLIB_TUNE_LRS = (3e-4, 3e-3)      # (f)'s grid
+RLLIB_TUNE_SHARE = 0.5             # (f)'s trials' share of the card
+# (b): the card's update against the CPU's from the same weights, TF32 off
+# in the learner: float32 sums in another order, which Adam turns into a
+# full step on entries whose gradient is near zero. Over the whole model
+# (L2, relative to the update's own size) that weighs little; TF32's
+# rounding of every product's inputs to 10 mantissa bits (~5e-4
+# relative) would not. It holds one update, and a whole
+# update_from_episodes of (a)'s MLP and (d)'s GRU; the CNN's updates on
+# raw frames amplify float32 rounding itself (the CPU's float32 lands as
+# far from its float64), so (c) holds one update and prints its first
+# epoch beside that float64 distance.
+LEARNER_UPDATE_RTOL = 1e-3
+LEARNER_METRIC_RTOL = 1e-3
+# The first minibatch's gradient, card against CPU (L2 relative): float32
+# sums in another order differ by about 1e-6; TF32's 10-bit inputs by
+# about 5e-4 in every product.
+LEARNER_GRAD_RTOL = 1e-5
+# Faults of phase 19's learner group (user code, not a kernel).
+RLLIB_FAULTS = {"learner_no_allreduce": "the group's learners apply their "
+                "own shard's gradients, skipping the all-reduce"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -4380,13 +4474,13 @@ def dropout_check(card: str) -> None:
     torch.cuda.empty_cache()
 
 
-def report_checks(checks: list[tuple], card: str, strict: bool = True
-                  ) -> bool:
+def report_checks(checks: list[tuple], card: str, strict: bool = True,
+                  prefix: str = "tune") -> bool:
     """Print each (what, held, reading); raise on the first that failed
     when ``strict``. Returns whether all held."""
     for what, ok, reading in checks:
-        print(f"tune check {'held' if ok else 'FAILED'}: {what}: {reading}; "
-              f"card {card}", flush=True)
+        print(f"{prefix} check {'held' if ok else 'FAILED'}: {what}: "
+              f"{reading}; card {card}", flush=True)
     held = all(ok for _, ok, _ in checks)
     if strict:
         for what, ok, _ in checks:
@@ -4638,6 +4732,778 @@ def tune_fault_main(name: str, card: str) -> int:
     return 1 if caught else 2
 
 
+# -- phase 19: RLlib ------------------------------------------------------------
+
+
+class ChipCartPole:
+    """CartPole-v1's dynamics in numpy (gymnasium's classic_control
+    cartpole: Euler steps of 0.02 s, force 10 N, pole half-length 0.5 m,
+    terminated past 12 degrees or 2.4 m, truncated at 500 steps, reward 1
+    a step; the state starts uniform in +-0.05), registered as
+    ``chip_cartpole`` where gymnasium does not import."""
+
+    def __init__(self):
+        self.rng = np.random.default_rng()
+        self.state = np.zeros(4)
+        self.t = 0
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        self.state = self.rng.uniform(-0.05, 0.05, size=4)
+        self.t = 0
+        return self.state.astype(np.float32), {}
+
+    def step(self, action):
+        x, x_dot, theta, theta_dot = self.state
+        force = 10.0 if int(action) == 1 else -10.0
+        cos, sin = np.cos(theta), np.sin(theta)
+        total_mass, pole_ml = 1.1, 0.05          # cart 1.0 + pole 0.1; 0.1*0.5
+        temp = (force + pole_ml * theta_dot ** 2 * sin) / total_mass
+        theta_acc = (9.8 * sin - cos * temp) / (
+            0.5 * (4.0 / 3.0 - 0.1 * cos ** 2 / total_mass))
+        x_acc = temp - pole_ml * theta_acc * cos / total_mass
+        x, x_dot = x + 0.02 * x_dot, x_dot + 0.02 * x_acc
+        theta, theta_dot = theta + 0.02 * theta_dot, theta_dot + 0.02 * \
+            theta_acc
+        self.state = np.array([x, x_dot, theta, theta_dot])
+        self.t += 1
+        terminated = bool(abs(x) > 2.4 or abs(theta) > 12 * 2 * np.pi / 360)
+        return (self.state.astype(np.float32), 1.0, terminated,
+                self.t >= 500, {})
+
+
+class ChipFrames:
+    """The image environment of (c): observations [84, 84, 4] uint8,
+    Atari's stacked-frame shape, drawn from a pool of FRAME_POOL frames
+    made from numpy seed 0; RLLIB_ACTIONS actions; reward 1 when the
+    action is the frame's index modulo the action count, else 0 (so the
+    advantages are not all zero and the task is learnable); episodes of
+    FRAMES_EPISODE steps (truncated)."""
+
+    def __init__(self):
+        self.frames = np.random.default_rng(0).integers(
+            0, 256, (FRAME_POOL, *FRAME_SHAPE), dtype=np.uint8)
+        self.rng = np.random.default_rng()
+        self.i = self.t = 0
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        self.t = 0
+        self.i = int(self.rng.integers(FRAME_POOL))
+        return self.frames[self.i], {}
+
+    def step(self, action):
+        reward = float(int(action) == self.i % RLLIB_ACTIONS)
+        self.t += 1
+        self.i = int(self.rng.integers(FRAME_POOL))
+        return (self.frames[self.i], reward, False,
+                self.t >= FRAMES_EPISODE, {})
+
+
+def chip_frames():
+    return ChipFrames()
+
+
+def chip_cartpole():
+    return ChipCartPole()
+
+
+def cartpole_env() -> str:
+    """``CartPole-v1`` where gymnasium imports, else ``chip_cartpole``
+    (registered here); printed."""
+    try:
+        import gymnasium  # noqa: F401
+        name = "CartPole-v1"
+    except ImportError:
+        tune.register_env("chip_cartpole", chip_cartpole)
+        name = "chip_cartpole"
+    print(f"rllib: CartPole is {name}", flush=True)
+    return name
+
+
+def frames_config() -> dict:
+    """(c)'s policy: the catalog's CNN at the Nature-DQN filters."""
+    return {"obs_shape": FRAME_SHAPE, "num_actions": RLLIB_ACTIONS,
+            "conv_filters": NATURE_FILTERS, "hidden": (512,)}
+
+
+def runner_view(runner) -> dict:
+    """What an env-runner actor sees (run on the instance by
+    ``__ray_call__``)."""
+    return {"cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda": torch.cuda.is_available(),
+            "device": str(next(runner.model.parameters()).device),
+            "threads": torch.get_num_threads()}
+
+
+def learner_view(actor) -> dict:
+    """A learner actor's device and card UUID (``__ray_call__``)."""
+    dev = actor.learner.device
+    return {"device": str(dev), "card": card_uuid(dev),
+            "cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def timed_allreduce(actor, numel: int) -> dict:
+    """One ring all-reduce of a float32 vector of ``numel`` elements on
+    the learner's device, as ``_allreduce_grads`` runs it after every
+    update (``__ray_call__``; every rank at once)."""
+    grads = {"g": torch.zeros(numel, device=actor.learner.device)}
+    actor._allreduce_grads(grads)               # warm the ring
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    actor._allreduce_grads(grads)
+    torch.cuda.synchronize()
+    return {"s": time.perf_counter() - t0, "bytes": numel * 4}
+
+
+def update_rel(got: dict, want: dict, start: dict) -> float:
+    """|got - want| / |want - start| over every parameter (L2): how far
+    apart two learners' updates from the same ``start`` landed, relative
+    to the update's size. Adam turns rounding differences in a near-zero
+    gradient entry into a full step on that entry; over the whole model
+    such entries weigh little."""
+    num = sum(float((got[k].double() - want[k].double()).square().sum())
+              for k in want)
+    den = sum(float((want[k].double() - start[k].double()).square().sum())
+              for k in want)
+    return (num / den) ** 0.5 if den else float(num > 0)
+
+
+def first_update(ln, weights: dict, batch: dict) -> dict:
+    """One update of ``ln`` from ``weights`` on the first minibatch its
+    ``update_from_episodes`` would take (``default_rng(0)``'s first
+    permutation): the gradient (flat, float64 on the CPU) and the
+    weights after it."""
+    ln.set_weights(weights)
+    n = len(batch["obs"])
+    mb = max(1, min(ln.hp.minibatch_size, n))
+    idx = np.random.default_rng(0).permutation(n)[:mb]
+    grads, _ = ln.compute_grads(ln.params, {k: v[idx]
+                                            for k, v in batch.items()})
+    flat = torch.cat([g.reshape(-1).double().cpu() for g in grads.values()])
+    ln.apply_grads(grads)
+    return {"grad": flat, "weights": ln.get_weights()}
+
+
+def learner_pair(policy_config: dict, hp, weights: dict, episodes,
+                 recurrent: bool = False, max_seq_len: int = 8,
+                 float64: bool = False) -> dict:
+    """(b): on the card and on the CPU from the same weights, first one
+    update on the first minibatch (the gradients and the updates
+    compared), then ``update_from_episodes(episodes)`` (the metrics and
+    parameters compared). With ``float64``, also the CPU in float64: how
+    far float32 itself lands from exact arithmetic over the same
+    updates."""
+    from ray_tpu_torch.rllib.learner import (
+        RecurrentTorchLearner, TorchLearner,
+    )
+    cls, kw = ((RecurrentTorchLearner, {"max_seq_len": max_seq_len})
+               if recurrent else (TorchLearner, {}))
+    runs = (("card", None, policy_config), ("cpu", "cpu", policy_config))
+    if float64:
+        runs += (("cpu64", "cpu", {**policy_config,
+                                   "dtype": torch.float64}),)
+    out = {}
+    for name, device, cfg in runs:
+        ln = cls(cfg, hp, device=device, **kw)
+        dtype = next(ln.model.parameters()).dtype
+        start = {k: v.to(dtype) for k, v in weights.items()}
+        one = first_update(ln, start, ln.compute_advantages(episodes))
+        # A fresh learner for the whole update: first_update moved the
+        # optimizer state.
+        ln = cls(cfg, hp, device=device, **kw)
+        ln.set_weights(start)
+        t0 = time.perf_counter()
+        out[name] = {"metrics": ln.update_from_episodes(episodes),
+                     "weights": ln.get_weights(), "one": one,
+                     "device": str(next(ln.model.parameters()).device),
+                     "captures": ln.compile_count,
+                     "s": time.perf_counter() - t0}
+        del ln
+    torch.cuda.empty_cache()
+    card, cpu = out["card"], out["cpu"]
+    out["grad_rel"] = float((card["one"]["grad"] - cpu["one"]["grad"]).norm()
+                            / cpu["one"]["grad"].norm())
+    out["one_rel"] = update_rel(card["one"]["weights"],
+                                cpu["one"]["weights"], weights)
+    out["rel"] = update_rel(card["weights"], cpu["weights"], weights)
+    if float64:
+        out["f32_rel"] = update_rel(cpu["weights"], out["cpu64"]["weights"],
+                                    weights)
+    # The policy term nearly cancels (a mean of O(1) terms): each metric
+    # relative to the larger of itself and the total loss.
+    scale = abs(cpu["metrics"]["total_loss"])
+    out["metric_rel"] = max(abs(card["metrics"][k] - v) / max(abs(v), scale)
+                            for k, v in cpu["metrics"].items())
+    out["max_abs"] = max(float((card["weights"][k] - cpu["weights"][k])
+                               .abs().max()) for k in weights)
+    return out
+
+
+def pair_checks(r: dict, what: str, trajectory: bool = True
+                ) -> list[tuple]:
+    """The one-update check and, with ``trajectory``, the whole
+    ``update_from_episodes``'s."""
+    checks = [(f"{what}: the first minibatch's gradient on the card "
+               f"against the CPU's within {LEARNER_GRAD_RTOL} (L2), one "
+               f"update within {LEARNER_UPDATE_RTOL} of its size",
+               r["grad_rel"] <= LEARNER_GRAD_RTOL
+               and r["one_rel"] <= LEARNER_UPDATE_RTOL
+               and r["card"]["device"] == "cuda:0",
+               {"grad_rel": r["grad_rel"], "one_rel": r["one_rel"]})]
+    if trajectory:
+        checks.append((
+            f"{what}: update_from_episodes on the card against the CPU's "
+            f"from the same weights within {LEARNER_UPDATE_RTOL} of the "
+            f"update (L2), metrics within {LEARNER_METRIC_RTOL}",
+            r["rel"] <= LEARNER_UPDATE_RTOL
+            and r["metric_rel"] <= LEARNER_METRIC_RTOL,
+            {"rel": r["rel"], "metric_rel": r["metric_rel"],
+             "max_abs": r["max_abs"]}))
+    return checks
+
+
+def describe_pair(r: dict) -> str:
+    f32 = (f" (the CPU's float32 against its float64 over the same "
+           f"updates: {r['f32_rel']:.3g})" if "f32_rel" in r else "")
+    return (f"first minibatch: gradient relative {r['grad_rel']:.3g}, one "
+            f"update relative {r['one_rel']:.3g}; update_from_episodes: "
+            f"card vs CPU update relative {r['rel']:.3g}{f32} (max abs "
+            f"{r['max_abs']:.3g}), metrics relative {r['metric_rel']:.3g}; "
+            f"card {r['card']['s']:.2f} s ({r['card']['captures']} "
+            f"captures), CPU {r['cpu']['s']:.2f} s")
+
+
+class RecordingRunners:
+    """Wraps a PPO's runner group and keeps every iteration's episodes."""
+
+    def __init__(self, runners):
+        self._runners = runners
+        self.batches = []
+
+    def __getattr__(self, name):
+        return getattr(self._runners, name)
+
+    def sample(self, steps: int):
+        eps = self._runners.sample(steps)
+        self.batches.append(eps)
+        return eps
+
+
+def timed_sample(runner, steps: int) -> dict:
+    """A runner's ``sample(steps)`` timed inside its actor
+    (``__ray_call__``): the episodes stay there."""
+    t0 = time.perf_counter()
+    eps = runner.sample(steps)
+    return {"s": time.perf_counter() - t0,
+            "steps": sum(e.length for e in eps),
+            "bytes": sum(np.asarray(o).nbytes for e in eps for o in e.obs)}
+
+
+def learn_profile(learner, episodes) -> dict:
+    """One learn phase (``update_from_episodes``) on the host clock, and
+    the card's busy time in it (torch.profiler's device time; None where
+    it records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)     # as in profile_dispatch
+        t0 = time.perf_counter()
+        learner.update_from_episodes(episodes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return {"wall_s": wall, "busy_s": busy_us / 1e6 if busy_us else None}
+
+
+def ppo_cartpole(env: str, card: str) -> tuple[dict, list]:
+    """(a) and (b). Returns the algorithm's readings (the algorithm is
+    stopped; its state kept for (f)) and the checks."""
+    from ray_tpu_torch.rllib import PPOConfig
+    cfg = (PPOConfig().environment(env, obs_dim=4, num_actions=2)
+           .env_runners(2)
+           .training(train_batch_size=1024, lr=3e-3, minibatch_size=128,
+                     num_epochs=6))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    start_s = time.perf_counter() - t0
+    try:
+        views = ray_tpu_torch.get([r.__ray_call__.remote(runner_view)
+                        for r in algo.runners.runners])
+        algo.runners = RecordingRunners(algo.runners)
+        initial = algo.learner.get_weights()
+        rewards, results = [], []
+        for _ in range(RLLIB_ITERS):
+            r = algo.train()
+            results.append(r)
+            rewards.append(r["episode_reward_mean"])
+        finite = [x for x in rewards if np.isfinite(x)]
+        first, best = (finite[0], max(finite)) if finite else (None, None)
+        device = str(next(algo.learner.model.parameters()).device)
+        updates = float(algo.learner.opt_state["count"])
+        captures = algo.learner.compile_count
+        state = algo.get_state()
+        first_eps = algo.runners.batches[0]
+        wall = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    pair = learner_pair(cfg.policy_config, cfg.hparams, initial, first_eps)
+    samples = [r["time_sample_s"] for r in results]
+    learns = [r["time_learn_s"] for r in results]
+    print(f"rllib (a) PPO on {env}, 2 runners, {RLLIB_ITERS} iterations of "
+          f"1024 steps, minibatch 128 x 6 epochs: episode_reward_mean "
+          f"{[round(x, 1) for x in rewards]} (first {first}, best {best}); "
+          f"learner on {device}, {captures} capture(s), {updates:.0f} "
+          f"updates; runners {views}; sample s/iteration median "
+          f"{np.median(samples):.3f}, learn s/iteration median "
+          f"{np.median(learns):.3f}; start {start_s:.1f} s, whole "
+          f"{wall:.1f} s; card {card}", flush=True)
+    print(f"rllib (b) one update_from_episodes on (a)'s first episodes "
+          f"({sum(e.length for e in first_eps)} steps): {describe_pair(pair)}"
+          f"; card {card}", flush=True)
+    checks = [
+        ("(a) learns: best episode_reward_mean > first + 30",
+         first is not None and best > first + 30, (first, best)),
+        ("(a) the learner's parameters on cuda:0", device == "cuda:0",
+         device),
+        ("(a) every runner sees CUDA_VISIBLE_DEVICES='' and keeps its "
+         "model on the CPU, one torch thread",
+         all(v["cuda_visible"] == "" and not v["cuda"]
+             and v["device"] == "cpu" and v["threads"] == 1
+             for v in views), views),
+        ("(a) one capture of the minibatch update, replayed for every "
+         "update after it", captures == 1 and updates == sum(
+             6 * (r["num_env_steps_sampled"] // 128) for r in results),
+         (captures, updates)),
+    ] + pair_checks(pair, "(b)")
+    return {"state": state, "cfg": cfg, "wall_s": wall,
+            "pair": pair}, checks
+
+
+def ppo_frames(card: str) -> tuple[dict, list]:
+    """(c): PPO on ``chip_frames`` at the realistic width."""
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.rllib.learner import PPOHyperparams
+    tune.register_env("chip_frames", chip_frames)
+    cfg = PPOConfig(env="chip_frames", policy_config=frames_config(),
+                    num_env_runners=2, train_batch_size=FRAMES_BATCH,
+                    hparams=PPOHyperparams(minibatch_size=FRAMES_MINIBATCH,
+                                           num_epochs=FRAMES_EPOCHS))
+    t0 = time.perf_counter()
+    algo = cfg.build()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        algo.runners = RecordingRunners(algo.runners)
+        initial = algo.learner.get_weights()
+        results = [algo.train() for _ in range(FRAMES_ITERS)]
+        captures = algo.learner.compile_count
+        alone = ray_tpu_torch.get(algo.runners.runners[0].__ray_call__.remote(
+            timed_sample, SPLIT_STEPS))
+        t1 = time.perf_counter()
+        moved = algo.runners.runners[0].sample.remote(SPLIT_STEPS)
+        moved_steps = sum(e.length for e in ray_tpu_torch.get(moved))
+        moved_s = time.perf_counter() - t1
+        prof = learn_profile(algo.learner, algo.runners.batches[-1])
+        peak = torch.cuda.max_memory_allocated()
+        first_eps = algo.runners.batches[0]
+        wall = time.perf_counter() - t0
+    finally:
+        algo.stop()
+    n_params = sum(v.numel() for v in initial.values())
+    # The comparison over the iteration's first epoch (16 updates), with
+    # the CPU's float64 beside it: float32 rounding grows with the updates.
+    pair = learner_pair(cfg.policy_config, replace(cfg.hparams, num_epochs=1),
+                        initial, first_eps, float64=True)
+    per_iter = FRAMES_EPOCHS * (FRAMES_BATCH // FRAMES_MINIBATCH)
+    readings = [{"sample_s": r["time_sample_s"], "learn_s": r["time_learn_s"],
+                 "steps_per_s": r["num_env_steps_sampled"]
+                 / r["time_sample_s"],
+                 "updates_per_s": per_iter / r["time_learn_s"]}
+                for r in results]
+    busy = (f"{prof['busy_s'] / prof['wall_s']:.1%}" if prof["busy_s"]
+            else "not measured")
+    print(f"rllib (c) PPO on chip_frames, CNN {NATURE_FILTERS} + 512, "
+          f"{n_params} parameters, 2 runners, batch {FRAMES_BATCH}, "
+          f"minibatch {FRAMES_MINIBATCH} x {FRAMES_EPOCHS} epochs: "
+          f"iterations {readings}; losses {[r['total_loss'] for r in results]}"
+          f"; {captures} capture(s); one learn phase profiled: host "
+          f"{prof['wall_s']:.3f} s, card busy {busy}; peak memory "
+          f"{peak / 2**30:.2f} GiB; whole {wall:.1f} s; card {card}",
+          flush=True)
+    print(f"rllib (c) one runner's sample of {alone['steps']} steps: "
+          f"{alone['s']:.2f} s inside the actor ({alone['bytes'] / 1e6:.0f} "
+          f"MB of float32 observations), {moved_s:.2f} s to the driver "
+          f"through the object store ({moved_steps} steps); card {card}",
+          flush=True)
+    print(f"rllib (c) the card against the CPU on the first iteration's "
+          f"batch, its first epoch ({FRAMES_BATCH // FRAMES_MINIBATCH} "
+          f"updates): {describe_pair(pair)}; card {card}", flush=True)
+    checks = [
+        ("(c) the losses finite", all(np.isfinite(r["total_loss"])
+                                      for r in results),
+         [r["total_loss"] for r in results]),
+        ("(c) one capture", captures == 1, captures),
+    ] + pair_checks(pair, "(c)", trajectory=False)
+    return {"wall_s": wall, "readings": readings, "prof": prof,
+            "peak": peak, "pair": pair}, checks
+
+
+class RecallEnv:
+    """The memory task of tests/test_rllib_recurrent.py: the first
+    observation is +1 or -1, later ones 0; only the final action counts,
+    and it must match the first sign."""
+
+    def __init__(self, horizon: int = 5, seed: int = 3):
+        self.h = horizon
+        self.rng = np.random.default_rng(seed)
+
+    def reset(self):
+        self.sign = 1 if self.rng.random() < 0.5 else -1
+        self.t = 0
+        return np.array([self.sign], np.float32)
+
+    def step(self, action):
+        self.t += 1
+        done = self.t >= self.h
+        want = 0 if self.sign > 0 else 1
+        reward = float(done and int(action) == want)
+        return np.zeros(1, np.float32), reward, done
+
+
+def recall_episodes(model, n: int, seed: int = 0) -> list:
+    """``n`` episodes of the GRU ``model`` (on the CPU) in RecallEnv."""
+    from ray_tpu_torch.rllib.env_runner import Episode
+    env, rng = RecallEnv(), np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        obs, ep, done = env.reset(), Episode(), False
+        carry = model.initial_state(1)
+        ep.state_in = carry[0].numpy().copy()
+        while not done:
+            with torch.no_grad():
+                logits, value, carry = model(torch.from_numpy(obs[None]),
+                                             carry)
+            probs = torch.softmax(logits[0], -1).numpy()
+            a = int(rng.choice(len(probs), p=probs))
+            nobs, r, done = env.step(a)
+            ep.obs.append(obs)
+            ep.actions.append(a)
+            ep.rewards.append(r)
+            ep.logps.append(float(np.log(probs[a] + 1e-9)))
+            ep.values.append(float(value[0]))
+            obs = nobs
+        ep.terminated = True
+        out.append(ep)
+    return out
+
+
+def recurrent_leg(card: str) -> tuple[dict, list]:
+    """(d): the recurrent learner, card against CPU, one iteration."""
+    from ray_tpu_torch.rllib.catalog import build_recurrent_actor_critic
+    from ray_tpu_torch.rllib.learner import PPOHyperparams
+    cfg = {"obs_dim": 1, "num_actions": 2, "hidden": (16,),
+           "hidden_state": RECURRENT_HIDDEN}
+    hp = PPOHyperparams(lr=5e-3, num_epochs=4, minibatch_size=64,
+                        entropy_coeff=0.003)
+    model = build_recurrent_actor_critic(cfg, device="cpu")
+    weights = {k: p.detach().clone() for k, p in model.named_parameters()}
+    eps = recall_episodes(model, RECURRENT_EPISODES)
+    pair = learner_pair(cfg, hp, weights, eps, recurrent=True)
+    print(f"rllib (d) the recurrent learner (GRU {RECURRENT_HIDDEN}) on "
+          f"{RECURRENT_EPISODES} episodes of the memory task: "
+          f"{describe_pair(pair)}; captured shapes "
+          f"{pair['card']['captures']}; card {card}", flush=True)
+    return {"pair": pair}, pair_checks(pair, "(d)") + [
+        ("(d) the recurrent update captured (one graph per shape)",
+         (pair["card"]["captures"] or 0) >= 1, pair["card"]["captures"])]
+
+
+def group_batch(n: int = GROUP_ROWS, seed: int = 0) -> dict:
+    """(e)'s fixed batch: ``n`` rows for (c)'s model, numpy seed 0."""
+    rng = np.random.default_rng(seed)
+    return {"obs": rng.integers(0, 256, (n, *FRAME_SHAPE)).astype(
+                np.float32),
+            "actions": rng.integers(0, RLLIB_ACTIONS, n).astype(np.int64),
+            "logp_old": np.full(n, -np.log(RLLIB_ACTIONS), np.float32),
+            "advantages": rng.standard_normal(n).astype(np.float32),
+            "returns": rng.standard_normal(n).astype(np.float32)}
+
+
+def mean_gradient_update(policy_config: dict, batch: dict, n: int) -> dict:
+    """The in-process reference of a group's first update: one learner on
+    the card (seed 0, the group's initial weights), the gradients of
+    each of the ``n`` shards (as ``LearnerGroup.update`` cuts them),
+    their mean, one clip-then-Adam update. Returns the initial and the
+    updated weights."""
+    from ray_tpu_torch.rllib.learner import TorchLearner
+    ln = TorchLearner(policy_config, seed=0)
+    start = ln.get_weights()
+    size = len(batch["obs"])
+    per = size // n
+    total = None
+    for i in range(n):
+        hi = size if i == n - 1 else (i + 1) * per
+        grads, _ = ln.compute_grads(ln.params, {k: v[i * per:hi]
+                                                for k, v in batch.items()})
+        grads = {k: g.clone() for k, g in grads.items()}
+        total = grads if total is None else {k: total[k] + grads[k]
+                                             for k in total}
+    ln.apply_grads({k: g / n for k, g in total.items()})
+    out = {"start": start, "updated": ln.get_weights()}
+    del ln
+    torch.cuda.empty_cache()
+    return out
+
+
+class NoAllreduceLearner(learner_group._LearnerActor._cls):
+    """``--plant-fault learner_no_allreduce``: a learner that applies its
+    own shard's gradients, skipping the all-reduce."""
+
+    def _allreduce_grads(self, grads):
+        return grads
+
+
+class NoAllreduceGroup(LearnerGroup):
+    _actor_class = ray_tpu_torch.remote(NoAllreduceLearner)
+
+
+def group_leg(n: int, card: str, what: str, fault: str | None = None,
+              policy: dict | None = None, batch: dict | None = None
+              ) -> tuple[dict, list]:
+    """(e) (``n`` = 2 on one card) and (h) (``n`` = 4 on four): a
+    LearnerGroup of ``n`` learners on (c)'s model and (e)'s batch (or
+    ``policy`` and ``batch``), 3 updates, held against the in-process
+    mean-gradient update."""
+    policy = policy or frames_config()
+    batch = batch if batch is not None else group_batch()
+    cls = NoAllreduceGroup if fault else LearnerGroup
+    share = min(1.0, ray_tpu_torch.cluster_resources()["GPU"] / n)
+    t0 = time.perf_counter()
+    group = cls(policy, num_learners=n, seed=0)
+    try:
+        start_s = time.perf_counter() - t0
+        views = ray_tpu_torch.get([ln.__ray_call__.remote(learner_view)
+                        for ln in group.learners])
+        metrics = [group.update(batch)]
+        first = group.get_weights()
+        metrics += [group.update(batch) for _ in range(2)]
+        digests = group.weights_digests()
+        numel = sum(v.numel() for v in first.values())
+        rings = ray_tpu_torch.get([ln.__ray_call__.remote(timed_allreduce, numel)
+                        for ln in group.learners])
+    finally:
+        group.shutdown()
+    ref = mean_gradient_update(policy, batch, n)
+    rel = update_rel(first, ref["updated"], ref["start"])
+    ring_s = max(r["s"] for r in rings)
+    print(f"rllib {what} LearnerGroup of {n} learners at GPU {share}: "
+          f"learners {views}; digests equal {len(set(digests)) == 1}; first "
+          f"update against the in-process mean-gradient update relative "
+          f"{rel:.3g}; ring all-reduce of {rings[0]['bytes'] / 1e6:.1f} MB "
+          f"float32 an update {ring_s * 1e3:.1f} ms; start {start_s:.1f} s; "
+          f"whole {time.perf_counter() - t0:.1f} s; card {card}", flush=True)
+    checks = [
+        (f"{what} the replicas' weights_digests are equal",
+         len(set(digests)) == 1, digests),
+        (f"{what} the first update against the in-process mean-gradient "
+         f"update within {LEARNER_UPDATE_RTOL} (L2)",
+         rel <= LEARNER_UPDATE_RTOL, rel),
+        (f"{what} every learner on a card", all(
+            v["device"] == "cuda:0" for v in views), views),
+        (f"{what} the learners' cards: " + (
+            "one, shared" if n == 2 else f"{n} distinct"),
+         len({v["card"] for v in views}) == (1 if n == 2 else n),
+         [v["card"][:13] for v in views]),
+    ]
+    return {"ring_s": ring_s, "bytes": rings[0]["bytes"], "rel": rel,
+            "digests": digests}, checks
+
+
+def trial_probe(gate: str) -> None:
+    """Records, in a trial's process, the card it sees (a file in
+    ``gate``)."""
+    with open(os.path.join(gate, f"{os.getpid()}.json"), "w") as f:
+        json.dump({"cuda_visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                   "card": card_uuid(torch.device("cuda", 0))}, f)
+
+
+def rllib_tune_builder(env: str, gate: str):
+    def builder(config: dict):
+        from ray_tpu_torch.rllib import PPOConfig
+        trial_probe(gate)
+        return (PPOConfig().environment(env, obs_dim=4, num_actions=2)
+                .env_runners(1)
+                .training(train_batch_size=512, lr=config["lr"]))
+    return builder
+
+
+def checkpoint_and_tune(env: str, a: dict, card: str) -> tuple[dict, list]:
+    """(f): (a)'s algorithm through save_to_path / from_checkpoint, then
+    PPO under Tune at half a card a trial."""
+    from ray_tpu_torch.rllib import PPO
+    from ray_tpu_torch.train import RunConfig
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
+    gate = tempfile.mkdtemp(prefix="chip_smoke_gate_")
+    try:
+        t0 = time.perf_counter()
+        algo = a["cfg"].build()
+        try:
+            algo.set_state(a["state"])
+            algo.save_to_path(os.path.join(tmp, "ckpt"))
+            restored = PPO.from_checkpoint(os.path.join(tmp, "ckpt"),
+                                           a["cfg"])
+            try:
+                want = a["state"]["learner"]
+                got = restored.get_state()["learner"]
+                bit = (all(np.array_equal(want["params"][k],
+                                          got["params"][k])
+                           for k in want["params"])
+                       and all(np.array_equal(x, y) for key in ("mu", "nu")
+                               for x, y in zip(want["opt_state"][key],
+                                               got["opt_state"][key])))
+                obs = np.random.default_rng(0).standard_normal(
+                    (16, 4)).astype(np.float32)
+                same = ([algo.compute_single_action(o) for o in obs]
+                        == [restored.compute_single_action(o) for o in obs])
+                iteration = restored.iteration
+            finally:
+                restored.stop()
+        finally:
+            algo.stop()
+        ckpt_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        grid = tune.Tuner(
+            PPO.as_trainable(rllib_tune_builder(env, gate),
+                             num_iterations=2),
+            param_space={"lr": tune.grid_search(list(RLLIB_TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                resources_per_trial={"CPU": 1, "GPU": RLLIB_TUNE_SHARE},
+                max_concurrent_trials=len(RLLIB_TUNE_LRS)),
+            run_config=RunConfig(name="rllib", storage_path=tmp)).fit()
+        tune_s = time.perf_counter() - t1
+        iters = sorted(r.metrics.get("training_iteration") for r in grid)
+        probes = []
+        for name in os.listdir(gate):
+            with open(os.path.join(gate, name)) as f:
+                probes.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(gate, ignore_errors=True)
+    print(f"rllib (f) checkpoint round trip bit-equal {bit}, iteration "
+          f"{iteration}, greedy actions on 16 observations equal {same} "
+          f"({ckpt_s:.1f} s); Tuner(PPO.as_trainable) over lr "
+          f"{list(RLLIB_TUNE_LRS)} at GPU {RLLIB_TUNE_SHARE}: states "
+          f"{sorted(r.state for r in grid)}, training_iteration {iters}, "
+          f"trials' cards {probes} ({tune_s:.1f} s); card {card}",
+          flush=True)
+    mine = card_uuid(torch.device("cuda", 0))
+    checks = [
+        ("(f) save_to_path / from_checkpoint round trips bit for bit",
+         bit and iteration == a["state"]["iteration"], (bit, iteration)),
+        ("(f) the same greedy action on 16 observations", same, same),
+        ("(f) both trials finish at training_iteration 2",
+         iters == [2] * len(RLLIB_TUNE_LRS) and not grid.errors, iters),
+        ("(f) each trial's learner on its share of this card",
+         len(probes) == len(RLLIB_TUNE_LRS)
+         and all(p["card"] == mine for p in probes), probes),
+    ]
+    return {"ckpt_s": ckpt_s, "tune_s": tune_s}, checks
+
+
+def rllib_phase(card: str) -> dict:
+    """Phase 19: RLlib on the card (module docstring). Returns each leg's
+    time."""
+    import ray_tpu_torch as rt
+    times = {}
+    rt.init()
+    try:
+        env = cartpole_env()
+        t = time.perf_counter()
+        a, checks = ppo_cartpole(env, card)
+        times["a+b"] = time.perf_counter() - t
+        report_checks(checks, card, prefix="rllib")
+        t = time.perf_counter()
+        c, checks = ppo_frames(card)
+        times["c"] = time.perf_counter() - t
+        report_checks(checks, card, prefix="rllib")
+        t = time.perf_counter()
+        _, checks = recurrent_leg(card)
+        times["d"] = time.perf_counter() - t
+        report_checks(checks, card, prefix="rllib")
+        t = time.perf_counter()
+        e, checks = group_leg(2, card, "(e)")
+        times["e"] = time.perf_counter() - t
+        report_checks(checks, card, prefix="rllib")
+        t = time.perf_counter()
+        _, checks = checkpoint_and_tune(env, a, card)
+        times["f"] = time.perf_counter() - t
+        report_checks(checks, card, prefix="rllib")
+    finally:
+        rt.shutdown()
+    torch.cuda.empty_cache()
+    return times
+
+
+def rllib_fault_main(name: str, card: str) -> int:
+    """``--plant-fault learner_no_allreduce``: the build, then phase 19's
+    (e) with learners that skip the all-reduce, (e)'s checks read without
+    raising. Exits 1 when they fail it (caught), 2 when they do not, and 2
+    when the run failed before (e)'s checks."""
+    import ray_tpu_torch as rt
+    print(f"planted fault {name}: {RLLIB_FAULTS[name]}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        build.ensure_built()
+        print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+        rt.init()
+        try:
+            readings, checks = group_leg(2, card, "(e)", fault=name)
+        finally:
+            rt.shutdown()
+        held = report_checks(checks, card, strict=False, prefix="rllib")
+    except Exception:  # noqa: BLE001 — the harness failed, not (e)
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_e": True}), flush=True)
+        return 2
+    caught = not all(ok for what, ok, _ in checks
+                     if "digests" in what or "mean-gradient" in what)
+    print(json.dumps({"fault": name, "digests_equal": len(set(
+        readings["digests"])) == 1, "update_rel": readings["rel"],
+        "caught": caught}), flush=True)
+    return 1 if caught else 2
+
+
+def rllib_cards_phase(n: int, card: str) -> None:
+    """``--cards n``'s RLlib leg: (e) again (two learners at half of card
+    0, for its ring time beside (h)'s), then (h): ``n`` learners at
+    ``GPU: 1``."""
+    import ray_tpu_torch as rt
+    rt.init(num_gpus=1)
+    try:
+        e, checks = group_leg(2, card, "(e)")
+    finally:
+        rt.shutdown()
+    report_checks(checks, card, prefix="rllib")
+    rt.init()
+    try:
+        h, checks = group_leg(n, card, "(h)")
+    finally:
+        rt.shutdown()
+    report_checks(checks, card, prefix="rllib")
+    print(f"multicard rllib: the ring all-reduce of "
+          f"{h['bytes'] / 1e6:.1f} MB an update: {n} learners on {n} cards "
+          f"{h['ring_s'] * 1e3:.1f} ms, 2 learners on one card "
+          f"{e['ring_s'] * 1e3:.1f} ms; card {card}", flush=True)
+
+
 def plant_fault(name: str) -> str:
     """Build kernel ``name``'s source with the fault of FAULTS, under the
     build directory, and bind that kernel's wrapper (and only it) to it.
@@ -4841,7 +5707,10 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     print(f"multicard serve: {time.perf_counter() - t16:.1f} s", flush=True)
     t18 = time.perf_counter()
     tune_cards_phase(n, card)
-    print(f"multicard tune: {time.perf_counter() - t18:.1f} s; chip_smoke "
+    print(f"multicard tune: {time.perf_counter() - t18:.1f} s", flush=True)
+    t19 = time.perf_counter()
+    rllib_cards_phase(n, card)
+    print(f"multicard rllib: {time.perf_counter() - t19:.1f} s; chip_smoke "
           f"--cards {n}: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
     print(f"card: {card}", flush=True)
@@ -4855,7 +5724,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plant-fault",
                         choices=sorted(FAULTS) + sorted(multicard.FAULTS)
-                        + list(SERVE_FAULTS) + list(TUNE_FAULTS))
+                        + list(SERVE_FAULTS) + list(TUNE_FAULTS)
+                        + list(RLLIB_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -4879,6 +5749,8 @@ def main() -> int:
         return serve_fault_main(args.plant_fault, dev, card)
     if args.plant_fault in TUNE_FAULTS:
         return tune_fault_main(args.plant_fault, card)
+    if args.plant_fault in RLLIB_FAULTS:
+        return rllib_fault_main(args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -4942,6 +5814,11 @@ def run_all(dev, card: str) -> int:
     print(f"tune: phase 18 {time.perf_counter() - t18:.1f} s ((a) "
           f"{legs['a']:.1f} s, (b) {legs['b']:.1f} s, (c) {legs['c']:.1f} "
           f"s, (d) {legs['d']:.1f} s); card {card}", flush=True)
+    t19 = time.perf_counter()
+    legs = rllib_phase(card)
+    print(f"rllib: phase 19 {time.perf_counter() - t19:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in legs.items())
+          + f"); card {card}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s after the build "
           "began", flush=True)
     print("phase 16 (the mesh routes across cards) needs --cards 4 and four "

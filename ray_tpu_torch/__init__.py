@@ -7,8 +7,10 @@ and the trainer (``train``), the mesh and its collectives (``parallel``,
 ``collective``), the single-node core runtime (``core``): tasks,
 actors, the shared-memory object store and placement groups, with the
 GPU as a scheduler resource, the Data library on it (``data``),
-Serve (``serve``), whose replicas hold cards, and Tune (``tune``), whose
-trials hold cards or shares of one.
+Serve (``serve``), whose replicas hold cards, Tune (``tune``), whose
+trials hold cards or shares of one, and RLlib (``rllib``), whose learners
+hold the card while its env runners step on the CPU, with the host
+collective plane (``collective``) between learner processes.
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.
@@ -84,8 +86,8 @@ __all__ = [
 ]
 
 
-_SUBPACKAGES = ("data", "train", "serve", "tune", "experimental", "util",
-                "runtime_env")
+_SUBPACKAGES = ("data", "train", "serve", "tune", "rllib", "experimental",
+                "util", "runtime_env", "collective")
 
 
 def __getattr__(name: str):

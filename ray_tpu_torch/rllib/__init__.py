@@ -1,0 +1,64 @@
+"""ray_tpu_torch.rllib — reinforcement learning (RLlib analog, new API
+stack) on the port's runtime.
+
+Counterpart of ``ray_tpu.rllib``. Reference shape (SURVEY.md §3.7):
+EnvRunnerGroup of actors collects episodes on the CPU → the Learner does
+SGD on the card → weights go back to the runners through the object
+store. The learner is a **TorchLearner** whose minibatch update is one
+captured CUDA graph per minibatch shape (``train.step``); a
+**LearnerGroup** of learner actors, each on its share of a card,
+ring-allreduces gradients over the host collective plane
+(``ray_tpu_torch.collective``).
+
+Ported: PPO, its learner and the recurrent learner (``JaxLearner`` and
+``RecurrentJaxLearner`` are aliases of them), the catalog and models,
+the env runners, connectors, checkpoints, ``LearnerGroup``, multi-agent
+PPO and offline data. The JAX package's other algorithms (APPO, BC, CQL,
+DQN with its ReplayBuffer, Dreamer, Impala, MARWIL, SAC) keep their
+names here and raise NotImplementedError naming ROADMAP.md §1.
+"""
+
+from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, PPO, PPOConfig
+from ray_tpu_torch.rllib.env_runner import EnvRunner, EnvRunnerGroup, Episode
+from ray_tpu_torch.rllib.learner import (
+    JaxLearner,
+    RecurrentJaxLearner,
+    RecurrentTorchLearner,
+    TorchLearner,
+)
+from ray_tpu_torch.rllib.learner_group import LearnerGroup
+from ray_tpu_torch.rllib.multi_agent import (
+    MultiAgentEnv, MultiAgentEnvRunner, MultiAgentPPO,
+    MultiAgentPPOConfig,
+)
+from ray_tpu_torch.rllib import connectors
+from ray_tpu_torch.rllib import offline
+from ray_tpu_torch.rllib.connectors import ConnectorPipelineV2, ConnectorV2
+
+__all__ = [
+    "AlgorithmConfig", "PPO", "PPOConfig",
+    "APPO", "APPOConfig", "BC", "BCConfig", "CQL", "CQLConfig",
+    "DQN", "DQNConfig", "ReplayBuffer",
+    "Dreamer", "DreamerConfig",
+    "Impala", "ImpalaConfig", "MARWIL", "MARWILConfig",
+    "connectors", "offline", "ConnectorV2", "ConnectorPipelineV2",
+    "LearnerGroup",
+    "SAC", "SACConfig",
+    "EnvRunner", "EnvRunnerGroup", "Episode", "JaxLearner",
+    "RecurrentJaxLearner",
+    "MultiAgentPPO", "MultiAgentPPOConfig", "MultiAgentEnvRunner",
+]
+
+# The JAX package's algorithms that this package lacks so far.
+_NOT_PORTED = ("APPO", "APPOConfig", "BC", "BCConfig", "CQL", "CQLConfig",
+               "DQN", "DQNConfig", "ReplayBuffer", "Dreamer",
+               "DreamerConfig", "Impala", "ImpalaConfig", "MARWIL",
+               "MARWILConfig", "SAC", "SACConfig")
+
+
+def __getattr__(name: str):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"ray_tpu_torch.rllib.{name} is not ported yet (ROADMAP.md §1)")
+    raise AttributeError(
+        f"module 'ray_tpu_torch.rllib' has no attribute {name!r}")

@@ -23,6 +23,8 @@ _HOME = {
     "AdamWState": "optim",
     "SGDState": "optim",
     "adamw": "optim",
+    "chain": "optim",
+    "clip_by_global_norm": "optim",
     "global_norm": "optim",
     "sgd": "optim",
     "TRAIN_DATASET_KEY": "config",
@@ -61,7 +63,8 @@ __all__ = [
     "shard_batch",
     "make_multi_train_step", "compile_count", "buffers_donated",
     "disable_capture", "AdamW", "AdamWState", "adamw", "SGD",
-    "SGDState", "sgd", "global_norm", "DevicePrefetcher",
+    "SGDState", "sgd", "chain", "clip_by_global_norm", "global_norm",
+    "DevicePrefetcher",
     "prefetch_to_device", "save_pytree", "restore_pytree",
     "save_train_state", "restore_train_state",
     "ScalingConfig", "RunConfig", "FailureConfig", "CheckpointConfig",

@@ -1,4 +1,5 @@
-"""AdamW and SGD with optax's semantics, updating in place.
+"""AdamW and SGD with optax's semantics, updating in place, and the
+gradient clip by global norm that ``optax.chain`` puts before them.
 
 Counterpart of ``optax.adamw`` as the JAX package uses it
 (``optax.adamw(3e-4, weight_decay=0.1, mu_dtype=bf16)`` on the bench):
@@ -141,6 +142,65 @@ def sgd(lr: float, momentum: float | None = None,
         nesterov: bool = False) -> SGD:
     """optax.sgd's defaults and semantics; see :class:`SGD`."""
     return SGD(lr, momentum, nesterov)
+
+
+class ClipByGlobalNorm:
+    """optax.clip_by_global_norm(max_norm): each gradient ``g`` becomes
+
+        where(norm < max_norm, g, g / norm * max_norm)
+
+    with ``norm`` the global norm of all of them, computed on their
+    device: no value goes to the host, so a captured step replays the
+    clip with each replay's norm. It keeps no state. It transforms
+    gradients and updates no parameter: it is a link of :func:`chain`."""
+
+    def __init__(self, max_norm: float):
+        self.max_norm = max_norm
+
+    def init(self, params) -> None:
+        return None
+
+    @torch.no_grad()
+    def transform(self, grads, state) -> list:
+        grads = [local(g) for g in grads]
+        norm = global_norm(grads)
+        keep = norm < self.max_norm
+        return [None if g is None else
+                torch.where(keep, g, g / norm.to(g.dtype) * self.max_norm)
+                for g in grads]
+
+
+def clip_by_global_norm(max_norm: float) -> ClipByGlobalNorm:
+    """optax.clip_by_global_norm's semantics; see :class:`ClipByGlobalNorm`."""
+    return ClipByGlobalNorm(max_norm)
+
+
+class Chain:
+    """optax.chain of gradient transforms ending in an optimizer:
+    ``chain(clip_by_global_norm(0.5), adamw(lr, weight_decay=0))`` is
+    ``optax.chain(clip_by_global_norm(0.5), adam(lr))``. The state is the
+    list of the links' states; ``update`` passes the gradients through
+    each transform in turn, then the last link updates the parameters in
+    place."""
+
+    def __init__(self, *links):
+        self.links = links
+
+    def init(self, params) -> list:
+        return [link.init(params) for link in self.links]
+
+    @torch.no_grad()
+    def update(self, grads, state: list, params) -> None:
+        for link, st in zip(self.links[:-1], state[:-1]):
+            grads = link.transform(grads, st)
+        self.links[-1].update(grads, state[-1], params)
+
+
+def chain(*links) -> Chain:
+    """optax.chain: every link but the last transforms the gradients
+    (:func:`clip_by_global_norm`), the last is an optimizer (:func:`adamw`,
+    :func:`sgd`)."""
+    return Chain(*links)
 
 
 def global_norm(tensors) -> torch.Tensor:

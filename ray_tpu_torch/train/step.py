@@ -129,7 +129,7 @@ def disable_capture():
 
 
 def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
-               grad_norm: bool) -> Callable:
+               grad_norm: bool, has_aux: bool = False) -> Callable:
     """``body(state, batch) -> metrics``: forward, backward and the
     optimizer update, in place on ``state``; what a capture records."""
 
@@ -138,13 +138,18 @@ def _step_body(loss_fn: Callable, optimizer, has_extra: bool,
         params = [p for _, p in named]
         for p in params:
             p.grad = None
+        aux = {}
         if has_extra:
-            loss, new_extra = loss_fn(state.params, state.extra, batch)
+            loss, new_extra, *rest = loss_fn(state.params, state.extra, batch)
         else:
-            loss = loss_fn(state.params, batch)
+            out = loss_fn(state.params, batch)
+            loss, *rest = out if has_aux else (out,)
+        if has_aux:
+            aux = rest[0]
         loss.backward()
         grads = [p.grad for p in params]
         metrics = {"loss": loss.detach()}
+        metrics.update({k: v.detach() for k, v in aux.items()})
         if state.mesh is not None:
             metrics["loss"] = _reduce(grads, metrics["loss"], state.mesh)
             if grad_norm:
@@ -381,7 +386,8 @@ def shard_batch(batch, mesh, seq_sharded: bool = False,
 
 
 def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,
-                    grad_norm: bool = True) -> Callable:
+                    grad_norm: bool = True, has_aux: bool = False
+                    ) -> Callable:
     """``step(state, batch) -> (state, metrics)``: forward, backward and
     the optimizer update, in place on ``state``, captured as one CUDA
     graph on the card (see the module docstring).
@@ -389,11 +395,14 @@ def make_train_step(loss_fn: Callable, optimizer, has_extra: bool = False,
     loss_fn: (module, batch) -> scalar loss                 (has_extra=False)
              (module, extra, batch) -> (loss, new_extra)    (has_extra=True)
     With ``has_extra`` each tensor of ``new_extra`` is copied into the
-    tensor of ``state.extra`` of the same name after the update.
+    tensor of ``state.extra`` of the same name after the update. With
+    ``has_aux`` (as ``jax.value_and_grad(has_aux=True)``) the loss
+    function returns a dict of scalar tensors after the loss (after
+    ``new_extra`` with both), which join ``metrics`` under their names.
     ``metrics`` holds ``loss`` and, unless ``grad_norm=False``, the
     global gradient norm (a read of every gradient)."""
-    return _Step(_step_body(loss_fn, optimizer, has_extra, grad_norm),
-                 multi=False)
+    return _Step(_step_body(loss_fn, optimizer, has_extra, grad_norm,
+                            has_aux), multi=False)
 
 
 def make_multi_train_step(loss_fn: Callable, optimizer,

@@ -3,8 +3,10 @@
 The reference's ``ray.util`` namespace re-exports its utility family;
 mirrored here so ``ray_tpu_torch.util.ActorPool`` etc. resolve the
 same way. Heavy siblings (state, metrics, tracing, storage) resolve
-lazily; the JAX package's other utility modules (collective, queue,
-multiprocessing, joblib, chaos, ...) are not ported yet and raise.
+lazily, and ``collective`` is the port's ``ray_tpu_torch.collective``,
+as the JAX package's resolves to its own; the JAX package's other
+utility modules (queue, multiprocessing, joblib, chaos, ...) are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -82,6 +84,11 @@ def __getattr__(name: str):
         mod = importlib.import_module(f"ray_tpu_torch.util.{name}")
         globals()[name] = mod
         return mod
+    if name == "collective":
+        import importlib
+        mod = importlib.import_module("ray_tpu_torch.collective")
+        globals()[name] = mod
+        return mod
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"ray_tpu_torch.util.{name} is not ported yet "
@@ -91,5 +98,5 @@ def __getattr__(name: str):
 
 
 # Utility modules of the JAX package that this package lacks so far.
-_NOT_PORTED = ("collective", "queue", "multiprocessing", "joblib",
+_NOT_PORTED = ("queue", "multiprocessing", "joblib",
                "scheduling_strategies", "chaos", "ha", "usage")

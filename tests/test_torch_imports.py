@@ -50,7 +50,16 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.tune.classic", "ray_tpu_torch.tune.compat",
            "ray_tpu_torch.tune.optuna", "ray_tpu_torch.train.torch",
            "ray_tpu_torch.train.huggingface",
-           "ray_tpu_torch.train.sklearn"} - set(names)
+           "ray_tpu_torch.train.sklearn",
+           "ray_tpu_torch.collective.host", "ray_tpu_torch.collective.mesh",
+           "ray_tpu_torch.collective.communicator",
+           "ray_tpu_torch.rllib.algorithm", "ray_tpu_torch.rllib.catalog",
+           "ray_tpu_torch.rllib.checkpoints",
+           "ray_tpu_torch.rllib.connectors",
+           "ray_tpu_torch.rllib.env_runner", "ray_tpu_torch.rllib.learner",
+           "ray_tpu_torch.rllib.learner_group",
+           "ray_tpu_torch.rllib.models", "ray_tpu_torch.rllib.multi_agent",
+           "ray_tpu_torch.rllib.offline"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -64,6 +73,8 @@ from ray_tpu_torch.models import (GPT2, GPT2Config, Llama, LlamaConfig,
 from ray_tpu_torch.parallel import initialize, make_mesh
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
 from ray_tpu_torch.train import prefetch_to_device
+from ray_tpu_torch.rllib import TorchLearner
+from ray_tpu_torch.rllib.catalog import build_actor_critic
 assert not torch.cuda.is_available()
 for entry in (default_device, initialize, make_mesh,
               lambda: spawn(print, 2), lambda: dryrun_multichip(2),
@@ -72,7 +83,9 @@ for entry in (default_device, initialize, make_mesh,
               lambda: ResNet(ResNet50Config.tiny()),
               lambda: ViT(ViTConfig.tiny()),
               lambda: MoETransformer(MoEConfig.tiny()),
-              lambda: prefetch_to_device([])):
+              lambda: prefetch_to_device([]),
+              lambda: TorchLearner({"obs_dim": 4, "num_actions": 2}),
+              lambda: build_actor_critic({"obs_dim": 4, "num_actions": 2})):
     try:
         entry()
     except RuntimeError as e:
@@ -84,6 +97,7 @@ Llama(LlamaConfig.tiny(), device="cpu")
 ResNet(ResNet50Config.tiny(), device="cpu")
 ViT(ViTConfig.tiny(), device="cpu")
 MoETransformer(MoEConfig.tiny(), device="cpu")
+TorchLearner({"obs_dim": 4, "num_actions": 2}, device="cpu")
 print("OK", len(names))
 """
 
