@@ -9,6 +9,7 @@
     python3 chip_smoke.py --plant-fault serve_left_pad
     python3 chip_smoke.py --plant-fault pbt_own_restore
     python3 chip_smoke.py --plant-fault learner_no_allreduce
+    python3 chip_smoke.py --plant-fault sac_stale_critic
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -307,7 +308,7 @@ exits non-zero without its result line:
    temporary directory, removed at the end. Each leg's references run in
    this process after its trials have exited. (a) ASHA
    (``max_t=TUNE_STEPS, grace_period=2, reduction_factor=2``) over lr
-   TUNE_LRS, trials at ``{"CPU": 1, "GPU": 0.5}``, two at a time,
+   TUNE_ONE_CARD_LRS, trials at ``{"CPU": 1, "GPU": 0.5}``, two at once,
    checkpointing at their last step: no trial errors; two trials
    overlapped on the same card UUID; each trial's losses against the same
    steps in this process (CAPTURE_LOSS_RTOL, bit-equal expected); ASHA
@@ -372,7 +373,7 @@ exits non-zero without its result line:
    losses finite, one capture, (b)'s one-update comparison on the first
    iteration's batch (the CNN's updates on raw frames amplify float32
    rounding itself, so the card-vs-CPU distance after the iteration's
-   first epoch, 16 updates, is printed beside the CPU's
+   first epoch, 4 updates, is printed beside the CPU's
    float32-vs-float64 distance over the same updates, not checked);
    prints sample and learn seconds an iteration, env steps/s, updates/s,
    one runner's sample of SPLIT_STEPS timed inside its actor and through
@@ -384,9 +385,10 @@ exits non-zero without its result line:
    (numpy seed 0), 3 updates: equal ``weights_digests``, one card UUID,
    the first update against an in-process update on the card with the mean
    of the two shards' gradients (LEARNER_UPDATE_RTOL); prints the ring
-   all-reduce's time and bytes an update. (f) (a)'s state through
-   ``save_to_path`` and ``PPO.from_checkpoint``: bit-equal, the same
-   greedy action on 16 observations; ``Tuner(PPO.as_trainable(builder,
+   all-reduce's time and bytes an update. (f) (a)'s algorithm, still
+   running, through ``save_to_path`` and ``PPO.from_checkpoint`` into an
+   algorithm without runners: bit-equal, the same greedy action on 16
+   observations; ``Tuner(PPO.as_trainable(builder,
    num_iterations=2))`` over lr RLLIB_TUNE_LRS at ``{"CPU": 1, "GPU":
    0.5}``: both trials at ``training_iteration`` 2, each trial's process
    on this card. Prints each leg's time. ``--plant-fault
@@ -399,6 +401,33 @@ exits non-zero without its result line:
    ``GPU: 1``: N distinct card UUIDs, equal digests after 3 updates, the
    first update against the in-process mean-gradient update on card 0;
    the ring all-reduce's time beside (e)'s.
+   (g) RLlib's other eight algorithms, in the phase's runtime. First each
+   learner (IMPALA, APPO, DQN, SAC, CQL, BC, MARWIL, Dreamer; MLPs 64 x
+   64, ``DreamerModelConfig()``, each at its defaults) on the card
+   against the same learner on the CPU,
+   seed 0 (the same initial weights: the catalog draws them on the CPU),
+   on the same batch and the same noise, drawn on the CPU: one update (the
+   gradients every optimizer is given within LEARNER_GRAD_RTOL, L2; the
+   update within LEARNER_UPDATE_RTOL of its size) and, for the MLP
+   learners, a whole iteration's updates from the start again (within
+   LEARNER_UPDATE_RTOL; the last metrics within LEARNER_METRIC_RTOL). The
+   batches: random-policy episodes of ChipChain (IMPALA, APPO, DQN's
+   replay), ChipPoint1D (SAC's replay), ``chip_cartpole`` (Dreamer's
+   sequence replay), and offline data from numpy seed 0 (BC, MARWIL,
+   CQL). Then each algorithm's ``train()`` with its learner on the card:
+   DQN, IMPALA and APPO on ChipChain, SAC on ChipPoint1D (the JAX test's
+   ``learning_starts=256``, 16 gradient steps), Dreamer on
+   ``chip_cartpole``, one runner each, ALGO_ITERS iterations each, the
+   five built at once so that their runners start together; BC, MARWIL
+   and CQL on their
+   offline data, OFFLINE_ITERS iterations. Checks: the learner on
+   ``cuda:0``, updates made, the losses finite, the update captured.
+   Prints each algorithm's env steps/s, updates/s, ``compile_count`` and
+   time. ``--plant-fault sac_stale_critic`` runs (g)'s SAC comparison
+   with a card learner whose actor steps before its critic (the actor
+   reading the critic as it was before the critic's update) and prints
+   ``{"fault": ..., "caught": ...}``: exit 1 when the comparison fails
+   it, 2 when missed or when the run failed before it.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -663,7 +692,8 @@ SERVE_HALF_REQUESTS = 64           # requests to the two half-card replicas
 SERVE_CARDS_REQUESTS = 128         # requests to the four-card replicas
 TUNE_STEPS = 8                     # steps of each trial (ASHA's max_t)
 TUNE_BATCHES = 4                   # fixed batches a trial cycles through
-TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)   # (a)'s grid
+TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)   # (f)'s grid, four cards
+TUNE_ONE_CARD_LRS = (1e-4, 3e-4)   # (a)'s grid: one wave of two trials
 TUNE_PBT_LRS = (1e-5, 1e-3)        # (b)'s population
 TUNE_MUTATIONS = [1e-5, 1e-4, 1e-3]   # PBT's lr choices
 TUNE_PBT_INTERVAL = 2              # PBT's perturbation interval, and (b)'s
@@ -682,16 +712,19 @@ FRAME_SHAPE = (84, 84, 4)          # Atari's stacked frames
 FRAME_POOL = 64                    # distinct frames of chip_frames
 RLLIB_ACTIONS = 6                  # chip_frames' actions
 FRAMES_EPISODE = 1000              # chip_frames' episode length
-FRAMES_BATCH = 4096                # (c)'s train_batch_size
+FRAMES_BATCH = 1024                # (c)'s train_batch_size
 FRAMES_MINIBATCH = 256
-FRAMES_EPOCHS = 4                  # 64 captured updates an iteration
-FRAMES_ITERS = 2
+FRAMES_EPOCHS = 4                  # 16 captured updates an iteration
+FRAMES_ITERS = 1
 SPLIT_STEPS = 256                  # (c)'s runner sample timed alone
 RECURRENT_HIDDEN = 64              # (d)'s GRU width
 RECURRENT_EPISODES = 40            # (d)'s episodes, as the JAX test's
 GROUP_ROWS = 512                   # (e)'s fixed batch
 RLLIB_TUNE_LRS = (3e-4, 3e-3)      # (f)'s grid
 RLLIB_TUNE_SHARE = 0.5             # (f)'s trials' share of the card
+ALGO_ITERS = 4                     # (g)'s train() iterations, runner-backed
+OFFLINE_ITERS = 2                  # (g)'s train() iterations, offline
+OFFLINE_ROWS = 4096                # (g)'s offline datasets (numpy seed 0)
 # (b): the card's update against the CPU's from the same weights, TF32 off
 # in the learner: float32 sums in another order, which Adam turns into a
 # full step on entries whose gradient is near zero. Over the whole model
@@ -710,7 +743,10 @@ LEARNER_METRIC_RTOL = 1e-3
 LEARNER_GRAD_RTOL = 1e-5
 # Faults of phase 19's learner group (user code, not a kernel).
 RLLIB_FAULTS = {"learner_no_allreduce": "the group's learners apply their "
-                "own shard's gradients, skipping the all-reduce"}
+                "own shard's gradients, skipping the all-reduce",
+                "sac_stale_critic": "the card's SAC learner steps its actor "
+                "before its critic, so the actor reads the critic as it was "
+                "before the critic's update"}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -2746,16 +2782,18 @@ def runtime_phase(card: str) -> dict:
     check(res.get("GPU") == torch.cuda.device_count(),
           f"cluster_resources GPU {res.get('GPU')}")
     probe = rt.remote(gpu_probe)
+    # Both first calls at once: their workers start together.
     t0 = time.perf_counter()
-    cpu = rt.get(probe.remote())
+    cpu_ref, gpu_ref = probe.remote(), probe.options(num_gpus=1).remote()
+    cpu = rt.get(cpu_ref)
     first_cpu_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gpu = rt.get(probe.options(num_gpus=1).remote())
+    gpu = rt.get(gpu_ref)
     first_gpu_s = time.perf_counter() - t0
     print(f"runtime (a) init {init_s:.3f} s, resources {res}; a plain task "
           f"sees {cpu} (first call {first_cpu_s:.2f} s, the worker's start "
           f"and torch's import included); a num_gpus=1 task sees {gpu} "
-          f"({first_gpu_s:.2f} s); card {card}", flush=True)
+          f"({first_gpu_s:.2f} s, issued with the first); card {card}",
+          flush=True)
     check(cpu == {"cuda_visible": "", "device_count": 0, "gpu_ids": []},
           "a plain task sees no GPU")
     check(gpu["device_count"] == 1 and gpu["gpu_ids"] == [0]
@@ -3594,21 +3632,11 @@ def serve_phase(card: str, dev, fault: str | None = None) -> dict:
 def serve_legs(rt, card, weights, reqs, ref, kernel_row, fault):
     from ray_tpu_torch.serve.replica import Replica
     weights_ref = rt.put(weights)
-    # (a') No CPU fallback: a replica that holds no card cannot start.
+    # (a') No CPU fallback: a replica that holds no card cannot start. Its
+    # worker starts beside (a)'s; the refusal is read after (a).
     nocard = Replica.options(num_cpus=0).remote(GPT2Server, (weights_ref,),
                                                 {}, "gpt2#nocard")
-    try:
-        rt.get(nocard.handle_request.remote("stats", (), {}), timeout=300)
-        refused = "started"
-    except Exception as e:  # noqa: BLE001 — the replica's start failed
-        refused = str(e)
-    rt.kill(nocard)
-    said = [line for line in refused.splitlines() if "CUDA" in line]
-    print(f"serve (a) a GPT2Server replica without a card refuses to start: "
-          f"{'no CUDA device' in refused} ({(said or [refused])[-1][:200]})",
-          flush=True)
-    check("no CUDA device" in refused, "a replica without a card refuses "
-          "to start (no CPU fallback)")
+    nocard_call = nocard.handle_request.remote("stats", (), {})
 
     # (a) Start: serve.run to the first answer, HTTP ingress on.
     try:
@@ -3644,6 +3672,18 @@ def serve_legs(rt, card, weights, reqs, ref, kernel_row, fault):
           f"{card}",
           flush=True)
     check(first["id"] == 0, "the first answer is the first request's")
+    try:
+        rt.get(nocard_call, timeout=300)
+        refused = "started"
+    except Exception as e:  # noqa: BLE001 — the replica's start failed
+        refused = str(e)
+    rt.kill(nocard)
+    said = [line for line in refused.splitlines() if "CUDA" in line]
+    print(f"serve (a) a GPT2Server replica without a card refuses to start: "
+          f"{'no CUDA device' in refused} ({(said or [refused])[-1][:200]})",
+          flush=True)
+    check("no CUDA device" in refused, "a replica without a card refuses "
+          "to start (no CPU fallback)")
 
     if fault:
         leg = drive(handle_call(handle), reqs[:SERVE_HALF_REQUESTS], 8)
@@ -4513,8 +4553,8 @@ def tune_phase(card: str, runtime: dict | None = None) -> dict:
         rt.init()
         try:
             sweep = tune_sweep(weights, batches,
-                               tune_spec(cfg, ckpt_last=True), TUNE_LRS,
-                               share, 2, storage)
+                               tune_spec(cfg, ckpt_last=True),
+                               TUNE_ONE_CARD_LRS, share, 2, storage)
             pbt = tune_pbt(weights, batches,
                            tune_spec(cfg, ckpt_every=TUNE_PBT_INTERVAL,
                                      population=len(TUNE_PBT_LRS),
@@ -4532,7 +4572,8 @@ def tune_phase(card: str, runtime: dict | None = None) -> dict:
         # The references, in this process once every trial has exited.
         spec = tune_spec(cfg)
         ra, checks = sweep_readings(sweep, weights, batches, spec)
-        print(f"tune (a) ASHA over lr {list(TUNE_LRS)}, {len(TUNE_LRS)} "
+        print(f"tune (a) ASHA over lr {list(TUNE_ONE_CARD_LRS)}, "
+              f"{len(TUNE_ONE_CARD_LRS)} "
               f"trials at GPU {TUNE_SHARE}, 2 at a time, {TUNE_STEPS} steps "
               f"of B={TRAIN_BATCH} T={TRAIN_SEQ}: {describe_sweep(ra)}; "
               f"stopped early {ra['early']} (replay {ra['replay']}); "
@@ -5024,8 +5065,9 @@ def learn_profile(learner, episodes) -> dict:
 
 
 def ppo_cartpole(env: str, card: str) -> tuple[dict, list]:
-    """(a) and (b). Returns the algorithm's readings (the algorithm is
-    stopped; its state kept for (f)) and the checks."""
+    """(a) and (b). Returns the algorithm's readings, the algorithm itself
+    (running, for (f)'s checkpoint round trip, which stops it) and its
+    state, and the checks."""
     from ray_tpu_torch.rllib import PPOConfig
     cfg = (PPOConfig().environment(env, obs_dim=4, num_actions=2)
            .env_runners(2)
@@ -5052,8 +5094,9 @@ def ppo_cartpole(env: str, card: str) -> tuple[dict, list]:
         state = algo.get_state()
         first_eps = algo.runners.batches[0]
         wall = time.perf_counter() - t0
-    finally:
+    except BaseException:
         algo.stop()
+        raise
     pair = learner_pair(cfg.policy_config, cfg.hparams, initial, first_eps)
     samples = [r["time_sample_s"] for r in results]
     learns = [r["time_learn_s"] for r in results]
@@ -5083,7 +5126,7 @@ def ppo_cartpole(env: str, card: str) -> tuple[dict, list]:
              6 * (r["num_env_steps_sampled"] // 128) for r in results),
          (captures, updates)),
     ] + pair_checks(pair, "(b)")
-    return {"state": state, "cfg": cfg, "wall_s": wall,
+    return {"state": state, "cfg": cfg, "wall_s": wall, "algo": algo,
             "pair": pair}, checks
 
 
@@ -5345,20 +5388,22 @@ def rllib_tune_builder(env: str, gate: str):
 
 
 def checkpoint_and_tune(env: str, a: dict, card: str) -> tuple[dict, list]:
-    """(f): (a)'s algorithm through save_to_path / from_checkpoint, then
-    PPO under Tune at half a card a trial."""
+    """(f): (a)'s algorithm (still running, its runners too) through
+    save_to_path / from_checkpoint (into an algorithm without runners),
+    then stopped; then PPO under Tune at half a card a trial."""
     from ray_tpu_torch.rllib import PPO
     from ray_tpu_torch.train import RunConfig
     tmp = tempfile.mkdtemp(prefix="chip_smoke_rllib_")
     gate = tempfile.mkdtemp(prefix="chip_smoke_gate_")
     try:
         t0 = time.perf_counter()
-        algo = a["cfg"].build()
+        algo = a["algo"]
         try:
-            algo.set_state(a["state"])
             algo.save_to_path(os.path.join(tmp, "ckpt"))
+            # The learner's state is what round trips: the restored
+            # algorithm starts no runners.
             restored = PPO.from_checkpoint(os.path.join(tmp, "ckpt"),
-                                           a["cfg"])
+                                           a["cfg"].env_runners(0))
             try:
                 want = a["state"]["learner"]
                 got = restored.get_state()["learner"]
@@ -5417,6 +5462,519 @@ def checkpoint_and_tune(env: str, a: dict, card: str) -> tuple[dict, list]:
     return {"ckpt_s": ckpt_s, "tune_s": tune_s}, checks
 
 
+
+# -- phase 19 (g): RLlib's other eight algorithms ------------------------------
+
+
+class ChipChain:
+    """The chain of tests/test_rllib_algos.py: walk right along N = 8
+    one-hot states; +1 at the end, -0.01 a step; truncated after 30
+    steps."""
+
+    N = 8
+
+    def __init__(self):
+        self.pos = self.t = 0
+
+    def _obs(self):
+        o = np.zeros(self.N, np.float32)
+        o[self.pos] = 1.0
+        return o
+
+    def reset(self, seed=None, options=None):
+        self.pos = self.t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        self.t += 1
+        self.pos = max(0, min(self.N - 1,
+                              self.pos + (1 if int(action) == 1 else -1)))
+        term = self.pos == self.N - 1
+        return (self._obs(), 1.0 if term else -0.01, term,
+                self.t >= 30 and not term, {})
+
+
+class ChipPoint1D:
+    """Point1DEnv of tests/test_rllib_algos.py: drive x to 0 with actions
+    in [-1, 1] (x += 0.25 a); reward -x²; 16-step episodes."""
+
+    def __init__(self):
+        self.x, self.t = 0.0, 0
+        self.rng = np.random.default_rng(0)
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        self.x, self.t = float(self.rng.uniform(-1.0, 1.0)), 0
+        return np.array([self.x], np.float32), {}
+
+    def step(self, action):
+        a = float(np.clip(np.asarray(action).reshape(-1)[0], -1, 1))
+        self.x = float(np.clip(self.x + 0.25 * a, -2.0, 2.0))
+        self.t += 1
+        return (np.array([self.x], np.float32), -self.x ** 2, False,
+                self.t >= 16, {})
+
+
+def random_episodes(env, steps: int, sample_action, seed: int = 0) -> list:
+    """``steps`` steps of ``env`` under ``sample_action(rng)``, as
+    episodes with their final observations."""
+    from ray_tpu_torch.rllib.env_runner import Episode
+    rng = np.random.default_rng(seed)
+    obs, _ = env.reset(seed=seed)
+    out, ep = [], Episode()
+    for _ in range(steps):
+        a = sample_action(rng)
+        nobs, r, term, trunc, _ = env.step(a)
+        ep.obs.append(np.asarray(obs, np.float32))
+        ep.actions.append(a)
+        ep.rewards.append(float(r))
+        ep.logps.append(float(np.log(0.5)))
+        ep.values.append(0.0)
+        obs = nobs
+        if term or trunc:
+            ep.terminated, ep.truncated = term, trunc
+            ep.final_obs = np.asarray(obs, np.float32)
+            out.append(ep)
+            ep = Episode()
+            obs, _ = env.reset()
+    if ep.length:
+        ep.final_obs = np.asarray(obs, np.float32)
+        out.append(ep)
+    return out
+
+
+def offline_data(kind: str, rows: int = OFFLINE_ROWS, seed: int = 0) -> dict:
+    """(g)'s offline datasets from numpy seed 0: a linear expert's (obs,
+    action) pairs for BC; half expert, half anti-expert with returns ±1
+    for MARWIL (tests/test_rllib_algos.py's tasks); for CQL, logged
+    Point1D transitions of a noisy proportional controller."""
+    rng = np.random.default_rng(seed)
+    if kind == "cql":
+        env, cols = ChipPoint1D(), {k: [] for k in (
+            "obs", "action", "reward", "next_obs", "done")}
+        o, _ = env.reset(seed=seed)
+        for t in range(rows):
+            a = float(np.clip(-0.8 * o[0] + rng.normal() * 0.7, -1, 1))
+            no, r, term, trunc, _ = env.step([a])
+            for k, v in (("obs", o), ("action", [a]), ("reward", r),
+                         ("next_obs", no), ("done", float(term))):
+                cols[k].append(v)
+            o = no
+            if term or trunc:
+                o, _ = env.reset(seed=seed + t + 1)
+        return {k: np.asarray(v, np.float32) for k, v in cols.items()}
+    obs = rng.standard_normal((rows, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 3)).astype(np.float32)
+    expert = np.argmax(obs @ w, axis=1).astype(np.int64)
+    if kind == "bc":
+        return {"obs": obs, "action": expert}
+    anti = np.argmin(obs @ w, axis=1).astype(np.int64)
+    take = rng.random(rows) < 0.5
+    return {"obs": obs, "action": np.where(take, expert, anti),
+            "return": np.where(take, 1.0, -1.0).astype(np.float32)}
+
+
+def record_grads(*opts) -> list:
+    """Each optimizer's ``update`` records the gradients it is given
+    (float64 on the CPU, flat); returns the list they go into, one entry
+    per update made. A captured step's first call is its warm-up (the
+    update, recorded) and then its capture, which updates nothing and is
+    not recorded."""
+    seen = []
+    for opt in opts:
+        inner = opt.update
+
+        def update(grads, state, params, inner=inner):
+            if not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                seen.append(torch.cat([
+                    g.detach().reshape(-1).double().cpu()
+                    for g in grads if g is not None]))
+            return inner(grads, state, params)
+
+        opt.update = update
+    return seen
+
+
+class StaleCriticSAC:
+    """``--plant-fault sac_stale_critic``: a SAC learner whose actor step
+    runs before the critic's, so the actor reads the critic as it was
+    before the critic's update (made a subclass of SACLearner when
+    used)."""
+
+    def _body(self, state, batch) -> dict:
+        m, opt_state = state.params, state.opt_state
+        alpha = torch.exp(m["alpha"].log_alpha.detach())
+        y = self._soft_target(m, batch, alpha)
+        a_loss, mean_logp = self._actor_step(m, opt_state, batch, alpha)
+        c_loss = self._critic_step(m, opt_state, batch, y)
+        self._alpha_step(m, opt_state, mean_logp)
+        self._polyak(m)
+        return {"critic_loss": c_loss, "actor_loss": a_loss,
+                "alpha": torch.exp(m["alpha"].log_alpha.detach()),
+                "entropy": -mean_logp}
+
+
+def algo_learners(fault: str | None = None) -> dict:
+    """(g): for each learner, ``make(device)`` (seed 0: the same initial
+    weights on any device, the catalog draws them on the CPU), the
+    optimizers whose gradients are recorded, the modules compared, and
+    ``work()``: the batches (and noise, drawn on the CPU) of one update
+    and of one iteration, made once for both devices. ``fault``
+    (``sac_stale_critic``) swaps the card's SAC learner for the faulty
+    one."""
+    from ray_tpu_torch.rllib import (
+        appo, bc, cql, dqn, dreamer, impala, marwil, sac,
+    )
+    from ray_tpu_torch.rllib.learner import gumbel
+    chain = {"obs_dim": 8, "num_actions": 2, "hidden": (64, 64)}
+    cont = {"obs_dim": 1, "action_dim": 1, "hidden": (64, 64)}
+    coin = lambda r: int(r.integers(2))              # noqa: E731
+    out = {}
+
+    def single(make, work, mlp=True):
+        return {"make": make, "opts": lambda ln: (ln.opt,),
+                "modules": lambda ln: (ln.model,), "work": work,
+                "step": lambda ln, b: ln.update(b), "mlp": mlp}
+
+    def vtrace_work():
+        # IMPALA's iteration is one update on its episodes' [B, 64] block.
+        eps = random_episodes(ChipChain(), 256, coin)[:8]
+        ref = impala.ImpalaLearner(chain, impala.ImpalaHyperparams(), 64,
+                                   device="cpu")
+        batch = ref.make_batch(eps)
+        return [batch], [batch]
+
+    out["impala"] = single(lambda d: impala.ImpalaLearner(
+        chain, impala.ImpalaHyperparams(), 64, device=d), vtrace_work)
+    out["appo"] = single(lambda d: appo.APPOLearner(
+        chain, appo.APPOHyperparams(), 64, device=d), vtrace_work)
+
+    def dqn_work():
+        hp = dqn.DQNHyperparams()
+        buf = dqn.ReplayBuffer(hp.buffer_size, 8)
+        buf.add_episodes(random_episodes(ChipChain(), 2048, coin))
+        rng = np.random.default_rng(0)
+        batches = [buf.sample(hp.train_batch_size, rng)
+                   for _ in range(hp.num_gradient_steps)]
+        return batches[:1], batches
+
+    out["dqn"] = single(lambda d: dqn.DQNLearner(
+        chain, dqn.DQNHyperparams(), device=d), dqn_work)
+
+    def continuous(make, hp, rows_of, penalty: int = 0):
+        def work():
+            data, rng = rows_of(), np.random.default_rng(0)
+            gen = torch.Generator().manual_seed(1)
+            b, n = hp.train_batch_size, len(data["obs"])
+            shapes = {"noise_next": (b, 1), "noise": (b, 1)}
+            if penalty:
+                shapes.update(a_rand=(b, penalty, 1),
+                              noise_pi=(b * penalty, 1))
+            steps = []
+            for _ in range(hp.num_gradient_steps):
+                idx = rng.integers(0, n, b)
+                noise = {k: (torch.rand(s, generator=gen) * 2 - 1
+                             if k == "a_rand" else
+                             torch.randn(s, generator=gen))
+                         for k, s in shapes.items()}
+                steps.append(({k: v[idx] for k, v in data.items()}, noise))
+            return steps[:1], steps
+
+        return {"make": make,
+                "opts": lambda ln: (ln.critic_opt, ln.actor_opt,
+                                    ln.alpha_opt),
+                "modules": lambda ln: (ln.actor, ln.critic,
+                                       ln.target_critic),
+                "work": work, "mlp": True,
+                "step": lambda ln, s: ln.update(s[0], noise=s[1])}
+
+    def sac_rows():
+        buf = sac.ContinuousReplayBuffer(100_000, 1, 1)
+        buf.add_episodes(random_episodes(
+            ChipPoint1D(), 2048,
+            lambda r: np.array([r.uniform(-1, 1)], np.float32)))
+        return {k: getattr(buf, k)[:buf.size] for k in (
+            "obs", "actions", "rewards", "next_obs", "dones")}
+
+    def cql_rows():
+        d = offline_data("cql")
+        return {"obs": d["obs"], "actions": d["action"],
+                "rewards": d["reward"], "next_obs": d["next_obs"],
+                "dones": d["done"]}
+
+    card_sac = sac.SACLearner
+    if fault == "sac_stale_critic":
+        card_sac = type("StaleCriticSACLearner",
+                        (StaleCriticSAC, sac.SACLearner), {})
+    sac_hp, cql_hp = sac.SACHyperparams(), cql.CQLHyperparams()
+    out["sac"] = continuous(
+        lambda d: (card_sac if d is None else sac.SACLearner)(
+            cont, sac_hp, device=d), sac_hp, sac_rows)
+    out["cql"] = continuous(
+        lambda d: cql.CQLLearner(cont, cql_hp, device=d), cql_hp, cql_rows,
+        cql_hp.num_penalty_actions)
+
+    def offline(kind, learner_cls, hp):
+        def work():
+            data, rng = offline_data(kind), np.random.default_rng(0)
+            n = len(data["obs"])
+            batches = [{k: v[idx] for k, v in data.items()} for idx in (
+                rng.integers(0, n, hp.train_batch_size)
+                for _ in range(hp.num_gradient_steps))]
+            return batches[:1], batches
+
+        return single(lambda d: learner_cls(
+            {"obs_dim": 4, "num_actions": 3, "hidden": (64, 64)}, hp,
+            device=d), work)
+
+    out["bc"] = offline("bc", bc.BCLearner, bc.BCHyperparams())
+    out["marwil"] = offline("marwil", marwil.MARWILLearner,
+                            marwil.MARWILHyperparams())
+
+    def dreamer_work():
+        hp, cfg = dreamer.DreamerHyperparams(), dreamer.DreamerModelConfig()
+        buf = dreamer.SequenceReplay(hp.buffer_steps, hp.seq_len)
+        buf.add_episodes(random_episodes(ChipCartPole(), 2048, coin))
+        gen, n = torch.Generator().manual_seed(1), hp.batch_size * hp.seq_len
+        noise = {"wm": gumbel((hp.seq_len, hp.batch_size, cfg.n_cat,
+                               cfg.n_classes), gen, "cpu"),
+                 "ac_a": gumbel((hp.horizon, n, cfg.num_actions), gen,
+                                "cpu"),
+                 "ac_z": gumbel((hp.horizon, n, cfg.n_cat, cfg.n_classes),
+                                gen, "cpu")}
+        step = (buf.sample(hp.batch_size, np.random.default_rng(0)), noise)
+        return [step], [step]
+
+    out["dreamer"] = {"make": lambda d: dreamer.DreamerLearner(
+        dreamer.DreamerModelConfig(), dreamer.DreamerHyperparams(),
+        device=d), "opts": lambda ln: (ln.wm_opt, ln.ac_opt),
+        "modules": lambda ln: (ln.module,), "work": dreamer_work,
+        "step": lambda ln, s: ln.update(s[0], noise=s[1]), "mlp": False}
+    return out
+
+
+def named_weights(modules) -> dict:
+    """Every parameter of ``modules``, float64 on the CPU, by module index
+    and name."""
+    return {f"{i}.{k}": p.detach().to("cpu", torch.float64, copy=True)
+            for i, m in enumerate(modules) for k, p in m.named_parameters()}
+
+
+def algo_pair(spec: dict) -> dict:
+    """One learner's (g) comparison: on the card and on the CPU from the
+    same weights, first one update (the gradients and the updates
+    compared), then (the MLP learners) a whole iteration's updates from
+    the start again (the parameters and the last metrics compared)."""
+    one, iteration = spec["work"]()
+    out = {}
+    for name, device in (("card", None), ("cpu", "cpu")):
+        ln = spec["make"](device)
+        modules = spec["modules"](ln)
+        start = named_weights(modules)
+        seen = record_grads(*spec["opts"](ln))
+        t0 = time.perf_counter()
+        spec["step"](ln, one[0])
+        if device is None:
+            torch.cuda.synchronize()
+        res = {"grad": torch.cat(seen), "start": start,
+               "one": named_weights(modules),
+               "one_s": time.perf_counter() - t0, "device": str(ln.device),
+               "captures": ln.compile_count}
+        if spec["mlp"]:
+            ln = spec["make"](device)
+            modules = spec["modules"](ln)
+            t0 = time.perf_counter()
+            for step in iteration:
+                metrics = spec["step"](ln, step)
+            if device is None:
+                torch.cuda.synchronize()
+            res.update(iteration_s=time.perf_counter() - t0,
+                       metrics=metrics, updates=len(iteration),
+                       captures=ln.compile_count,
+                       whole=named_weights(modules))
+        out[name] = res
+        del ln, modules
+    torch.cuda.empty_cache()
+    card, cpu = out["card"], out["cpu"]
+    out["same_start"] = all(torch.equal(card["start"][k], cpu["start"][k])
+                            for k in cpu["start"])
+    out["grad_rel"] = float((card["grad"] - cpu["grad"]).norm()
+                            / cpu["grad"].norm())
+    out["one_rel"] = update_rel(card["one"], cpu["one"], cpu["start"])
+    if "whole" in cpu:
+        out["rel"] = update_rel(card["whole"], cpu["whole"], cpu["start"])
+        scale = max(abs(v) for v in cpu["metrics"].values()) or 1.0
+        out["metric_rel"] = max(
+            abs(card["metrics"][k] - v) / max(abs(v), scale)
+            for k, v in cpu["metrics"].items())
+    return out
+
+
+def algo_pair_checks(name: str, r: dict) -> list[tuple]:
+    checks = [(f"(g) {name}: the same initial weights on the card and the "
+               f"CPU; the first update's gradient on the card against the "
+               f"CPU's within {LEARNER_GRAD_RTOL} (L2), the update within "
+               f"{LEARNER_UPDATE_RTOL} of its size",
+               r["same_start"] and r["grad_rel"] <= LEARNER_GRAD_RTOL
+               and r["one_rel"] <= LEARNER_UPDATE_RTOL
+               and r["card"]["device"] == "cuda:0",
+               {"grad_rel": r["grad_rel"], "one_rel": r["one_rel"]})]
+    if "rel" in r:
+        checks.append((
+            f"(g) {name}: a whole iteration ({r['card']['updates']} "
+            f"updates) on the card against the CPU's within "
+            f"{LEARNER_UPDATE_RTOL} of the update (L2), metrics within "
+            f"{LEARNER_METRIC_RTOL}",
+            r["rel"] <= LEARNER_UPDATE_RTOL
+            and r["metric_rel"] <= LEARNER_METRIC_RTOL,
+            {"rel": r["rel"], "metric_rel": r["metric_rel"]}))
+    return checks
+
+
+def describe_algo_pair(name: str, r: dict) -> str:
+    whole = (f"; a whole iteration of {r['card']['updates']} updates: "
+             f"card vs CPU relative {r['rel']:.3g}, metrics "
+             f"{r['metric_rel']:.3g}, card {r['card']['iteration_s']:.3f} s, "
+             f"CPU {r['cpu']['iteration_s']:.3f} s" if "rel" in r else "")
+    return (f"{name}: gradient relative {r['grad_rel']:.3g}, one update "
+            f"relative {r['one_rel']:.3g} (card {r['card']['one_s']:.3f} s "
+            f"with its capture, CPU {r['cpu']['one_s']:.3f} s){whole}; "
+            f"compile_count {r['card']['captures']}")
+
+
+def algo_configs(env: str) -> dict:
+    """(g)'s train() runs: each algorithm at its defaults (MLPs 64 x 64,
+    DQN's 50 000-step buffer, DreamerModelConfig()) on its toy task,
+    the learner on the card, one runner each (Dreamer's default; the
+    others' two cut to one); SAC at the JAX test's learning_starts 256,
+    16 gradient steps."""
+    from ray_tpu_torch import data as rdata
+    from ray_tpu_torch import rllib
+    chain = {"obs_dim": 8, "num_actions": 2}
+    cfgs = {
+        "dqn": rllib.DQNConfig().environment(ChipChain, **chain),
+        "impala": rllib.ImpalaConfig().environment(ChipChain, **chain),
+        "appo": rllib.APPOConfig().environment(ChipChain, **chain),
+        "sac": rllib.SACConfig().environment(ChipPoint1D, obs_dim=1,
+                                              action_dim=1)
+        .training(learning_starts=256, num_gradient_steps=16),
+    }
+    cfgs = {k: c.env_runners(1) for k, c in cfgs.items()}
+    cfgs["dreamer"] = rllib.DreamerConfig().environment(env, obs_dim=4,
+                                                        num_actions=2)
+    cql = offline_data("cql")
+    cfgs["bc"] = rllib.BCConfig().environment(obs_dim=4, num_actions=3) \
+        .offline_data(rdata.from_numpy(offline_data("bc"), parallelism=4))
+    cfgs["marwil"] = rllib.MARWILConfig().environment(
+        obs_dim=4, num_actions=3).offline_data(rdata.from_numpy(
+            offline_data("marwil"), parallelism=4))
+    cfgs["cql"] = rllib.CQLConfig().environment(obs_dim=1, action_dim=1) \
+        .offline_data(rdata.from_numpy(cql, parallelism=4))
+    return cfgs
+
+
+def updates_of(name: str, cfg, result: dict) -> int:
+    """The learner updates a train() iteration made (Dreamer's: a world-
+    model and an actor-critic step each)."""
+    hp = cfg.hparams
+    if name in ("impala", "appo"):
+        return 1
+    if name == "dreamer":
+        return hp.wm_updates_per_iter if "wm_loss" in result else 0
+    learned = name in ("bc", "marwil", "cql") or any(
+        k in result for k in ("loss", "critic_loss"))
+    return hp.num_gradient_steps if learned else 0
+
+
+def learner_device(learner) -> str:
+    params = getattr(learner, "actor_params", None) or learner.params
+    return str(next(iter(params.values())).device)
+
+
+def algo_train(env: str, card: str) -> tuple[dict, list]:
+    """(g)'s train() runs: the eight algorithms built at once (the five
+    runner-backed ones' runners start together), then each algorithm's
+    ALGO_ITERS iterations (OFFLINE_ITERS for the offline three)."""
+    from concurrent.futures import ThreadPoolExecutor
+    cfgs = algo_configs(env)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(cfgs)) as pool:
+        built = dict(zip(cfgs, pool.map(lambda c: c.build(),
+                                        cfgs.values())))
+    start_s = time.perf_counter() - t0
+    readings, checks = {}, []
+    try:
+        for name, algo in built.items():
+            offline = name in ("bc", "marwil", "cql")
+            t1 = time.perf_counter()
+            results = [algo.train() for _ in range(
+                OFFLINE_ITERS if offline else ALGO_ITERS)]
+            wall = time.perf_counter() - t1
+            steps = sum(r.get("num_env_steps_sampled", 0) for r in results)
+            sample_s = sum(r.get("time_sample_s", 0.0) for r in results)
+            updates = sum(updates_of(name, cfgs[name], r) for r in results)
+            learn_s = sum(r["time_learn_s"] for r in results)
+            device = learner_device(algo.learner)
+            finite = all(np.isfinite(v) for r in results for k, v in
+                         r.items() if k.endswith("loss"))
+            readings[name] = {
+                "iterations": len(results), "env_steps": steps,
+                "env_steps_per_s": steps / sample_s if sample_s else None,
+                "updates": updates,
+                "updates_per_s": updates / learn_s if learn_s else None,
+                "compile_count": algo.learner.compile_count,
+                "device": device, "wall_s": wall,
+                "reward": [round(r.get("episode_reward_mean", np.nan), 3)
+                           for r in results]}
+            checks.append((f"(g) {name}: {len(results)} train() iterations "
+                           f"with the learner on the card, updates made, "
+                           f"losses finite, captured",
+                           device == "cuda:0" and updates > 0 and finite
+                           and (algo.learner.compile_count or 0) >= 1,
+                           readings[name]))
+    finally:
+        for algo in built.values():
+            algo.stop()
+    for name, r in readings.items():
+        rate = (f"{r['env_steps_per_s']:.0f} env steps/s, "
+                if r["env_steps_per_s"] else "offline, ")
+        print(f"rllib (g) {name} train(): {r['iterations']} iterations, "
+              f"{r['env_steps']} env steps, {r['updates']} updates; {rate}"
+              f"{r['updates_per_s']:.1f} updates/s; compile_count "
+              f"{r['compile_count']}; learner on {r['device']}; "
+              f"episode_reward_mean {r['reward']}; {r['wall_s']:.1f} s; "
+              f"card {card}", flush=True)
+    print(f"rllib (g) the eight algorithms built together (the five "
+          f"runner-backed ones' runners started at once) in {start_s:.1f} s; "
+          f"card {card}", flush=True)
+    return {"start_s": start_s, "readings": readings}, checks
+
+
+def algos_leg(env: str, card: str, fault: str | None = None
+              ) -> tuple[dict, list]:
+    """(g): every learner card against CPU, then every algorithm's
+    train() on the card (``fault``: the learner comparisons only)."""
+    t0 = time.perf_counter()
+    specs = algo_learners(fault)
+    if fault:
+        specs = {"sac": specs["sac"]}
+    pairs, checks = {}, []
+    for name, spec in specs.items():
+        pairs[name] = algo_pair(spec)
+        print(f"rllib (g) {describe_algo_pair(name, pairs[name])}; card "
+              f"{card}", flush=True)
+        checks += algo_pair_checks(name, pairs[name])
+    out = {"pairs": pairs, "pairs_s": time.perf_counter() - t0}
+    if not fault:
+        trained, more = algo_train(env, card)
+        checks += more
+        out["train"] = trained
+    out["wall_s"] = time.perf_counter() - t0
+    return out, checks
+
+
 def rllib_phase(card: str) -> dict:
     """Phase 19: RLlib on the card (module docstring). Returns each leg's
     time."""
@@ -5428,6 +5986,7 @@ def rllib_phase(card: str) -> dict:
         t = time.perf_counter()
         a, checks = ppo_cartpole(env, card)
         times["a+b"] = time.perf_counter() - t
+        # (a)'s algorithm runs on until (f)'s checkpoint round trip.
         report_checks(checks, card, prefix="rllib")
         t = time.perf_counter()
         c, checks = ppo_frames(card)
@@ -5445,6 +6004,10 @@ def rllib_phase(card: str) -> dict:
         _, checks = checkpoint_and_tune(env, a, card)
         times["f"] = time.perf_counter() - t
         report_checks(checks, card, prefix="rllib")
+        t = time.perf_counter()
+        _, checks = algos_leg(env, card)
+        times["g"] = time.perf_counter() - t
+        report_checks(checks, card, prefix="rllib")
     finally:
         rt.shutdown()
     torch.cuda.empty_cache()
@@ -5452,32 +6015,44 @@ def rllib_phase(card: str) -> dict:
 
 
 def rllib_fault_main(name: str, card: str) -> int:
-    """``--plant-fault learner_no_allreduce``: the build, then phase 19's
-    (e) with learners that skip the all-reduce, (e)'s checks read without
-    raising. Exits 1 when they fail it (caught), 2 when they do not, and 2
-    when the run failed before (e)'s checks."""
+    """``--plant-fault`` of RLLIB_FAULTS: the build, then the leg the fault
+    is planted in, its checks read without raising. ``learner_no_allreduce``
+    runs phase 19's (e) with learners that skip the all-reduce (caught
+    when the digests or the mean-gradient comparison fail it);
+    ``sac_stale_critic`` runs (g)'s SAC comparison with the faulty
+    learner on the card (caught when the card-against-CPU check fails it).
+    Exits 1 when caught, 2 when not, and 2 when the run failed before the
+    leg's checks."""
     import ray_tpu_torch as rt
     print(f"planted fault {name}: {RLLIB_FAULTS[name]}", flush=True)
     try:
         t0 = time.perf_counter()
         build.ensure_built()
         print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
-        rt.init()
-        try:
-            readings, checks = group_leg(2, card, "(e)", fault=name)
-        finally:
-            rt.shutdown()
-        held = report_checks(checks, card, strict=False, prefix="rllib")
-    except Exception:  # noqa: BLE001 — the harness failed, not (e)
+        if name == "sac_stale_critic":
+            readings, checks = algos_leg("", card, fault=name)
+            keys, sac = ("(g) sac",), readings["pairs"]["sac"]
+            reading = {"grad_rel": sac["grad_rel"], "one_rel": sac["one_rel"],
+                       "rel": sac["rel"]}
+        else:
+            rt.init()
+            try:
+                readings, checks = group_leg(2, card, "(e)", fault=name)
+            finally:
+                rt.shutdown()
+            keys = ("digests", "mean-gradient")
+            reading = {"digests_equal": len(set(readings["digests"])) == 1,
+                       "update_rel": readings["rel"]}
+        report_checks(checks, card, strict=False, prefix="rllib")
+    except Exception:  # noqa: BLE001 — the harness failed, not the leg
         traceback.print_exc()
         print(json.dumps({"fault": name, "caught": False,
-                          "failed_before_e": True}), flush=True)
+                          "failed_before_checks": True}), flush=True)
         return 2
     caught = not all(ok for what, ok, _ in checks
-                     if "digests" in what or "mean-gradient" in what)
-    print(json.dumps({"fault": name, "digests_equal": len(set(
-        readings["digests"])) == 1, "update_rel": readings["rel"],
-        "caught": caught}), flush=True)
+                     if any(k in what for k in keys))
+    print(json.dumps({"fault": name, **reading, "caught": caught}),
+          flush=True)
     return 1 if caught else 2
 
 

@@ -13,13 +13,21 @@ ring-allreduces gradients over the host collective plane
 Ported: PPO, its learner and the recurrent learner (``JaxLearner`` and
 ``RecurrentJaxLearner`` are aliases of them), the catalog and models,
 the env runners, connectors, checkpoints, ``LearnerGroup``, multi-agent
-PPO and offline data. The JAX package's other algorithms (APPO, BC, CQL,
-DQN with its ReplayBuffer, Dreamer, Impala, MARWIL, SAC) keep their
-names here and raise NotImplementedError naming ROADMAP.md §1.
+PPO, offline data, and the other algorithms: IMPALA and APPO (V-trace),
+DQN with its ``ReplayBuffer``, SAC and CQL, BC and MARWIL, and Dreamer.
+Each learner runs on the card by default (``.learners(device="cpu")`` on
+a config asks for the CPU) and updates through captured steps
+(``train.step``); the env runners stay on the CPU.
 """
 
 from ray_tpu_torch.rllib.algorithm import AlgorithmConfig, PPO, PPOConfig
+from ray_tpu_torch.rllib.appo import APPO, APPOConfig
+from ray_tpu_torch.rllib.bc import BC, BCConfig
+from ray_tpu_torch.rllib.cql import CQL, CQLConfig
+from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, ReplayBuffer
+from ray_tpu_torch.rllib.dreamer import Dreamer, DreamerConfig
 from ray_tpu_torch.rllib.env_runner import EnvRunner, EnvRunnerGroup, Episode
+from ray_tpu_torch.rllib.impala import Impala, ImpalaConfig
 from ray_tpu_torch.rllib.learner import (
     JaxLearner,
     RecurrentJaxLearner,
@@ -27,10 +35,12 @@ from ray_tpu_torch.rllib.learner import (
     TorchLearner,
 )
 from ray_tpu_torch.rllib.learner_group import LearnerGroup
+from ray_tpu_torch.rllib.marwil import MARWIL, MARWILConfig
 from ray_tpu_torch.rllib.multi_agent import (
     MultiAgentEnv, MultiAgentEnvRunner, MultiAgentPPO,
     MultiAgentPPOConfig,
 )
+from ray_tpu_torch.rllib.sac import SAC, SACConfig
 from ray_tpu_torch.rllib import connectors
 from ray_tpu_torch.rllib import offline
 from ray_tpu_torch.rllib.connectors import ConnectorPipelineV2, ConnectorV2
@@ -49,16 +59,6 @@ __all__ = [
     "MultiAgentPPO", "MultiAgentPPOConfig", "MultiAgentEnvRunner",
 ]
 
-# The JAX package's algorithms that this package lacks so far.
-_NOT_PORTED = ("APPO", "APPOConfig", "BC", "BCConfig", "CQL", "CQLConfig",
-               "DQN", "DQNConfig", "ReplayBuffer", "Dreamer",
-               "DreamerConfig", "Impala", "ImpalaConfig", "MARWIL",
-               "MARWILConfig", "SAC", "SACConfig")
-
-
-def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.rllib.{name} is not ported yet (ROADMAP.md §1)")
-    raise AttributeError(
-        f"module 'ray_tpu_torch.rllib' has no attribute {name!r}")
+# The JAX package's names this package lacks: none since the eight
+# algorithms were ported.
+_NOT_PORTED: tuple[str, ...] = ()

@@ -27,8 +27,19 @@ from ray_tpu_torch.rllib.learner import (
 )
 
 
+class LearnersConfig:
+    """``learners(device=...)`` for a config dataclass with a ``device``
+    field: the learner's device, the port's one addition to each
+    algorithm's config."""
+
+    def learners(self, *, device=None):
+        """The learner's device (reference: AlgorithmConfig.learners):
+        ``"cpu"``, or a card; None (the default) is ``cuda:0``."""
+        return replace(self, device=device)
+
+
 @dataclass
-class AlgorithmConfig:
+class AlgorithmConfig(LearnersConfig):
     """Fluent config builder (reference: AlgorithmConfig)."""
 
     env: Any = None                         # name or callable
@@ -49,11 +60,6 @@ class AlgorithmConfig:
 
     def env_runners(self, num_env_runners: int) -> "AlgorithmConfig":
         return replace(self, num_env_runners=num_env_runners)
-
-    def learners(self, *, device=None) -> "AlgorithmConfig":
-        """The learner's device (reference: AlgorithmConfig.learners):
-        ``"cpu"``, or a card; None (the default) is ``cuda:0``."""
-        return replace(self, device=device)
 
     def connectors(self, *, env_to_module: list | None = None,
                    module_to_env: list | None = None

@@ -18,7 +18,9 @@ probabilities do; the gaussian policy draws from a
 ``torch.Generator(seed)`` where the JAX runner splits
 ``jax.random.key(seed)``: equal in distribution, not in stream. Weights
 arrive as a dict of CPU tensors by name (``TorchLearner.get_weights``).
-``policy="dreamer"`` raises: Dreamer is not ported yet.
+``policy="dreamer"`` runs Dreamer's rollout step (``dreamer.
+build_dreamer_policy``: the module's posterior mode, its carry (h, z,
+a_prev), the chosen action fed into the carry after each step).
 """
 
 from __future__ import annotations
@@ -68,10 +70,6 @@ class EnvRunner:
     def __init__(self, env_maker_or_name, policy_config: dict,
                  seed: int = 0, policy: str = "categorical",
                  env_to_module=None, module_to_env=None):
-        if policy == "dreamer":
-            raise NotImplementedError(
-                "EnvRunner(policy='dreamer') needs ray_tpu_torch.rllib's "
-                "Dreamer, which is not ported yet (ROADMAP.md §1)")
         import torch
 
         from ray_tpu_torch.rllib.connectors import ConnectorPipelineV2
@@ -108,6 +106,12 @@ class EnvRunner:
             )
             self.model = build_recurrent_actor_critic(policy_config, "cpu",
                                                       seed)
+        elif policy == "dreamer":
+            # World-model rollout policy (dreamer.py): recurrent
+            # protocol + a feed_action hook so the chosen action
+            # enters the next step's latent dynamics.
+            from ray_tpu_torch.rllib.dreamer import build_dreamer_policy
+            self.model = build_dreamer_policy(policy_config, "cpu", seed)
         elif policy == "epsilon_greedy":
             from ray_tpu_torch.rllib.catalog import build_q_network
             self.model = build_q_network(policy_config, "cpu", seed)
@@ -119,7 +123,7 @@ class EnvRunner:
                 ContinuousConfig(**policy_config), "cpu", seed)
         else:
             raise ValueError(f"unknown policy {policy!r}")
-        self._stateful = policy == "recurrent"
+        self._stateful = policy in ("recurrent", "dreamer")
         if self._stateful:
             # Stateful rollout: the carry advances per step and
             # resets at episode boundaries.
@@ -166,6 +170,10 @@ class EnvRunner:
             probs = torch.softmax(logits[0], -1).numpy()
             action = int(self.rng.choice(len(probs), p=probs))
             logp = float(np.log(probs[action] + 1e-9))
+            if hasattr(self.model, "feed_action"):
+                # Dreamer-class policies: the action taken feeds the
+                # NEXT step's latent dynamics.
+                self._carry = self.model.feed_action(self._carry, action)
             return action, action, logp, float(value[0])
         if self.policy == "epsilon_greedy":
             q = self._fwd(obs[None])[0].numpy()

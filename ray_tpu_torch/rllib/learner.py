@@ -122,7 +122,74 @@ def load_weights(module: torch.nn.Module, weights) -> None:
             p.copy_(as_tensor(weights[name]))
 
 
-class TorchLearner:
+def adam_view(adam) -> dict:
+    """An Adam state (``optim.AdamWState``) as ``{"count", "mu": [...],
+    "nu": [...]}`` of its live tensors (what a checkpoint holds)."""
+    return {"count": adam.count, "mu": list(adam.mu), "nu": list(adam.nu)}
+
+
+def adam_load(adam, st: dict) -> None:
+    """Copy ``st`` (:func:`adam_view`'s layout; tensors or numpy) into the
+    Adam state's tensors, in place, so that a captured step goes on
+    updating the same tensors."""
+    with torch.no_grad():
+        adam.count.copy_(as_tensor(st["count"]))
+        for key in ("mu", "nu"):
+            for dst, src in zip(getattr(adam, key), st[key]):
+                dst.copy_(as_tensor(src))
+
+
+class ModelLearner:
+    """What a learner of one model shares (PPO's and IMPALA's, DQN's,
+    BC's, MARWIL's, Dreamer's): ``self.model`` on ``self.device``, its
+    parameters by name, weights for the runners, the capture count of its
+    update ``self._update`` and a flax tree carried in."""
+
+    model: torch.nn.Module
+
+    @property
+    def params(self) -> dict[str, torch.Tensor]:
+        """The live parameters by name, on the learner's device (the JAX
+        learner's ``params`` tree); assigning a dict copies it in."""
+        return dict(self.model.named_parameters())
+
+    @params.setter
+    def params(self, weights) -> None:
+        self.set_weights(weights)
+
+    @property
+    def compile_count(self) -> int | None:
+        """Captures of the update so far: one for each batch shape; None
+        where it has only run eagerly (on the CPU)."""
+        return compile_count(self._update)
+
+    def get_weights(self) -> dict[str, torch.Tensor]:
+        """The parameters by name as CPU tensors (one device-to-host copy
+        each, a copy on the CPU too): what the env runners load."""
+        return {k: p.detach().to("cpu", copy=True)
+                for k, p in self.params.items()}
+
+    def set_weights(self, weights) -> None:
+        """Copy ``weights`` (by name; tensors or numpy) into the
+        parameters in place."""
+        load_weights(self.model, weights)
+
+    def load_jax_params(self, params: dict) -> None:
+        """Copy the JAX learner's flax tree (numpy leaves) into the
+        model (``catalog.load_flax_tree``)."""
+        self.model.load_jax_params(params)
+
+
+def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise, ``-log(-log(u))`` with ``u`` uniform in
+    [tiny, 1) as ``jax.random.gumbel`` draws it: ``argmax(logits +
+    gumbel)`` is ``jax.random.categorical``'s sample."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return -torch.log(-torch.log(u.clamp_min_(
+        torch.finfo(torch.float32).tiny)))
+
+
+class TorchLearner(ModelLearner):
     #: model factory hook — subclasses (recurrent) override.
     _build_model = staticmethod(build_actor_critic)
 
@@ -143,33 +210,16 @@ class TorchLearner:
     # -- state --
 
     @property
-    def params(self) -> dict[str, torch.Tensor]:
-        """The live parameters by name, on the learner's device (the JAX
-        learner's ``params`` tree); assigning a dict copies it in."""
-        return dict(self.model.named_parameters())
-
-    @params.setter
-    def params(self, weights) -> None:
-        self.set_weights(weights)
-
-    @property
     def opt_state(self) -> dict:
         """Adam's state as ``{"count", "mu": [...], "nu": [...]}`` of live
         tensors (the clip keeps none); assigning one copies it in, in
         place, so that a captured step goes on updating the same
         tensors."""
-        adam = self.state.opt_state[-1]
-        return {"count": adam.count, "mu": list(adam.mu),
-                "nu": list(adam.nu)}
+        return adam_view(self.state.opt_state[-1])
 
     @opt_state.setter
     def opt_state(self, st: dict) -> None:
-        live = self.opt_state
-        with torch.no_grad():
-            live["count"].copy_(as_tensor(st["count"]))
-            for key in ("mu", "nu"):
-                for dst, src in zip(live[key], st[key]):
-                    dst.copy_(as_tensor(src))
+        adam_load(self.state.opt_state[-1], st)
 
     # -- losses --
 
@@ -285,23 +335,6 @@ class TorchLearner:
         return {"total_loss": float(metrics["loss"]),
                 **{k: float(metrics[k])
                    for k in ("policy_loss", "vf_loss", "entropy")}}
-
-    @property
-    def compile_count(self) -> int | None:
-        """Captures of the update so far: one for each minibatch shape;
-        None where it has only run eagerly (on the CPU)."""
-        return compile_count(self._update)
-
-    def get_weights(self) -> dict[str, torch.Tensor]:
-        """The parameters by name as CPU tensors (one device-to-host copy
-        each, a copy on the CPU too): what the env runners load."""
-        return {k: p.detach().to("cpu", copy=True)
-                for k, p in self.params.items()}
-
-    def set_weights(self, weights) -> None:
-        """Copy ``weights`` (by name; tensors or numpy) into the
-        parameters in place."""
-        load_weights(self.model, weights)
 
 
 class RecurrentTorchLearner(TorchLearner):

@@ -5,8 +5,8 @@ Counterpart of ``ray_tpu/rllib/models.py``. Layer names are flax's, so
 initial weights come from a CPU ``torch.Generator(seed)`` with flax's
 distributions, on ``device`` (the card by default, ``"cpu"`` when
 asked). ``SquashedGaussianActor.sample`` draws from a
-``torch.Generator`` where the JAX one takes a key: equal in
-distribution, not in stream.
+``torch.Generator`` where the JAX one takes a key (equal in
+distribution, not in stream), or takes its noise as a tensor.
 """
 
 from __future__ import annotations
@@ -122,12 +122,15 @@ class SquashedGaussianActor(_Carried):
         return self.mu(x), log_std
 
     @staticmethod
-    def sample(mu, log_std, generator: torch.Generator | None = None):
-        """Reparameterized tanh-gaussian sample with log-prob; the noise
-        comes from ``generator`` (on ``mu``'s device)."""
+    def sample(mu, log_std, generator: torch.Generator | None = None,
+               noise: torch.Tensor | None = None):
+        """Reparameterized tanh-gaussian sample with log-prob; the standard
+        normal noise is ``noise`` when given (a captured step's input, or
+        JAX's own draw in a test), else drawn from ``generator`` (on
+        ``mu``'s device)."""
         std = torch.exp(log_std)
-        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                          device=mu.device)
+        eps = noise if noise is not None else torch.randn(
+            mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
         pre = mu + std * eps
         a = torch.tanh(pre)
         logp = (-0.5 * (eps ** 2 + 2 * log_std

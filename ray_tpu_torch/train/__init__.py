@@ -27,6 +27,9 @@ _HOME = {
     "clip_by_global_norm": "optim",
     "global_norm": "optim",
     "sgd": "optim",
+    "RMSProp": "optim",
+    "RMSPropState": "optim",
+    "rmsprop": "optim",
     "TRAIN_DATASET_KEY": "config",
     "BackendConfig": "config",
     "CheckpointConfig": "config",
@@ -49,6 +52,7 @@ _HOME = {
     "disable_capture": "step",
     "init_train_state": "step",
     "make_multi_train_step": "step",
+    "make_step": "step",
     "make_train_step": "step",
     "shard_batch": "step",
     "Result": "trainer",
@@ -61,9 +65,11 @@ _SUBMODULES = ("checkpoint", "config", "huggingface", "optim", "prefetch",
 __all__ = [
     "TrainState", "init_train_state", "make_train_step", "batch_spec",
     "shard_batch",
-    "make_multi_train_step", "compile_count", "buffers_donated",
+    "make_multi_train_step", "make_step", "compile_count",
+    "buffers_donated",
     "disable_capture", "AdamW", "AdamWState", "adamw", "SGD",
-    "SGDState", "sgd", "chain", "clip_by_global_norm", "global_norm",
+    "SGDState", "sgd", "RMSProp", "RMSPropState", "rmsprop", "chain",
+    "clip_by_global_norm", "global_norm",
     "DevicePrefetcher",
     "prefetch_to_device", "save_pytree", "restore_pytree",
     "save_train_state", "restore_train_state",

@@ -1,5 +1,5 @@
-"""AdamW and SGD with optax's semantics, updating in place, and the
-gradient clip by global norm that ``optax.chain`` puts before them.
+"""AdamW, SGD and RMSProp with optax's semantics, updating in place, and
+the gradient clip by global norm that ``optax.chain`` puts before them.
 
 Counterpart of ``optax.adamw`` as the JAX package uses it
 (``optax.adamw(3e-4, weight_decay=0.1, mu_dtype=bf16)`` on the bench):
@@ -144,6 +144,51 @@ def sgd(lr: float, momentum: float | None = None,
     return SGD(lr, momentum, nesterov)
 
 
+@dataclass
+class RMSPropState:
+    nu: list[torch.Tensor]
+
+
+class RMSProp:
+    """optax.rmsprop(lr, decay, eps) with its defaults (``initial_scale=0``,
+    ``eps_in_sqrt=True``, no centring, momentum or bias correction):
+    ``chain(scale_by_rms, scale_by_learning_rate)``. Per parameter ``p``
+    with gradient ``g``:
+
+        nu = (1 - decay) * g² + decay * nu     # float32, zeros at first
+        p  = p + (-lr) * (g * rsqrt(nu + eps))
+
+    ``torch.optim.RMSprop`` divides by ``sqrt(nu) + eps`` instead, which is
+    another optimizer wherever ``eps`` is not negligible beside ``nu``
+    (IMPALA's ``eps = 0.1``). Nothing depends on the step count, so a
+    captured step replays it as it is; ``nu`` and the parameters are
+    updated in place."""
+
+    def __init__(self, lr: float, decay: float, eps: float):
+        self.lr = lr
+        self.decay = decay
+        self.eps = eps
+
+    def init(self, params) -> RMSPropState:
+        return RMSPropState(nu=[torch.zeros_like(p) for p in _as_list(params)])
+
+    @torch.no_grad()
+    def update(self, grads, state: RMSPropState, params) -> None:
+        """One RMSProp step: updates ``params`` and ``state`` in place."""
+        params = _as_list(params)
+        grads = [local(g) for g in grads]
+        for p, g, nu in zip(params, grads, state.nu):
+            if g is None:
+                g = torch.zeros_like(p)
+            nu.copy_(g.square().mul_(1 - self.decay).add_(nu * self.decay))
+            p.add_(g * torch.rsqrt(nu + self.eps), alpha=-self.lr)
+
+
+def rmsprop(lr: float, decay: float = 0.9, eps: float = 1e-8) -> RMSProp:
+    """optax.rmsprop's defaults and semantics; see :class:`RMSProp`."""
+    return RMSProp(lr, decay, eps)
+
+
 class ClipByGlobalNorm:
     """optax.clip_by_global_norm(max_norm): each gradient ``g`` becomes
 
@@ -199,7 +244,7 @@ class Chain:
 def chain(*links) -> Chain:
     """optax.chain: every link but the last transforms the gradients
     (:func:`clip_by_global_norm`), the last is an optimizer (:func:`adamw`,
-    :func:`sgd`)."""
+    :func:`sgd`, :func:`rmsprop`)."""
     return Chain(*links)
 
 

@@ -20,6 +20,9 @@ captured once as one graph and replayed on every later call.
 - On the CPU, and under :func:`disable_capture` (the counterpart of
   ``jax.disable_jit``), the step runs eagerly.
 
+:func:`make_step` captures a body of the caller's (several losses and
+optimizers in one graph) under the same rules.
+
 Parameters, optimizer state and ``extra`` are updated in place, which
 is the counterpart of donation; :func:`buffers_donated` proves it. A
 Python loop over a leading ``[K, ...]`` batch stack, replaying the
@@ -66,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -261,11 +265,22 @@ class _Graph:
         current.wait_stream(side)
         for value in metrics.values():
             value.record_stream(current)
-        # thread_local: other threads (the prefetcher's copies) may go on
-        # calling CUDA while this one captures.
-        with fa.record_launches() as launches, torch.cuda.graph(
-                self.graph, capture_error_mode="thread_local"):
-            self.metrics = self._body(state, self.batch)
+        # A dropped step is cyclic garbage (its body holds the learner that
+        # holds it), and the collector freeing its graph in the middle of
+        # this capture resets a CUDAGraph there, which invalidates the
+        # capture: collect now and hold the collector off until the end.
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            # thread_local: other threads (the prefetcher's copies) may go
+            # on calling CUDA while this one captures.
+            with fa.record_launches() as launches, torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"):
+                self.metrics = self._body(state, self.batch)
+        finally:
+            if collecting:
+                gc.enable()
         self.launches = launches
         return metrics
 
@@ -414,6 +429,23 @@ def make_multi_train_step(loss_fn: Callable, optimizer,
     the card, K replays of the single step's graph."""
     return _Step(_step_body(loss_fn, optimizer, has_extra, grad_norm),
                  multi=True)
+
+
+def make_step(body: Callable) -> Callable:
+    """``step(state, batch) -> (state, metrics)`` around a
+    ``body(state, batch) -> metrics`` that makes its own forwards,
+    backwards and optimizer updates, in place on ``state``: several losses
+    and optimizers in one step, the counterpart of one ``jax.jit`` over
+    them (SAC's critic, actor and temperature updates). ``state.params``
+    is then an ``nn.ModuleDict`` of the modules, ``state.opt_state`` a
+    dict of their optimizers' states and ``state.extra`` the other tensors
+    the body updates; ``metrics`` is a flat dict of tensors. It is captured
+    and replayed as :func:`make_train_step`'s step, under the same rules:
+    the body reads no value on the host, and noise comes in through
+    ``batch``. A Python value in ``batch`` (a flag) is part of the
+    signature: each value gets its own capture, as a static argument
+    retraces ``jit``."""
+    return _Step(body, multi=False)
 
 
 def compile_count(step_fn: Callable) -> int | None:

@@ -10,7 +10,15 @@
   the same way (phase 19's (d));
 - (e) a LearnerGroup of two learners at ``GPU: 0.5`` on the CartPole
   model and a 512-row batch: equal digests after 3 updates, one shared
-  card, the first update against the in-process mean-gradient update.
+  card, the first update against the in-process mean-gradient update;
+- (g) each of the eight other learners (IMPALA, APPO, DQN, SAC, CQL, BC,
+  MARWIL, Dreamer) at the JAX tests' widths, read by chip_smoke's
+  ``algo_learners``/``algo_pair``/``algo_pair_checks``: one update on the
+  card against the CPU from the same weights, batch and noise (the
+  gradients within LEARNER_GRAD_RTOL, the update within
+  LEARNER_UPDATE_RTOL of its size), and for the MLP learners a whole
+  iteration; and the SAC learner that steps its actor before its critic
+  failing that check.
 
 Marked ``cuda``: run on a host with a card with
 
@@ -100,3 +108,20 @@ def test_learner_group_on_one_card(card):
     finally:
         ray_tpu_torch.shutdown()
     assert cs.report_checks(checks, card, strict=False, prefix="rllib")
+
+
+ALGOS = ("impala", "appo", "dqn", "sac", "cql", "bc", "marwil", "dreamer")
+
+
+@pytest.mark.parametrize("name", ALGOS)
+def test_algorithm_learner_on_the_card_against_the_cpu(card, name):
+    r = cs.algo_pair(cs.algo_learners()[name])
+    print(cs.describe_algo_pair(name, r))
+    assert cs.report_checks(cs.algo_pair_checks(name, r), card,
+                            strict=False, prefix="rllib")
+
+
+def test_sac_actor_on_the_stale_critic_fails_the_card_check(card):
+    r = cs.algo_pair(cs.algo_learners("sac_stale_critic")["sac"])
+    assert not cs.report_checks(cs.algo_pair_checks("sac", r), card,
+                                strict=False, prefix="rllib")

@@ -40,6 +40,8 @@ same losses within 1e-6, captured once.
 from __future__ import annotations
 
 import contextlib
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -160,6 +162,47 @@ def test_compile_count_stable_and_buffers_donated(cuda):
     assert first["loss"].data_ptr() != m["loss"].data_ptr()
     state, _ = step(state, _batches(cuda, 1, b=2, seed=3)[0])
     assert compile_count(step) == 2 and state.step == 13
+
+
+class _Owner:
+    """A learner's shape: it holds its step, whose body holds it back (a
+    reference cycle, freed only by the cyclic collector)."""
+
+    def __init__(self, cuda, seen: list):
+        self.seen = seen
+        self.model = _gpt2(cuda)
+        self.opt = adamw(1e-3, weight_decay=0.1, mu_dtype=torch.bfloat16)
+        self.state = init_train_state(self.model, self.opt)
+        self.step = make_train_step(self._loss, self.opt, grad_norm=False)
+
+    def _loss(self, model, batch):
+        if torch.cuda.is_current_stream_capturing():
+            self.seen.append(gc.isenabled())
+        return gpt2_loss_fn(ce_chunk=512)(model, batch)
+
+
+def test_a_capture_holds_the_collector_off(cuda):
+    """A dropped step is cyclic garbage; the collector freeing its graph
+    during another step's capture resets a CUDAGraph there and invalidates
+    that capture (chip_smoke's phase 19 (g) met it). A capture collects
+    first and runs with the collector off, then turns it back on."""
+    seen: list = []
+    batches = _batches(cuda, 2, seed=4)
+    a = _Owner(cuda, seen)
+    a.state, _ = a.step(a.state, batches[0])
+    dropped = weakref.ref(a)
+    del a
+    b = _Owner(cuda, seen)
+    old = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        for batch in batches:
+            b.state, m = b.step(b.state, batch)
+    finally:
+        gc.set_threshold(*old)
+    assert dropped() is None
+    assert seen == [False, False] and gc.isenabled()
+    assert compile_count(b.step) == 1 and np.isfinite(float(m["loss"]))
 
 
 def test_bias_correction_advances_across_replays(cuda):

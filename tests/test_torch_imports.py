@@ -59,7 +59,11 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.rllib.env_runner", "ray_tpu_torch.rllib.learner",
            "ray_tpu_torch.rllib.learner_group",
            "ray_tpu_torch.rllib.models", "ray_tpu_torch.rllib.multi_agent",
-           "ray_tpu_torch.rllib.offline"} - set(names)
+           "ray_tpu_torch.rllib.offline", "ray_tpu_torch.rllib.impala",
+           "ray_tpu_torch.rllib.appo", "ray_tpu_torch.rllib.dqn",
+           "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.cql",
+           "ray_tpu_torch.rllib.bc", "ray_tpu_torch.rllib.marwil",
+           "ray_tpu_torch.rllib.dreamer"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -75,6 +79,10 @@ from ray_tpu_torch.parallel.dryrun import dryrun_multichip, spawn
 from ray_tpu_torch.train import prefetch_to_device
 from ray_tpu_torch.rllib import TorchLearner
 from ray_tpu_torch.rllib.catalog import build_actor_critic
+from ray_tpu_torch.rllib.dqn import DQNHyperparams, DQNLearner
+from ray_tpu_torch.rllib.dreamer import (DreamerHyperparams, DreamerLearner,
+                                         DreamerModelConfig)
+from ray_tpu_torch.rllib.sac import SACHyperparams, SACLearner
 assert not torch.cuda.is_available()
 for entry in (default_device, initialize, make_mesh,
               lambda: spawn(print, 2), lambda: dryrun_multichip(2),
@@ -85,7 +93,13 @@ for entry in (default_device, initialize, make_mesh,
               lambda: MoETransformer(MoEConfig.tiny()),
               lambda: prefetch_to_device([]),
               lambda: TorchLearner({"obs_dim": 4, "num_actions": 2}),
-              lambda: build_actor_critic({"obs_dim": 4, "num_actions": 2})):
+              lambda: build_actor_critic({"obs_dim": 4, "num_actions": 2}),
+              lambda: DQNLearner({"obs_dim": 4, "num_actions": 2},
+                                 DQNHyperparams()),
+              lambda: SACLearner({"obs_dim": 3, "action_dim": 1},
+                                 SACHyperparams()),
+              lambda: DreamerLearner(DreamerModelConfig(),
+                                     DreamerHyperparams())):
     try:
         entry()
     except RuntimeError as e:

@@ -8,7 +8,10 @@ program must give (``EXPECTED``), so that both packages wrong in the same
 way fail too. A program's result holds only what a run decides; floats
 that the frameworks round apart are held to their tolerance inside the
 program (``env_runner_episodes``: log-probs and values within 1e-6 of a
-numpy forward of the carried weights).
+numpy forward of the carried weights). Two programs take the JAX
+package's initial weights on both packages: ``env_runner_episodes`` and
+``world_model_learns``, whose thresholds are ratios to the losses at
+those weights.
 """
 
 from __future__ import annotations
@@ -48,10 +51,19 @@ def _no_worker_left():
 def table() -> dict:
     """{package: {program: outcome}}, the JAX package's run first."""
     from ray_tpu.rllib.catalog import build_actor_critic
-    weights = jax.tree_util.tree_map(
-        np.asarray, build_actor_critic(programs.CARTPOLE).init_params(
-            jax.random.key(0)))
-    return {name: programs.run_table(name, programs.RLLIB, weights)
+    from ray_tpu.rllib.dreamer import (
+        DreamerHyperparams, DreamerLearner, DreamerModelConfig,
+    )
+    inputs = {
+        "env_runner_episodes": build_actor_critic(
+            programs.CARTPOLE).init_params(jax.random.key(0)),
+        "world_model_learns": DreamerLearner(
+            DreamerModelConfig(**programs.WORLD_MODEL),
+            DreamerHyperparams(), seed=0).params,
+    }
+    inputs = {k: jax.tree_util.tree_map(np.asarray, v)
+              for k, v in inputs.items()}
+    return {name: programs.run_table(name, programs.RLLIB, inputs)
             for name in PACKAGES}
 
 
@@ -69,12 +81,22 @@ def test_program_outcome_is_the_expected_one(table, program):
 
 
 def test_unported_algorithms_raise_naming_the_roadmap():
-    """The JAX package's other algorithms keep their names and raise."""
+    """Every name of the JAX package's ``rllib.__all__`` resolves in the
+    port, none is left unported, and ``policy="dreamer"`` builds a runner
+    (on the CPU) whose policy is Dreamer's rollout step."""
+    import ray_tpu.rllib as jax_rllib
     import ray_tpu_torch.rllib as rllib
+    from ray_tpu_torch.rllib.dreamer import DreamerModule
     from ray_tpu_torch.rllib.env_runner import EnvRunner
-    for name in rllib._NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            getattr(rllib, name)
-    assert set(rllib._NOT_PORTED) <= set(rllib.__all__)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EnvRunner._cls(None, {}, policy="dreamer")
+    assert rllib._NOT_PORTED == ()
+    assert set(jax_rllib.__all__) <= set(rllib.__all__)
+    for name in jax_rllib.__all__:
+        assert getattr(rllib, name) is not None, name
+    runner = EnvRunner._cls(programs.ShortChainEnv,
+                            {"obs_dim": 6, "num_actions": 2, "deter": 8,
+                             "n_cat": 2, "n_classes": 4, "embed": 8,
+                             "hidden": 8}, policy="dreamer")
+    assert isinstance(runner.model, DreamerModule)
+    eps = runner.sample(30)
+    assert sum(e.length for e in eps) == 30
+    assert all(e.state_in.shape == (1, 8) for e in eps)

@@ -15,11 +15,14 @@ as reward values. :data:`EXPECTED` holds what each program must give.
 
 The programs cover the behaviours of the JAX package's
 ``tests/test_rllib.py``, ``tests/test_rllib_catalog.py``,
-``tests/test_rllib_recurrent.py`` and
-``tests/test_rllib_connectors_offline.py``, all but BC (an algorithm the
-port lacks so far). Nothing here imports either package at module
-level: a runner actor of the port that unpickles an environment defined
-here must not load ``ray_tpu``.
+``tests/test_rllib_recurrent.py``,
+``tests/test_rllib_connectors_offline.py`` (BC from JSON offline data
+too), ``tests/test_rllib_algos.py`` (IMPALA, APPO, DQN, SAC, CQL, BC,
+MARWIL; their learning tests at the JAX tests' settings and thresholds)
+and ``tests/test_rllib_dreamer.py``; the toy environments of the last
+two live here. Nothing here imports either package at module level: a
+runner actor of the port that unpickles an environment defined here must
+not load ``ray_tpu``.
 """
 
 from __future__ import annotations
@@ -195,6 +198,91 @@ class TwoAgentEnv:
 
 def two_agent_env():
     return TwoAgentEnv()
+
+
+class ChainEnv:
+    """tests/test_rllib_algos.py: walk right along a chain of N one-hot
+    states; +1 at the end, -0.01 per step; truncates after ``limit``
+    steps (tests/test_rllib_dreamer.py's is N = 6, limit 20)."""
+
+    N = 8
+    limit = 30
+
+    def __init__(self):
+        self.pos = 0
+        self.t = 0
+
+    def _obs(self):
+        o = np.zeros(self.N, np.float32)
+        o[self.pos] = 1.0
+        return o
+
+    def reset(self, seed=None, options=None):
+        self.pos, self.t = 0, 0
+        return self._obs(), {}
+
+    def step(self, action):
+        self.t += 1
+        self.pos = max(0, min(self.N - 1,
+                              self.pos + (1 if action == 1 else -1)))
+        term = self.pos == self.N - 1
+        reward = 1.0 if term else -0.01
+        trunc = self.t >= self.limit and not term
+        return self._obs(), reward, term, trunc, {}
+
+
+class ShortChainEnv(ChainEnv):
+    """tests/test_rllib_dreamer.py's chain."""
+
+    N = 6
+    limit = 20
+
+
+class Point1DEnv:
+    """Continuous: drive x to 0; reward -x^2; 16-step episodes."""
+
+    def __init__(self):
+        self.x = 0.0
+        self.t = 0
+        self.rng = np.random.default_rng(0)
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self.rng = np.random.default_rng(seed)
+        self.x = float(self.rng.uniform(-1.0, 1.0))
+        self.t = 0
+        return np.array([self.x], np.float32), {}
+
+    def step(self, action):
+        a = float(np.clip(np.asarray(action).reshape(-1)[0], -1, 1))
+        self.x = float(np.clip(self.x + 0.25 * a, -2.0, 2.0))
+        self.t += 1
+        reward = -self.x ** 2
+        trunc = self.t >= 16
+        return np.array([self.x], np.float32), reward, False, trunc, {}
+
+
+class FixedRewardEnv:
+    """+1 a step, episodes of 5 steps."""
+
+    def __init__(self):
+        self.t = 0
+
+    def reset(self, seed=None, options=None):
+        self.t = 0
+        return np.zeros(2, np.float32), {}
+
+    def step(self, action):
+        self.t += 1
+        return np.zeros(2, np.float32), 1.0, self.t >= 5, False, {}
+
+
+class LongEnv(FixedRewardEnv):
+    """+1 a step, episodes of 400 steps: longer than a 256-step round."""
+
+    def step(self, action):
+        self.t += 1
+        return np.zeros(2, np.float32), 1.0, self.t >= 400, False, {}
 
 
 def policy_of(agent: str) -> str:
@@ -705,6 +793,480 @@ def registered_env(rt):
         algo.stop()
 
 
+def bc_from_json(rt):
+    """tests/test_rllib_connectors_offline.py::
+    test_bc_trains_from_json_offline_data: expert episodes (action =
+    obs[0] > 0) through JsonWriter/JsonReader into BC; accuracy > 0.85."""
+    off = _sub(rt, "rllib.offline")
+    Episode = _sub(rt, "rllib.env_runner").Episode
+    rng = np.random.default_rng(0)
+    eps = []
+    for _ in range(10):
+        e = Episode()
+        for _ in range(20):
+            o = rng.normal(size=2).astype(np.float32)
+            e.obs.append(o)
+            e.actions.append(int(o[0] > 0))
+            e.rewards.append(0.0)
+            e.logps.append(0.0)
+            e.values.append(0.0)
+        e.terminated = True
+        eps.append(e)
+    tmp = tempfile.mkdtemp(prefix="rllib_prog_")
+    try:
+        off.JsonWriter(tmp).write(eps)
+        ds = off.JsonReader(tmp).as_dataset()
+        algo = _cpu(rt, rt.rllib.BCConfig()
+                    .environment(obs_dim=2, num_actions=2, hidden=(32,))
+                    .offline_data(ds)
+                    .training(lr=5e-3, train_batch_size=64)).build()
+        for _ in range(30):
+            out = algo.train()
+        return [bool(out["accuracy"] > 0.85)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# -- test_rllib_algos.py -----------------------------------------------------
+
+
+def replay_buffer_circular(rt):
+    dqn = _sub(rt, "rllib.dqn")
+    Episode = _sub(rt, "rllib.env_runner").Episode
+    buf = dqn.ReplayBuffer(capacity=8, obs_dim=2)
+    ep = Episode(
+        obs=[np.full(2, i, np.float32) for i in range(12)],
+        actions=list(range(12)), rewards=[1.0] * 12,
+        logps=[0.0] * 12, values=[0.0] * 12, terminated=True,
+        final_obs=np.full(2, 12, np.float32))
+    added = buf.add_episodes([ep])
+    batch = buf.sample(16, np.random.default_rng(0))
+    return [added, buf.size, list(batch["obs"].shape),
+            bool(np.all(batch["next_obs"][:, 0] == batch["obs"][:, 0] + 1))]
+
+
+def dqn_learner_reduces_td_error(rt):
+    dqn = _sub(rt, "rllib.dqn")
+    learner = dqn.DQNLearner({"obs_dim": 4, "num_actions": 2},
+                             dqn.DQNHyperparams(lr=5e-3), seed=0,
+                             **_dev(rt))
+    rng = np.random.default_rng(0)
+    batch = {
+        "obs": rng.standard_normal((64, 4)).astype(np.float32),
+        "actions": rng.integers(0, 2, 64).astype(np.int32),
+        "rewards": rng.standard_normal(64).astype(np.float32),
+        "next_obs": rng.standard_normal((64, 4)).astype(np.float32),
+        "dones": np.zeros(64, np.float32),
+    }
+    first = learner.update(batch)["loss"]
+    for _ in range(50):
+        last = learner.update(batch)["loss"]
+    return [bool(last < first)]
+
+
+def vtrace_on_policy_rho_is_one(rt):
+    """Behaviour log-probs equal to the target policy's: every importance
+    weight is 1 (within 1e-4, the JAX test's)."""
+    impala = _sub(rt, "rllib.impala")
+    Episode = _sub(rt, "rllib.env_runner").Episode
+    learner = impala.ImpalaLearner({"obs_dim": 3, "num_actions": 2},
+                                   impala.ImpalaHyperparams(),
+                                   max_seq_len=8, seed=0, **_dev(rt))
+    rng = np.random.default_rng(1)
+    obs = rng.standard_normal((6, 3)).astype(np.float32)
+    logits, _ = _apply(rt, learner.model, learner.params, obs)
+    z = logits.astype(np.float64)
+    logp_all = z - z.max(-1, keepdims=True)
+    logp_all -= np.log(np.exp(logp_all).sum(-1, keepdims=True))
+    actions = [int(rng.integers(0, 2)) for _ in range(6)]
+    ep = Episode(obs=list(obs), actions=actions, rewards=[1.0] * 6,
+                 logps=[float(logp_all[t, a]) for t, a in enumerate(actions)],
+                 values=[0.0] * 6, terminated=True, final_obs=obs[-1])
+    m = learner.update_from_episodes([ep])
+    return [bool(abs(m["mean_rho"] - 1.0) < 1e-4),
+            bool(np.isfinite(m["total_loss"]))]
+
+
+def squashed_gaussian_bounds_and_logp(rt):
+    models = _sub(rt, "rllib.models")
+    mu, log_std = np.zeros((32, 2), np.float32), np.zeros((32, 2), np.float32)
+    if _port(rt):
+        import torch
+        a, logp = models.SquashedGaussianActor.sample(
+            torch.from_numpy(mu), torch.from_numpy(log_std),
+            torch.Generator().manual_seed(0))
+    else:
+        import jax
+        a, logp = models.SquashedGaussianActor.sample(
+            mu, log_std, jax.random.key(0))
+    a, logp = np.asarray(a), np.asarray(logp)
+    return [bool(np.all(np.abs(a) <= 1.0)), bool(np.all(np.isfinite(logp))),
+            list(logp.shape)]
+
+
+def _learns(algo, iters: int) -> list:
+    try:
+        return [algo.train()["episode_reward_mean"] for _ in range(iters)]
+    finally:
+        algo.stop()
+
+
+def dqn_learns_chain(rt):
+    """test_dqn_learns_chain: the last 5 iterations' mean reward > 0.6
+    (optimal ≈ 0.94)."""
+    rewards = _learns(_cpu(rt, rt.rllib.DQNConfig()
+                           .environment(ChainEnv, obs_dim=8, num_actions=2,
+                                        hidden=(32, 32))
+                           .env_runners(1)
+                           .training(learning_starts=200, train_batch_size=64,
+                                     num_gradient_steps=4,
+                                     epsilon_decay_iters=10,
+                                     target_update_freq=1, lr=5e-4)).build(),
+                      25)
+    return [bool(np.nanmean(rewards[-5:]) > 0.6)]
+
+
+def impala_learns_chain(rt):
+    """test_impala_learns_chain: the last 5 iterations' mean > 0.5."""
+    rewards = _learns(_cpu(rt, rt.rllib.ImpalaConfig()
+                           .environment(ChainEnv, obs_dim=8, num_actions=2,
+                                        hidden=(32, 32))
+                           .env_runners(2)
+                           .training(lr=5e-3, entropy_coeff=0.005,
+                                     optimizer="adam")).build(), 35)
+    return [bool(np.nanmean(rewards[-5:]) > 0.5)]
+
+
+def appo_learns_chain(rt):
+    """test_appo_learns_chain: the last 5 iterations' mean > 0.5."""
+    rewards = _learns(_cpu(rt, rt.rllib.APPOConfig()
+                           .environment(ChainEnv, obs_dim=8, num_actions=2,
+                                        hidden=(32, 32))
+                           .env_runners(2)
+                           .training(lr=5e-3, entropy_coeff=0.005,
+                                     broadcast_interval=2)).build(), 35)
+    return [bool(np.nanmean(rewards[-5:]) > 0.5)]
+
+
+def sac_learns_point1d(rt):
+    """test_sac_learns_point1d: the last 5 iterations' mean past the first
+    5's and > -3."""
+    rewards = _learns(_cpu(rt, rt.rllib.SACConfig()
+                           .environment(Point1DEnv, obs_dim=1, action_dim=1,
+                                        hidden=(32, 32))
+                           .env_runners(1)
+                           .training(learning_starts=256, train_batch_size=128,
+                                     num_gradient_steps=16)).build(), 25)
+    early, late = np.nanmean(rewards[:5]), np.nanmean(rewards[-5:])
+    return [bool(late > early), bool(late > -3.0)]
+
+
+def bc_learns_offline(rt):
+    """test_bc_learns_from_offline_data: accuracy > 0.9 on a linear
+    expert's 512 (obs, action) pairs."""
+    rng = np.random.default_rng(0)
+    obs = rng.standard_normal((512, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 3)).astype(np.float32)
+    actions = np.argmax(obs @ w, axis=1).astype(np.int64)
+    ds = _sub(rt, "data").from_numpy({"obs": obs, "action": actions},
+                                     parallelism=4)
+    algo = _cpu(rt, rt.rllib.BCConfig()
+                .environment(obs_dim=4, num_actions=3, hidden=(32, 32))
+                .offline_data(ds)
+                .training(lr=3e-3, num_gradient_steps=32)).build()
+    for _ in range(7):
+        m = algo.train()
+    return [bool(m["accuracy"] > 0.9), m["num_samples"]]
+
+
+def marwil_learns_offline(rt):
+    """test_marwil_learns_from_offline_returns: the greedy policy matches
+    the expert on > 75% of states though half the data is anti-expert."""
+    rng = np.random.default_rng(1)
+    obs = rng.standard_normal((512, 4)).astype(np.float32)
+    w = rng.standard_normal((4, 3)).astype(np.float32)
+    expert = np.argmax(obs @ w, axis=1).astype(np.int64)
+    anti = np.argmin(obs @ w, axis=1).astype(np.int64)
+    take_expert = rng.random(512) < 0.5
+    ds = _sub(rt, "data").from_numpy(
+        {"obs": obs, "action": np.where(take_expert, expert, anti),
+         "return": np.where(take_expert, 1.0, -1.0).astype(np.float32)},
+        parallelism=4)
+    algo = _cpu(rt, rt.rllib.MARWILConfig()
+                .environment(obs_dim=4, num_actions=3, hidden=(32, 32))
+                .offline_data(ds)
+                .training(lr=3e-3, beta=2.0, num_gradient_steps=32)).build()
+    for _ in range(8):
+        algo.train()
+    logits, _ = _apply(rt, algo.learner.model, algo.learner.params, obs)
+    return [bool((np.argmax(logits, 1) == expert).mean() > 0.75)]
+
+
+def marwil_beta_zero_is_bc(rt):
+    marwil = _sub(rt, "rllib.marwil")
+    r = marwil.returns_from_rewards([1.0, 1.0, 1.0], [False, False, True],
+                                    gamma=0.5)
+    learner = marwil.MARWILLearner(
+        {"obs_dim": 4, "num_actions": 3, "hidden": (16,)},
+        marwil.MARWILHyperparams(beta=0.0), seed=0, **_dev(rt))
+    rng = np.random.default_rng(0)
+    m = learner.update({
+        "obs": rng.standard_normal((32, 4)).astype(np.float32),
+        "action": rng.integers(0, 3, 32),
+        "return": rng.standard_normal(32).astype(np.float32)})
+    return [r.tolist(), bool(abs(m["mean_weight"] - 1.0) < 1e-5)]
+
+
+def cql_learns_point1d_offline(rt):
+    """test_cql_learns_point1d_offline: from 4096 logged transitions of a
+    noisy proportional controller, the learned policy's mean return over
+    5 live episodes > -2.5 (random ~ -6)."""
+    rng = np.random.default_rng(0)
+    env = Point1DEnv()
+    obs_l, act_l, rew_l, next_l, done_l = [], [], [], [], []
+    o, _ = env.reset(seed=0)
+    for t in range(4096):
+        a = np.clip(-0.8 * o[0] + rng.normal() * 0.7, -1, 1)
+        no, r, term, trunc, _ = env.step([a])
+        obs_l.append(o)
+        act_l.append([a])
+        rew_l.append(r)
+        next_l.append(no)
+        done_l.append(float(term))
+        o = no
+        if term or trunc:
+            o, _ = env.reset(seed=t)
+    ds = _sub(rt, "data").from_numpy({
+        "obs": np.asarray(obs_l, np.float32),
+        "action": np.asarray(act_l, np.float32),
+        "reward": np.asarray(rew_l, np.float32),
+        "next_obs": np.asarray(next_l, np.float32),
+        "done": np.asarray(done_l, np.float32)}, parallelism=4)
+    algo = _cpu(rt, rt.rllib.CQLConfig()
+                .environment(obs_dim=1, action_dim=1, hidden=(32, 32))
+                .offline_data(ds)
+                .training(train_batch_size=256, num_gradient_steps=32,
+                          min_q_weight=1.0)).build()
+    for _ in range(10):
+        m = algo.train()
+    total = 0.0
+    for ep in range(5):
+        env = Point1DEnv()
+        o, _ = env.reset(seed=100 + ep)
+        done = False
+        while not done:
+            mu, _ = _apply(rt, algo.learner.actor, algo.learner.actor_params,
+                           np.asarray(o, np.float32)[None])
+            o, r, term, trunc, _ = env.step(np.tanh(mu)[0])
+            total += r
+            done = term or trunc
+    return ["cql_penalty" in m, bool(total / 5 > -2.5)]
+
+
+def evaluate_full_episodes_only(rt):
+    """test_algorithm_evaluate_full_episodes_only: after a train() that
+    leaves the runners mid-episode, evaluate counts complete 5-step
+    episodes of +1 only."""
+    algo = _cpu(rt, rt.rllib.DQNConfig()
+                .environment(FixedRewardEnv, obs_dim=2,
+                             num_actions=2)).build()
+    try:
+        algo.train()
+        ev = algo.evaluate(num_episodes=6)["evaluation"]
+        return [ev["episodes"], ev["episode_reward_mean"],
+                ev["episode_len_mean"]]
+    finally:
+        algo.stop()
+
+
+def evaluate_stitches_long_episodes(rt):
+    """test_evaluate_stitches_episodes_longer_than_a_round: 400-step
+    episodes span two 256-step rounds and count once, whole."""
+    algo = _cpu(rt, rt.rllib.DQNConfig()
+                .environment(LongEnv, obs_dim=2, num_actions=2)
+                .env_runners(1)).build()
+    try:
+        ev = algo.evaluate(num_episodes=2)["evaluation"]
+        return [ev["episodes"], ev["episode_reward_mean"],
+                ev["episode_len_mean"]]
+    finally:
+        algo.stop()
+
+
+# -- test_rllib_dreamer.py ---------------------------------------------------
+
+
+def _chain_episodes(rt, n, rng):
+    """Random-policy ShortChainEnv episodes (world-model training data)."""
+    Episode = _sub(rt, "rllib.env_runner").Episode
+    eps = []
+    env = ShortChainEnv()
+    for _ in range(n):
+        obs, _ = env.reset()
+        ep = Episode()
+        done = False
+        while not done:
+            a = int(rng.integers(2))
+            nxt, r, term, trunc, _ = env.step(a)
+            ep.obs.append(obs)
+            ep.actions.append(a)
+            ep.rewards.append(r)
+            ep.logps.append(0.0)
+            ep.values.append(0.0)
+            obs = nxt
+            done = term or trunc
+        ep.terminated, ep.truncated = term, trunc
+        ep.final_obs = obs
+        eps.append(ep)
+    return eps
+
+
+def symlog_roundtrip(rt):
+    d = _sub(rt, "rllib.dreamer")
+    x = np.asarray([-100.0, -1.0, 0.0, 0.5, 30.0], np.float32)
+    if _port(rt):
+        import torch
+        y = d.symexp(d.symlog(torch.from_numpy(x))).numpy()
+    else:
+        y = np.asarray(d.symexp(d.symlog(x)))
+    return [bool(np.allclose(y, x, rtol=1e-5, atol=1e-5))]
+
+
+def sequence_replay_segments(rt):
+    d = _sub(rt, "rllib.dreamer")
+    rng = np.random.default_rng(0)
+    buf = d.SequenceReplay(capacity_steps=10_000, seq_len=8)
+    buf.add_episodes(_chain_episodes(rt, 6, rng))
+    batch = buf.sample(4, rng)
+    return [list(batch["obs"].shape), list(batch["actions"].shape),
+            sorted(batch), bool((batch["is_first"][:, 1:] == 0).all())]
+
+
+WORLD_MODEL = dict(obs_dim=6, num_actions=2, embed=32, deter=32, n_cat=4,
+                   n_classes=4, hidden=32)
+
+
+def world_model_learns(rt, weights):
+    """test_world_model_learns_reward_and_recon: 120 updates on random
+    chain episodes; on a fixed held-out batch with a fixed latent-sampling
+    noise, reward loss < 0.65x, recon < 0.6x and cont < 0.5x their
+    values before. Both packages start from the JAX learner's initial
+    ``weights`` (a flax tree of numpy arrays): the ratios are read
+    against the initial losses, which the initial draw sets."""
+    d = _sub(rt, "rllib.dreamer")
+    rng = np.random.default_rng(0)
+    cfg = d.DreamerModelConfig(**WORLD_MODEL)
+    hp = d.DreamerHyperparams(batch_size=8, seq_len=8, horizon=5,
+                              wm_lr=1e-3)
+    learner = d.DreamerLearner(cfg, hp, seed=0, **_dev(rt))
+    if _port(rt):
+        learner.load_jax_params(weights)
+    else:
+        import jax
+        learner.params = jax.tree_util.tree_map(jax.numpy.asarray, weights)
+    buf = d.SequenceReplay(10_000, hp.seq_len)
+    buf.add_episodes(_chain_episodes(rt, 40, rng))
+    eval_np = buf.sample(32, rng)
+    if _port(rt):
+        import torch
+        from ray_tpu_torch.rllib.learner import gumbel
+        mb = {k: torch.from_numpy(v) for k, v in eval_np.items()}
+        noise = gumbel((hp.seq_len, 32, cfg.n_cat, cfg.n_classes),
+                       torch.Generator().manual_seed(123), "cpu")
+
+        def eval_losses():
+            with torch.no_grad():
+                _t, aux, _out = learner._wm_loss(learner.module, mb, noise)
+            return {k: float(v) for k, v in aux.items()}
+    else:
+        import jax
+        import jax.numpy as jnp
+        mb = {k: jnp.asarray(v) for k, v in eval_np.items()}
+        key = jax.random.key(123)
+
+        def eval_losses():
+            _t, (aux, _out) = learner._wm_loss(learner.params, mb, key)
+            return {k: float(v) for k, v in aux.items()}
+
+    before = eval_losses()
+    last = {}
+    for _ in range(120):
+        last = learner.update(buf.sample(hp.batch_size, rng))
+    after = eval_losses()
+    return [bool(after["reward_loss"] < before["reward_loss"] * 0.65),
+            bool(after["recon_loss"] < before["recon_loss"] * 0.6),
+            bool(after["cont_loss"] < before["cont_loss"] * 0.5),
+            bool(np.isfinite(after["wm_loss"])),
+            bool(np.isfinite(last["actor_loss"])),
+            bool(np.isfinite(last["imag_return"]))]
+
+
+def rollout_policy_protocol(rt):
+    """test_rollout_policy_protocol: the carry advances, feed_action
+    installs the chosen action, the posterior mode is deterministic."""
+    d = _sub(rt, "rllib.dreamer")
+    cfg = {"obs_dim": 4, "num_actions": 3, "deter": 16, "n_cat": 2,
+           "n_classes": 4, "embed": 16, "hidden": 16}
+    obs = np.zeros((1, 4), np.float32)
+    if _port(rt):
+        import torch
+        pol = d.build_dreamer_policy(cfg, "cpu")
+        carry = pol.initial_state(1)
+        with torch.no_grad():
+            logits, value, carry2 = pol(torch.from_numpy(obs), carry)
+            l2, _v, _c = pol(torch.from_numpy(obs), carry)
+    else:
+        import jax
+        pol = d.build_dreamer_policy(cfg)
+        params = pol.init_params(jax.random.key(0))
+        carry = pol.initial_state(1)
+        logits, value, carry2 = pol.apply({"params": params}, obs, carry)
+        l2, _v, _c = pol.apply({"params": params}, obs, carry)
+    carry3 = pol.feed_action(carry2, 2)
+    return [list(logits.shape), list(value.shape),
+            float(np.abs(np.asarray(carry2[2])).sum()),
+            np.asarray(carry3[2])[0].tolist(),
+            bool(np.allclose(np.asarray(logits), np.asarray(l2)))]
+
+
+def dreamer_end_to_end_and_checkpoint(rt):
+    """test_dreamer_end_to_end_and_checkpoint: three train() iterations
+    through a ``policy="dreamer"`` runner, save_to_path, a fresh
+    algorithm restored at iteration 3 with finite parameters, one more
+    iteration."""
+    tmp = tempfile.mkdtemp(prefix="rllib_prog_")
+    config = _cpu(rt, rt.rllib.DreamerConfig()
+                  .environment(ShortChainEnv, obs_dim=ShortChainEnv.N,
+                               num_actions=2, deter=32, n_cat=4,
+                               n_classes=4, embed=32, hidden=32)
+                  .env_runners(1)
+                  .training(learning_starts=60, batch_size=4, seq_len=8,
+                            horizon=5, wm_updates_per_iter=2))
+    try:
+        algo = config.build()
+        try:
+            for _ in range(3):
+                result = algo.train()
+            out = [result["training_iteration"],
+                   bool(result["buffer_steps"] >= 60), "wm_loss" in result]
+            path = os.path.join(tmp, "ckpt")
+            algo.save_to_path(path)
+        finally:
+            algo.stop()
+        restored = config.build()
+        try:
+            restored.restore_from_path(path)
+            out.append(restored.iteration)
+            out.append(all(np.isfinite(x).all() for x in
+                           _leaves(rt, restored.learner.params)))
+            out.append(restored.train()["training_iteration"])
+        finally:
+            restored.stop()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 # -- the table ---------------------------------------------------------------
 
 RLLIB = {
@@ -727,6 +1289,26 @@ RLLIB = {
     "learner_group_identical": learner_group_identical,
     "multi_agent_ppo": multi_agent_ppo,
     "registered_env": registered_env,
+    "bc_from_json": bc_from_json,
+    "replay_buffer_circular": replay_buffer_circular,
+    "dqn_learner_reduces_td_error": dqn_learner_reduces_td_error,
+    "vtrace_on_policy_rho_is_one": vtrace_on_policy_rho_is_one,
+    "squashed_gaussian_bounds_and_logp": squashed_gaussian_bounds_and_logp,
+    "dqn_learns_chain": dqn_learns_chain,
+    "impala_learns_chain": impala_learns_chain,
+    "appo_learns_chain": appo_learns_chain,
+    "sac_learns_point1d": sac_learns_point1d,
+    "bc_learns_offline": bc_learns_offline,
+    "marwil_learns_offline": marwil_learns_offline,
+    "marwil_beta_zero_is_bc": marwil_beta_zero_is_bc,
+    "cql_learns_point1d_offline": cql_learns_point1d_offline,
+    "evaluate_full_episodes_only": evaluate_full_episodes_only,
+    "evaluate_stitches_long_episodes": evaluate_stitches_long_episodes,
+    "symlog_roundtrip": symlog_roundtrip,
+    "sequence_replay_segments": sequence_replay_segments,
+    "world_model_learns": world_model_learns,
+    "rollout_policy_protocol": rollout_policy_protocol,
+    "dreamer_end_to_end_and_checkpoint": dreamer_end_to_end_and_checkpoint,
 }
 
 
@@ -738,18 +1320,19 @@ def run(fn, rt, *args):
         return ("raised", type(e).__name__, str(e)[:500])
 
 
-def run_table(name: str, table: dict, weights: dict) -> dict:
+def run_table(name: str, table: dict, inputs: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
-    ``name``, in one runtime of ``num_cpus=4``; ``weights`` (a flax tree
-    of numpy arrays) goes to the programs that take weights."""
+    ``name``, in one runtime of ``num_cpus=4``; ``inputs[program]`` (the
+    JAX package's initial weights, flax trees of numpy arrays) goes to
+    the programs that take one."""
     import warnings
     rt = importlib.import_module(name)
     rt.init(num_cpus=4)
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            return {prog: run(fn, rt, *((weights,) if prog ==
-                                        "env_runner_episodes" else ()))
+            return {prog: run(fn, rt, *((inputs[prog],) if prog in inputs
+                                        else ()))
                     for prog, fn in table.items()}
     finally:
         rt.shutdown()
@@ -899,4 +1482,26 @@ EXPECTED = {
                             "pa/vf_loss", "pb/entropy", "pb/policy_loss",
                             "pb/total_loss", "pb/vf_loss"], True, 24],
     "registered_env": [256, True],
+    "bc_from_json": [True],
+    "replay_buffer_circular": [12, 8, [16, 2], True],
+    "dqn_learner_reduces_td_error": [True],
+    "vtrace_on_policy_rho_is_one": [True, True],
+    "squashed_gaussian_bounds_and_logp": [True, True, [32]],
+    "dqn_learns_chain": [True],
+    "impala_learns_chain": [True],
+    "appo_learns_chain": [True],
+    "sac_learns_point1d": [True, True],
+    "bc_learns_offline": [True, 512],
+    "marwil_learns_offline": [True],
+    "marwil_beta_zero_is_bc": [[1.75, 1.5, 1.0], True],
+    "cql_learns_point1d_offline": [True, True],
+    "evaluate_full_episodes_only": [6, 5.0, 5.0],
+    "evaluate_stitches_long_episodes": [2, 400.0, 400.0],
+    "symlog_roundtrip": [True],
+    "sequence_replay_segments": [[4, 8, 6], [4, 8],
+                                 ["actions", "cont", "is_first", "obs",
+                                  "rewards"], True],
+    "world_model_learns": [True, True, True, True, True, True],
+    "rollout_policy_protocol": [[1, 3], [1], 0.0, [0.0, 0.0, 1.0], True],
+    "dreamer_end_to_end_and_checkpoint": [3, True, True, 3, True, 4],
 }
