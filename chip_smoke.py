@@ -10,6 +10,7 @@
     python3 chip_smoke.py --plant-fault pbt_own_restore
     python3 chip_smoke.py --plant-fault learner_no_allreduce
     python3 chip_smoke.py --plant-fault sac_stale_critic
+    python3 chip_smoke.py --plant-fault vit_padded_keys
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -25,7 +26,12 @@ exits non-zero without its result line:
    overall, limits in ``AGREEMENT_TOL``), and timed with CUDA events
    beside its bound, the plain version and
    ``F.scaled_dot_product_attention`` on the same inputs (a yardstick
-   only: the port never calls it).
+   only: the port never calls it). After phase 5, the non-causal
+   rectangle of ViT's bidirectional ring (``flash_fwd_nc_rect`` and its
+   backward) at ViT-B/16's ``sp 4`` shapes: B·H = 128·12 padded query
+   blocks of 50 rows against 50 and 47 valid rows of a padded block, read
+   in place, held and timed the same way (SDPA with the padded keys
+   masked); with no valid row it launches nothing.
 4. Train: GPT-2 124M (``GPT2Config.small()``, random weights from seed
    0) on ``cuda:0`` at batch 32 and seq 1024. First, at step 0 on one
    batch: each layer's attention kernels, on the q, k, v and output
@@ -111,14 +117,26 @@ exits non-zero without its result line:
    MESH_TIMED_STEPS steps beside the mesh-less step's and phase 4's.
    (b) The same under FSDP2 (``fsdp = 1``, forced): parameters sharded,
    the step eager by rule (``compile_count`` None), the step-0 loss
-   against (a)'s. (c) Ring attention's hops at ``sp = 4`` (RING_SP) at
-   GPT-2's (B 32, T 1024, H 12) and TinyLlama's (B 8, T 2048, H 32)
-   attention shapes, every rank's in this process through the functions
-   ``ring_attention`` calls: o, lse, dq, dk and dv of the whole against
-   the plain whole causal attention by ``agreement``, 1 + r launches of
-   each kernel on rank r; the hops' summed kernel time beside the
-   unsplit kernels'. (d) Ulysses over the ``sp`` group at world 1 equal
-   to ``causal_attention`` bit for bit (output and gradients), and
+   against (a)'s. (c) Ring attention at ``sp = 4`` (RING_SP) at GPT-2's
+   (B 32, T 1024, H 12) and TinyLlama's (B 8, T 2048, H 32) attention
+   shapes: ``RingAttentionFn``'s own forward and backward on every rank,
+   each rank a thread of this process whose rotations pass through
+   queues (``ThreadRing``): o, lse, dq, dk and dv of the whole against
+   the plain whole causal attention by ``agreement``, 1 + r hops of each
+   kernel on rank r; the hops' summed kernel time beside the unsplit
+   kernels'. (c') The bidirectional ring of ViT on ``sp``, the same
+   function the same way at ViT-B/16's shape (B 128, T 197, H 12) on
+   ``sp`` 4 and 8: the sequence padded to blocks of
+   ``models.vit.seq_blocks``, the padded rows random, each rank's padded
+   queries against every block's valid rows; o, lse, dq, dk, dv of the
+   valid rows against the plain whole non-causal attention, one launch
+   of each rectangle kernel per rank and block with a valid row; its
+   launches on ``sp 4`` are the one-card kernels line's (ViT itself on
+   ``sp`` runs in phase 16 (g)). ``--plant-fault vit_padded_keys`` runs
+   (c') on ``sp 4`` with every padded row read as a key (exit 1 caught, 2
+   missed). (d) Ulysses
+   over the ``sp`` group at world 1 equal to ``causal_attention`` bit
+   for bit (output and gradients), and
    ``moe_ffn`` over the ``ep`` group within one bf16 unit of the one-hot
    einsum form at ``MoEConfig()``'s width on 4096 tokens. (e)
    ``dryrun_multichip(1)`` with no device named, run at the end of phase
@@ -235,8 +253,12 @@ exits non-zero without its result line:
    gradients; (f) ``spmd_pipeline`` on ``pp N``, GPT-2's blocks in N
    stages, PIPE_MICROBATCHES microbatches: the loss and each stage's block
    gradients against the whole batch's, and the bubble; (g) ViT-B/16 and
-   ResNet-50 at 128 x 224² on ``dp N/2 x tp 2``; (h) GPT-2 saved on ``tp
-   N`` and restored on ``dp N`` and off any mesh, parameters bit-equal;
+   ResNet-50 at 128 x 224² on ``dp N/2 x tp 2``, and ViT-B/16 on ``sp N``
+   (the sequence padded to N blocks, the bidirectional ring on the
+   non-causal rectangle: one launch of each rectangle kernel a layer for
+   each block with a valid row, no other flash kernel; its launches, with
+   phase 3's rectangle timed on card 0 first, are the kernels line that
+   ``--cards`` prints); (h) GPT-2 saved on ``tp N`` and restored on ``dp N`` and off any mesh, parameters bit-equal;
    (i) ``dryrun_multichip(N)`` with no device named. Every route but FSDP2
    and the pipeline runs captured (``compile_count`` 1, buffers donated).
    Prints each run's step ms and tokens (images) per second per GPU beside
@@ -290,8 +312,13 @@ exits non-zero without its result line:
    checks of (b) (no HTTP leg, and a line saying so, where aiohttp does
    not import). (e) Two replicas at ``num_gpus=0.5`` on the one card: each
    serves some of SERVE_HALF_REQUESTS requests at 32 callers, and (b) and
-   (c) hold for both. ``--plant-fault serve_left_pad`` runs (a) and (b)
-   with the deployment padding on the left, takes (b)'s readings without
+   (c) hold for both. (f) ``util.chaos.ResourceKiller(kind=
+   "serve_replica")`` kills one of (e)'s replicas while SERVE_CHAOS_CALLERS
+   callers send requests, until the respawned replica has answered
+   SERVE_CHAOS_AFTER: no request fails, and (b) and (c) hold for every
+   response and for the respawned replica. ``--plant-fault
+   serve_left_pad`` runs (a) and (b) with the deployment padding on the
+   left, takes (b)'s readings without
    raising and prints ``{"fault": ..., "caught": ...}``: caught when every
    response differs from its batch recomputed and one is off its request
    alone by more than SERVE_FAULT_MARGIN x SERVE_ALONE_TOL. It exits 1
@@ -439,7 +466,10 @@ CAPTURE_STEPS losses against the same step under ``disable_capture()``
 from the same weights (CAPTURE_LOSS_RTOL).
 
 Then it prints the ``kernels`` JSON line (the ViT run's non-causal
-readings as entries with ``"causal": false``; ``flash_fwd`` at phase 17's
+readings as entries with ``"causal": false``; the non-causal rectangle
+with phase 12 (c')'s launches on ``sp 4``, its ``"path"`` saying so;
+``--cards`` prints its own line of the rectangle with (g)'s launches;
+``flash_fwd`` at phase 17's
 full batch, 8 x 1024, with the replica's launches, as the entry with
 ``"path": "serve"``), the card line again, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
@@ -472,6 +502,7 @@ import ctypes
 import functools
 import json
 import os
+import queue
 import re
 import shutil
 import socket
@@ -481,6 +512,7 @@ import tempfile
 import threading
 import time
 import traceback
+import types
 from dataclasses import replace
 
 import numpy as np
@@ -512,12 +544,10 @@ from ray_tpu_torch.models.gpt2 import (
     gpt2_loss_fn,
     matmul_f32,
 )
+from ray_tpu_torch.models import vit as vit_model
 from ray_tpu_torch.ops.attention import (
+    RingAttentionFn,
     causal_attention,
-    ring_finish,
-    ring_hop_backward,
-    ring_hop_forward,
-    ring_merge,
     ulysses_attention,
 )
 from ray_tpu_torch.ops.cuda import build
@@ -662,6 +692,7 @@ RESNET_BATCH = 128                 # bench.py's ResNet-50 batch per chip
 RESNET_CHECK_BATCH = 8             # step-0 logits against the CPU
 VIT_BATCH = 128                    # DeiT's 1024 over 8 GPUs
 VIT_CHECK_LAYERS = (0, 11)
+VIT_SP = (4, 8)                    # phase 12 (c')'s bidirectional rings
 MOE_CHECK_LAYERS = (1, 11)         # MoE blocks sit at odd layers
 MOE_FORM_TOKENS = 4096             # where the [T, E, C] one-hot fits
 K_STEPS = 2                        # optimizer steps per dispatch
@@ -690,6 +721,8 @@ PAD_MULTIPLE = 64                  # a batch's T: its longest, rounded up
 SERVE_HTTP_REQUESTS = 32           # requests of the HTTP leg
 SERVE_HALF_REQUESTS = 64           # requests to the two half-card replicas
 SERVE_CARDS_REQUESTS = 128         # requests to the four-card replicas
+SERVE_CHAOS_CALLERS = 8            # (f)'s callers while a replica is killed
+SERVE_CHAOS_AFTER = 16             # requests the respawned replica answers
 TUNE_STEPS = 8                     # steps of each trial (ASHA's max_t)
 TUNE_BATCHES = 4                   # fixed batches a trial cycles through
 TUNE_LRS = (1e-4, 3e-4, 1e-3, 3e-3)   # (f)'s grid, four cards
@@ -751,14 +784,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 SQUARE = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 BAND = ("flash_fwd_rect", "flash_bwd_dq_rect", "flash_bwd_dkv_rect")
+NC_RECT = ("flash_fwd_nc_rect", "flash_bwd_dq_nc_rect",
+           "flash_bwd_dkv_nc_rect")
 WRAPPERS = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
             "flash_bwd_dkv": fa.flash_bwd_dkv,
             "flash_fwd_rect": fa.flash_fwd_rect,
             "flash_bwd_dq_rect": fa.flash_bwd_dq_rect,
-            "flash_bwd_dkv_rect": fa.flash_bwd_dkv_rect}
+            "flash_bwd_dkv_rect": fa.flash_bwd_dkv_rect,
+            "flash_fwd_nc_rect": fa.flash_fwd_nc_rect,
+            "flash_bwd_dq_nc_rect": fa.flash_bwd_dq_nc_rect,
+            "flash_bwd_dkv_nc_rect": fa.flash_bwd_dkv_nc_rect}
 _CSRC = "ray_tpu_torch/ops/cuda/csrc"
 SOURCES = {name: f"{_CSRC}/{fa._KERNELS[name].source}.cu"
-           for name in SQUARE + BAND}
+           for name in SQUARE + BAND + NC_RECT}
 # The TPU kernel each replaces on the training path (T=1024 runs the
 # single-block Pallas kernels; T=2048, TinyLlama's, the streaming ones,
 # :77/:218/:255; the split runs the band kernels).
@@ -770,6 +808,13 @@ REPLACES = {
     "flash_fwd_rect": f"{_PALLAS}:418",
     "flash_bwd_dq_rect": f"{_PALLAS}:436",
     "flash_bwd_dkv_rect": f"{_PALLAS}:436",
+    # The non-causal rectangle is the causal=False branch of the streamed
+    # kernels (diag_ok = (not causal) or ...), on a hop of the
+    # bidirectional ring; the JAX ViT itself calls
+    # jax.nn.dot_product_attention.
+    "flash_fwd_nc_rect": f"{_PALLAS}:89",
+    "flash_bwd_dq_nc_rect": f"{_PALLAS}:227",
+    "flash_bwd_dkv_nc_rect": f"{_PALLAS}:266",
 }
 # --plant-fault: (text of the source, the same text with the fault). The
 # forward and dq drop key tile 3 of the last query tile (every score
@@ -786,6 +831,11 @@ _DKV_QEND = "    int q_end = a.tq;\n"
 _ARGS_ROW0 = "  args.row0 = row0;"
 # Faults of phase 17's deployment (user code, not a kernel).
 SERVE_FAULTS = {"serve_left_pad": "GPT2Server pads each batch on the left"}
+# A fault of ViT's bidirectional ring: every row of a padded block taken
+# as a valid key (models.vit.seq_blocks planted), so the hops read the
+# padding; phase 12 (c') must fail it.
+VIT_FAULTS = {"vit_padded_keys": "the bidirectional ring's hops read the "
+              "padded rows of the last block as keys"}
 FAULTS = {
     "flash_fwd": (_FWD_MASK, _FWD_MASK + "    if (j == 3 && q0 + kFwdBQ >= a.tq)"
                   " masked = true, lim[0] = lim[1] = 0;\n"),
@@ -926,8 +976,10 @@ def kernel_readings(q, k, v, do, band: bool = False,
     """Each kernel's outputs held against its plain version's on the same
     inputs: {kernel: {output: fa.agreement(...)}}, lse beside. The square
     kernels on ``[BH, T, D]`` inputs (``causal`` or not), or (``band``)
-    the band kernels on q, do ``[BH, tq, D]`` and k, v ``[BH, tk, D]``."""
-    fwd, dq_k, dkv_k = BAND if band else SQUARE
+    the band kernels on q, do ``[BH, tq, D]`` and k, v ``[BH, tk, D]``
+    (``causal``; not: the non-causal rectangle, tk <= tq)."""
+    fwd, dq_k, dkv_k = ((BAND if causal else NC_RECT) if band
+                        else SQUARE)
     route = () if band else (causal,)
     scale = D ** -0.5
     o, lse = WRAPPERS[fwd](q, k, v, scale, *route)
@@ -1231,6 +1283,101 @@ def band_phase(b: int, t: int, dev) -> dict[int, dict[str, dict]]:
         split_composition(b, t, n, q, k, v, do,
                           sum(total[name]["ms"] for name in BAND))
     return sums
+
+
+def nc_rect_times(b: int, q, kb, vb, do, tk: int, readings,
+                  card: str) -> dict:
+    """The non-causal rectangle's kernels on q, do ``[BH, tq, D]`` against
+    the first ``tk`` rows of the padded blocks kb, vb ``[BH, tq, D]`` (read
+    in place), timed (CUDA events, 20 calls) beside their bound, their
+    plain versions and SDPA on the padded blocks with the padded keys
+    masked (forward, and its whole backward for the backward kernels)."""
+    bh, tq, _ = q.shape
+    scale = D ** -0.5
+    k, v = kb[:, :tk], vb[:, :tk]
+    o, lse = fa.flash_fwd_nc_rect(q, k, v, scale)
+    delta = (o.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse, delta, scale)
+    mask = torch.zeros(tq, tq, dtype=torch.bool, device=q.device)
+    mask[:, :tk] = True
+    q4, k4, v4, do4 = (x.view(b, bh // b, tq, D) for x in (q, kb, vb, do))
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q4, k4, v4))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask), 20)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qg, kg, vg), do4, retain_graph=True), 20)
+    times = {
+        "flash_fwd_nc_rect": (
+            cuda_ms(lambda: fa.flash_fwd_nc_rect(q, k, v, scale), 20),
+            cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, scale, False),
+                    3, 1), lib_fwd),
+        "flash_bwd_dq_nc_rect": (
+            cuda_ms(lambda: fa.flash_bwd_dq_nc_rect(*bwd), 20),
+            cuda_ms(lambda: fa.flash_bwd_dq_reference(*bwd, False), 3, 1),
+            lib_bwd),
+        "flash_bwd_dkv_nc_rect": (
+            cuda_ms(lambda: fa.flash_bwd_dkv_nc_rect(*bwd), 20),
+            cuda_ms(lambda: fa.flash_bwd_dkv_reference(*bwd, False), 3, 1),
+            lib_bwd),
+    }
+    w = work(bh, tq, tk, causal=False)
+    rows = {}
+    for name, sq in zip(NC_RECT, SQUARE):
+        ms, p_ms, l_ms = times[name]
+        err = max(r["max_abs_err"] for o_name, r in readings[name].items()
+                  if o_name != "lse")
+        bnd_ms, bnd_by = bound(*w[sq])
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+                      "bound_ms": bnd_ms, "bound_by": bnd_by,
+                      "library_ms": l_ms}
+        print(f"kernel {name} B={b} tq={tq} tk={tk} H={bh // b} D={D} bf16 "
+              f"non-causal: max abs err {err:.3g}, {ms:.4f} ms, bound "
+              f"{bnd_ms:.4f} ms ({bnd_by}), plain {p_ms:.4f} ms, library "
+              f"(SDPA, padded keys masked) {l_ms:.4f} ms, kernel / library "
+              f"{ms / l_ms:.3f}x; card {card}", flush=True)
+    return rows
+
+
+def nc_rect_phase(dev, card: str) -> dict[str, dict]:
+    """Phase 3's non-causal rectangle at ViT-B/16's shapes on ``sp`` 4
+    (VIT_SP[0]): B·H = 128·12 queries of a 50-row block against a source
+    block's 50 or 47 valid rows (the last block's), read in place from the
+    padded block, held against the plain versions by ``agreement`` and
+    timed; a block without a valid row launches nothing. Returns the
+    47-row hop's readings for the kernels line."""
+    t = ViTConfig.base().num_patches + 1
+    block, lengths = vit_model.seq_blocks(t, VIT_SP[0])
+    gen = torch.Generator(device=dev).manual_seed(block)
+    q, kb, vb, do = (torch.randn(VIT_BATCH * H, block, D, device=dev,
+                                 generator=gen).to(torch.bfloat16)
+                     for _ in range(4))
+    rows = {}
+    for tk in sorted(set(lengths), reverse=True):
+        readings = kernel_readings(q, kb[:, :tk], vb[:, :tk], do, band=True,
+                                   causal=False)
+        print(f"agreement non-causal rectangle B={VIT_BATCH} tq={block} "
+              f"tk={tk}: {describe(readings)}", flush=True)
+        check_readings(readings, f"on the non-causal rectangle tq={block} "
+                       f"tk={tk}")
+        rows[tk] = nc_rect_times(VIT_BATCH, q, kb, vb, do, tk, readings,
+                                 card)
+    scale = D ** -0.5
+    fa.reset_launch_counts()
+    o0, lse0 = fa.flash_fwd_nc_rect(q, kb[:, :0], vb[:, :0], scale)
+    dq0 = fa.flash_bwd_dq_nc_rect(q, kb[:, :0], vb[:, :0], do, lse0,
+                                  lse0, scale)
+    dk0, _ = fa.flash_bwd_dkv_nc_rect(q, kb[:, :0], vb[:, :0], do, lse0,
+                                      lse0, scale)
+    torch.cuda.synchronize()
+    launched = sum(fa.launch_counts().values())
+    empty_ok = (launched == 0 and not o0.any() and not dq0.any()
+                and bool(torch.isneginf(lse0).all()) and dk0.numel() == 0)
+    print(f"non-causal rectangle with tk=0 (a block without a valid row): "
+          f"{launched} launches, o = 0, lse = -inf, dq = 0, dk empty: "
+          f"{empty_ok}; card {card}", flush=True)
+    check(empty_ok, "the non-causal rectangle launches nothing for tk = 0")
+    return rows[min(lengths)]
 
 
 class PlainAttention(torch.autograd.Function):
@@ -2139,99 +2286,179 @@ def mesh_train(mesh, forced: tuple[str, ...], host_batch, what: str,
     return run
 
 
-def ring_check(b: int, t: int, h: int, dev, card: str) -> None:
-    """All RING_SP ranks' hops of ring attention at ``[B*H, T, D]``, in this
-    process, through the functions ``ring_attention`` calls: rank r's
-    queries against each block src <= r (ring_hop_forward, ring_merge,
-    ring_finish), then the backward hops with the merged lse
-    (ring_hop_backward), the dk and dv of each block summed over the ranks
-    that saw it. o, lse, dq, dk and dv of the whole are held against the
-    plain whole causal attention by ``agreement``; each rank launches
-    1 + r hops of each kernel. Then the ring's kernels, summed over the
-    ranks' hops, are timed beside the unsplit kernels."""
-    gen = torch.Generator(device=dev).manual_seed(t + h)
-    q, k, v, do = (torch.randn(b * h, t, D, device=dev, generator=gen)
+def _all_valid_blocks(t: int, n: int):
+    """``models.vit.seq_blocks`` with the fault VIT_FAULTS plants: every
+    row of every block taken as valid."""
+    block = -(-t // n)
+    return block, (block,) * n
+
+
+class ThreadRing:
+    """Rank ``me`` of the ``n`` ranks of a ring run as threads of this
+    process, for ``RingAttentionFn``'s own forward and backward (called
+    directly: autograd runs every backward of a card on one thread, where
+    a rank waiting for its neighbour would hold up that neighbour).
+    :meth:`rotate` hands copies of the tensors to rank ``me + 1``'s box;
+    its ``wait`` takes what rank ``me - 1`` sent. Only the rank holding
+    ``baton`` runs, and it gives it up only while it waits, so the launch
+    counters see one rank at a time."""
+
+    def __init__(self, n: int, me: int, boxes, baton: threading.Lock):
+        self.n, self.me, self.boxes, self.baton = n, me, boxes, baton
+
+    def rotate(self, tensors, tag: int = 0):
+        self.boxes[(self.me + 1) % self.n][tag].put(
+            [t.clone() for t in tensors])
+        return types.SimpleNamespace(wait=functools.partial(self._take, tag))
+
+    def _take(self, tag: int):
+        self.baton.release()
+        try:
+            return self.boxes[self.me][tag].get(timeout=120)
+        finally:
+            self.baton.acquire()
+
+
+def run_ring(qs, ks, vs, dos, scale: float, lengths) -> list[dict]:
+    """``RingAttentionFn``'s forward and backward on every rank of a ring
+    of ``len(qs)`` ranks, each a thread over a :class:`ThreadRing`:
+    rank r's ``[B, t, H, D]`` blocks in, its o, folded lse, dq, dk and dv
+    out. ``lengths`` as ``RingAttentionFn`` takes it (None: causal)."""
+    n = len(qs)
+    boxes = [[queue.Queue() for _ in range(2)] for _ in range(n)]
+    baton = threading.Lock()
+    out: list = [None] * n
+    errors: list = []
+
+    def rank(r: int) -> None:
+        with baton:
+            try:
+                ctx = types.SimpleNamespace()
+                ctx.save_for_backward = lambda *t: setattr(
+                    ctx, "saved_tensors", t)
+                o = RingAttentionFn.forward(ctx, qs[r], ks[r], vs[r],
+                                            ThreadRing(n, r, boxes, baton),
+                                            scale, lengths)
+                dq, dk, dv = RingAttentionFn.backward(ctx, dos[r])[:3]
+                out[r] = {"o": o, "lse": ctx.saved_tensors[4], "dq": dq,
+                          "dk": dk, "dv": dv}
+            except BaseException as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def ring_check(b: int, t: int, h: int, sp: int, dev, card: str,
+               causal: bool = True, strict: bool = True) -> dict:
+    """Ring attention at ``[B, T, H, D]`` on ``sp`` ranks, every rank's
+    ``RingAttentionFn`` forward and backward in this process
+    (:func:`run_ring`). Causal (``ring_attention``): T in ``sp`` equal
+    blocks; each rank runs its hops against the blocks at or before its
+    own. Else bidirectional (``_bidir_ring_attention``, ViT on ``sp``):
+    the sequence padded to ``sp`` blocks of ``models.vit.seq_blocks``'
+    length, the padded rows random (as a model leaves them: anything) and
+    their output gradient 0; each rank's padded queries against every
+    block's valid rows. o, lse, dq, dk and dv of the valid rows are held
+    against the plain whole attention by ``agreement``; the launches of
+    all ranks together are one of each square kernel per hop (causal) or
+    of each non-causal rectangle kernel per rank and block with a valid
+    row, and nothing else. Then the hops' kernels, summed over the ranks,
+    are timed beside the unsplit kernels. Returns ``{"ok", "counts"}``:
+    whether every check held (``strict``: raise if not) and the launches
+    of all ranks."""
+    if causal:
+        block, lengths = t // sp, None
+        valid = [block] * sp
+        hops = sp * (sp + 1) // 2
+        routes = SQUARE
+    else:
+        block, lengths = vit_model.seq_blocks(t, sp)
+        valid = [max(0, min(block, t - r * block)) for r in range(sp)]
+        hops = sp * sum(1 for n in lengths if n)
+        routes = NC_RECT
+    gen = torch.Generator(device=dev).manual_seed(t + (h if causal else sp))
+    q, k, v, do = (torch.randn(b, block * sp, h, D, device=dev, generator=gen)
                    .to(torch.bfloat16) for _ in range(4))
+    do[:, t:] = 0
     scale = D ** -0.5
-    s = t // RING_SP
-    qs, ks, vs, dos = ([x[:, r * s:(r + 1) * s].contiguous()
-                        for r in range(RING_SP)] for x in (q, k, v, do))
-    outs, lses, deltas, dqs = [], [], [], []
-    dks = [torch.zeros(b * h, s, D, device=dev) for _ in range(RING_SP)]
-    dvs = [torch.zeros_like(x) for x in dks]
-    for r in range(RING_SP):
-        fa.reset_launch_counts()
-        state = None
-        for i in range(RING_SP):
-            src = (r - i) % RING_SP
-            part = ring_hop_forward(qs[r], ks[src], vs[src], src, r, scale)
-            if part is not None:
-                state = ring_merge(state, part)
-        o_r, lse_r = ring_finish(state, q.dtype)
-        delta = (o_r.float() * dos[r].float()).sum(-1)
-        dq = torch.zeros(b * h, s, D, device=dev)
-        for i in range(RING_SP):
-            src = (r - i) % RING_SP
-            part = ring_hop_backward(qs[r], ks[src], vs[src], dos[r], lse_r,
-                                     delta, src, r, scale)
-            if part is not None:
-                dq += part[0].float()
-                dks[src] += part[1].float()
-                dvs[src] += part[2].float()
-        counts = fa.launch_counts()
-        check(all(counts[n] == r + 1 for n in SQUARE)
-              and not any(counts[n] for n in BAND),
-              f"ring rank {r}: {r + 1} launches of each square kernel "
-              f"(got {counts})")
-        outs.append(o_r)
-        lses.append(lse_r)
-        deltas.append(delta)
-        dqs.append(dq.to(q.dtype))
-    got = {"o": torch.cat(outs, 1), "dq": torch.cat(dqs, 1),
-           "dk": torch.cat(dks, 1).to(q.dtype),
-           "dv": torch.cat(dvs, 1).to(q.dtype)}
-    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, True)
-    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(q, k, v, o_ref, lse_ref,
-                                                    do, scale, True)
+    qs, ks, vs, dos = ([x[:, r * block:(r + 1) * block].contiguous()
+                        for r in range(sp)] for x in (q, k, v, do))
+    fa.reset_launch_counts()
+    ranks = run_ring(qs, ks, vs, dos, scale, lengths)
+    counts = fa.launch_counts()
+    counts_ok = all(c == (hops if n in routes else 0)
+                    for n, c in counts.items())
+    got = {name: torch.cat([fold4(x[name])[:, :n]
+                            for x, n in zip(ranks, valid)], 1)
+           for name in ("o", "dq", "dk", "dv")}
+    qw, kw, vw, dow = (fold4(x[:, :t]) for x in (q, k, v, do))
+    o_ref, lse_ref = fa.flash_fwd_reference(qw, kw, vw, scale, causal)
+    dq_ref, dk_ref, dv_ref = fa.flash_bwd_reference(qw, kw, vw, o_ref,
+                                                    lse_ref, dow, scale,
+                                                    causal)
     want = {"o": o_ref, "dq": dq_ref, "dk": dk_ref, "dv": dv_ref}
-    readings = {"ring": {n: fa.agreement(got[n], want[n]) for n in got}}
-    lse_err = float((torch.cat(lses, 1) - lse_ref).abs().max())
-    readings["ring"]["lse"] = {"max_abs_err": lse_err, "ok": lse_err < LSE_TOL}
-    print(f"ring sp={RING_SP} B={b} T={t} H={h}: {describe(readings)}",
-          flush=True)
-    check_readings(readings, f"for the ring at B={b} T={t} H={h}")
+    what = "ring" if causal else "bidirectional ring"
+    readings = {what: {n: fa.agreement(got[n], want[n]) for n in got}}
+    lse_err = float((torch.cat([x["lse"][:, :n] for x, n in
+                                zip(ranks, valid)], 1) - lse_ref)
+                    .abs().max())
+    readings[what]["lse"] = {"max_abs_err": lse_err, "ok": lse_err < LSE_TOL}
+    ok = counts_ok and all(r["ok"] for r in readings[what].values())
+    shape = (f"sp={sp} B={b} T={t} H={h}" + ("" if causal else
+             f" (blocks of {block}, valid rows {valid}, the hops read "
+             f"{list(lengths)})"))
+    print(f"{what} {shape}, RingAttentionFn on {sp} ranks as threads: "
+          f"{describe(readings)}; launches of all ranks {counts}, "
+          f"{hops} of each of {list(routes)} and no other: {counts_ok}; "
+          f"card {card}", flush=True)
+    if strict:
+        check(counts_ok, f"{what} sp={sp}: launches of all ranks")
+        check_readings(readings, f"for the {what} at {shape}")
+    if not ok:
+        return {"ok": ok, "counts": counts}
     del o_ref, dq_ref, dk_ref, dv_ref, want
     torch.cuda.empty_cache()
 
-    hops = [(r, src) for r in range(RING_SP) for src in range(r + 1)]
-    lse_w, delta_w = torch.cat(lses, 1), torch.cat(deltas, 1)
-    iters = 5
-    ring = {
-        "flash_fwd": lambda: [fa.flash_fwd(qs[r], ks[c], vs[c], scale, c == r)
-                              for r, c in hops],
-        "flash_bwd_dq": lambda: [
-            fa.flash_bwd_dq(qs[r], ks[c], vs[c], dos[r], lses[r], deltas[r],
-                            scale, c == r) for r, c in hops],
-        "flash_bwd_dkv": lambda: [
-            fa.flash_bwd_dkv(qs[r], ks[c], vs[c], dos[r], lses[r], deltas[r],
-                             scale, c == r) for r, c in hops],
-    }
-    whole = {
-        "flash_fwd": lambda: fa.flash_fwd(q, k, v, scale, True),
-        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse_w, delta_w,
-                                                scale, True),
-        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse_w, delta_w,
-                                                  scale, True),
-    }
-    times = {n: (cuda_ms(ring[n], iters), cuda_ms(whole[n], iters))
-             for n in SQUARE}
-    total = [sum(t_[i] for t_ in times.values()) for i in (0, 1)]
-    print(f"ring sp={RING_SP} B={b} T={t} H={h} kernel time, the "
-          f"{len(hops)} hops of the {RING_SP} ranks summed vs the unsplit "
-          f"kernel: " + "; ".join(f"{n} {a:.3f} ms vs {w:.3f} ms"
-                                  for n, (a, w) in times.items())
-          + f"; all {total[0]:.3f} ms vs {total[1]:.3f} ms "
-          f"({total[0] / total[1]:.3f}x); card {card}", flush=True)
+    fq, fk, fv, fdo = ([fold4(x) for x in xs] for xs in (qs, ks, vs, dos))
+    lses = [x["lse"] for x in ranks]
+    deltas = [(fold4(x["o"]).float() * fdo[r].float()).sum(-1)
+              for r, x in enumerate(ranks)]
+    pairs = [(r, c) for r in range(sp) for c in range(sp)
+             if (c <= r if causal else lengths[c])]
+
+    def ring_hops(name: str, bwd: bool):
+        def run():
+            for r, c in pairs:
+                tk = block if causal else lengths[c]
+                rows = (fdo[r], lses[r], deltas[r]) if bwd else ()
+                WRAPPERS[name](fq[r], fk[c][:, :tk], fv[c][:, :tk], *rows,
+                               scale, *((c == r,) if causal else ()))
+        return run
+
+    o_w, lse_w = fa.flash_fwd(qw, kw, vw, scale, causal)
+    delta_w = (o_w.float() * dow.float()).sum(-1)
+    whole = (lambda: fa.flash_fwd(qw, kw, vw, scale, causal),
+             lambda: fa.flash_bwd_dq(qw, kw, vw, dow, lse_w, delta_w, scale,
+                                     causal),
+             lambda: fa.flash_bwd_dkv(qw, kw, vw, dow, lse_w, delta_w, scale,
+                                      causal))
+    times = {n: (cuda_ms(ring_hops(n, i > 0), 5), cuda_ms(whole[i], 5))
+             for i, n in enumerate(routes)}
+    both = [sum(t_[i] for t_ in times.values()) for i in (0, 1)]
+    print(f"{what} {shape} kernel time, the {len(pairs)} hops of the {sp} "
+          f"ranks summed vs the unsplit {'causal' if causal else 'non-causal'}"
+          f" kernels at T={t}: " + "; ".join(
+              f"{n} {a:.3f} ms vs {w:.3f} ms" for n, (a, w) in times.items())
+          + f"; all {both[0]:.3f} ms vs {both[1]:.3f} ms "
+          f"({both[0] / both[1]:.3f}x); card {card}", flush=True)
+    return {"ok": ok, "counts": counts}
 
 
 def exchange_check(mesh, dev) -> None:
@@ -2291,9 +2518,11 @@ def mesh_phase(main_run: dict, card: str) -> tuple:
     the gradient all-reduce inside the graph, against the same step off
     the mesh; (b) the same under FSDP2 (``fsdp = 1``); (c) ring attention's
     hops through the kernels at GPT-2's and TinyLlama's attention shapes;
-    (d) Ulysses and ``moe_ffn`` over their groups at world 1; (e) the
+    (c') the bidirectional ring's hops (ViT on ``sp``) at ViT-B/16's; (d)
+    Ulysses and ``moe_ffn`` over their groups at world 1; (e) the
     multi-rank dry run, which :func:`tp_phase` runs last. Returns the mesh
-    and the mesh-less run."""
+    and the mesh-less run, and the launches of (c')'s bidirectional
+    rings."""
     dev = initialize()
     mesh = make_mesh({"dp": 1})
     print(f"mesh: {mesh} over a {dist.get_backend()} group of "
@@ -2337,9 +2566,12 @@ def mesh_phase(main_run: dict, card: str) -> tuple:
                  {name: n for name in SQUARE}, "mesh fsdp=1")
 
     for b, t, h in RING_SHAPES:
-        ring_check(b, t, h, dev, card)
+        ring_check(b, t, h, RING_SP, dev, card)
+    t = ViTConfig.base().num_patches + 1
+    bidir = {sp: ring_check(VIT_BATCH, t, H, sp, dev, card, causal=False)
+             for sp in VIT_SP}
     exchange_check(mesh, dev)
-    return mesh, plain
+    return mesh, plain, bidir
 
 
 def check_losses(got: dict, want: dict, what: str) -> float:
@@ -3762,9 +3994,95 @@ def serve_legs(rt, card, weights, reqs, ref, kernel_row, fault):
     for st in stats:
         check_replica(st, "0", batches_of(hr, st["pid"]),
                       "a half-card replica")
-    return {"start_s": start_s, "legs": legs, "http": http,
+    chaos = chaos_leg(rt, handle, reqs, ref, card)
+    return {"start_s": start_s, "chaos": chaos, "legs": legs, "http": http,
             "floor_ms": floor_ms, "alone": alone, "half": half_rate,
             "kernel": dict(kernel_row["flash_fwd"], launches=launches)}
+
+
+def chaos_leg(rt, handle, reqs: list[dict], ref, card: str) -> dict:
+    """Phase 17 (f): ``util.chaos.ResourceKiller(kind="serve_replica")``
+    kills one of (e)'s two half-card replicas while SERVE_CHAOS_CALLERS
+    callers send requests through the handle, cycling through ``reqs``,
+    until the replica the controller respawns has answered
+    SERVE_CHAOS_AFTER of them. Checks: no request failed, one kill, every
+    response bit-equal to its batch recomputed in process (the respawned
+    replica's too), and the respawned replica on the card with one
+    ``flash_fwd`` a layer a batch."""
+    from ray_tpu_torch.serve.controller import CONTROLLER_NAME
+    from ray_tpu_torch.util.chaos import ResourceKiller
+    controller = rt.get_actor(CONTROLLER_NAME)
+    before = set(rt.get(controller.replica_pids.remote("gpt2half"),
+                        timeout=60).values())
+    responses, failures, lock = [], [], threading.Lock()
+    stop, state = threading.Event(), {"next": 0, "killed_at": None,
+                                      "back_at": None, "new": 0}
+
+    def caller():
+        while not stop.is_set():
+            with lock:
+                i = state["next"] % len(reqs)
+                state["next"] += 1
+            try:
+                o = handle.remote(reqs[i]).result(timeout_s=300)
+            except Exception as e:  # noqa: BLE001 — counted, then checked
+                with lock:
+                    failures.append(f"{type(e).__name__}: {e}"[:300])
+                continue
+            with lock:
+                responses.append(o)
+                if o["batch"]["pid"] not in before:
+                    state["new"] += 1
+                    if state["back_at"] is None:
+                        state["back_at"] = time.perf_counter()
+                if state["new"] >= SERVE_CHAOS_AFTER:
+                    stop.set()
+
+    threads = [threading.Thread(target=caller, daemon=True)
+               for _ in range(SERVE_CHAOS_CALLERS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while (len(responses) < 2 * SERVE_CHAOS_CALLERS and not failures
+           and time.perf_counter() - t0 < 120):
+        time.sleep(0.01)
+    killer = ResourceKiller(kind="serve_replica", interval_s=0.05,
+                            max_kills=1, seed=1234).start()
+    t_kill = time.perf_counter()
+    while killer.kills < 1 and time.perf_counter() - t_kill < 60:
+        time.sleep(0.01)
+    killer.stop()
+    if killer.kills >= 1:
+        state["killed_at"] = time.perf_counter()
+        stop.wait(300)
+    stop.set()
+    for t in threads:
+        t.join(timeout=330)
+    check(killer.kills >= 1, "(f) the killer killed a replica within 60 s "
+          f"of its start ({len(responses)} answered before)")
+    wall = time.perf_counter() - t0
+    r = serve_readings([responses], ref)
+    after = rt.get(controller.replica_pids.remote("gpt2half"), timeout=60)
+    new = [pid for pid in after.values() if pid not in before]
+    back_s = (None if state["back_at"] is None
+              else state["back_at"] - state["killed_at"])
+    print(f"serve (f) ResourceKiller(kind='serve_replica', seed=1234) killed "
+          f"{killer.decisions} under {SERVE_CHAOS_CALLERS} callers: "
+          f"{len(responses)} answered, {len(failures)} failed "
+          f"{failures[:2]}; the respawned replica's first answer "
+          f"{back_s if back_s is None else round(back_s, 2)} s after the "
+          f"kill, {state['new']} answers from it; {wall:.2f} s in all; "
+          f"{describe_readings(r)}; card {card}", flush=True)
+    check(not failures, "(f) no request failed while a replica was killed")
+    check(killer.kills == 1 and len(new) == 1
+          and state["new"] >= SERVE_CHAOS_AFTER,
+          f"(f) one replica killed and respawned, and the new one answered "
+          f"{SERVE_CHAOS_AFTER} requests")
+    check_serve(r, "(f) under the kill")
+    (st,) = [x for x in replica_stats(rt, "gpt2half") if x["pid"] == new[0]]
+    check_replica(st, "0", batches_of(r, new[0]), "(f) the respawned replica")
+    return {"answered": len(responses), "failed": len(failures),
+            "back_s": back_s, "wall_s": wall}
 
 
 def serve_cards_phase(n: int, card: str) -> None:
@@ -6192,6 +6510,26 @@ def serve_fault_main(name: str, dev, card: str) -> int:
     return 1 if caught else 2
 
 
+def vit_fault_main(name: str, dev, card: str) -> int:
+    """``--plant-fault vit_padded_keys``: the build, then phase 12 (c')'s
+    ring at sp VIT_SP[0] with every padded row read as a key. Prints
+    ``{"fault", "caught"}``; exits 1 when the checks fail it, 2 when they
+    miss it or the run fails before them."""
+    build.ensure_built()
+    vit_model.seq_blocks = _all_valid_blocks
+    try:
+        r = ring_check(VIT_BATCH, ViTConfig.base().num_patches + 1, H,
+                       VIT_SP[0], dev, card, causal=False, strict=False)
+    except Exception:  # noqa: BLE001 — a failed run is not a catch
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "error": "the run failed before its checks"}),
+              flush=True)
+        return 2
+    print(json.dumps({"fault": name, "caught": not r["ok"]}), flush=True)
+    return 1 if not r["ok"] else 2
+
+
 def fault_main(name: str, dev) -> int:
     build.ensure_built()
     tmp = plant_fault(name)
@@ -6225,10 +6563,11 @@ def cards_lines() -> tuple[list[str], str]:
         f"{(r.stdout + r.stderr).rstrip()}" for r in (topo, nvlink))
 
 
-def multicard_phase(n: int, fault: str | None = None) -> bool:
+def multicard_phase(n: int,
+                    fault: str | None = None) -> tuple[bool, list]:
     """Phase 16 on ``n`` cards (see the module docstring). Returns whether
-    every check held; with ``fault``, only (c) runs, with the fault
-    planted in every rank."""
+    every check held, and every rank's results; with ``fault``, only (c)
+    runs, with the fault planted in every rank."""
     names, topo = cards_lines()
     for i, line in enumerate(names):
         print(f"multicard card {i}: {line}", flush=True)
@@ -6249,7 +6588,7 @@ def multicard_phase(n: int, fault: str | None = None) -> bool:
           f"{time.perf_counter() - t0:.1f} s; every check held: {held}",
           flush=True)
     if fault:
-        return held
+        return held, results
     t0 = time.perf_counter()
     ranks = dryrun_multichip(n)
     print(f"multicard (i) dryrun_multichip({n}), no device named: {ranks} "
@@ -6258,7 +6597,7 @@ def multicard_phase(n: int, fault: str | None = None) -> bool:
         [r["device"] for r in ranks] == [f"cuda:{i}" for i in range(n)]
         and all(np.isfinite(r["loss"]) for r in ranks)
         and len({r["loss"] for r in ranks}) == 1)
-    return held
+    return held, results
 
 
 def cards_main(n: int, fault: str | None, card: str) -> int:
@@ -6272,11 +6611,24 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     t0 = time.perf_counter()
     build.ensure_built()
     print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
-    held = multicard_phase(n, fault)
     if fault:
+        held, _ = multicard_phase(n, fault)
         print(json.dumps({"fault": fault, "caught": not held}), flush=True)
         return 0 if not held else 1
+    nc_rows = nc_rect_phase(default_device(), card)
+    torch.cuda.empty_cache()
+    held, results = multicard_phase(n)
     check(held, "phase 16: every multi-card check held")
+    # The non-causal rectangle on its own path: rank 0's launches in (g)'s
+    # ViT-B/16 steps on sp n (the counts set to 0 just before its steps),
+    # its times from phase 3's rectangle on cuda:0.
+    vit_sp = f"vit sp {n}"
+    kernels = [{"name": name, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "causal": False,
+                "path": f"{vit_sp}, rank 0, {multicard.STEPS} steps",
+                "launches": results[0]["g"][vit_sp]["counts"].get(name, 0),
+                **nc_rows[name]} for name in NC_RECT]
+    print(json.dumps({"kernels": kernels}), flush=True)
     t16 = time.perf_counter()
     serve_cards_phase(n, card)
     print(f"multicard serve: {time.perf_counter() - t16:.1f} s", flush=True)
@@ -6300,7 +6652,7 @@ def main() -> int:
     parser.add_argument("--plant-fault",
                         choices=sorted(FAULTS) + sorted(multicard.FAULTS)
                         + list(SERVE_FAULTS) + list(TUNE_FAULTS)
-                        + list(RLLIB_FAULTS))
+                        + list(RLLIB_FAULTS) + list(VIT_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -6326,6 +6678,8 @@ def main() -> int:
         return tune_fault_main(args.plant_fault, card)
     if args.plant_fault in RLLIB_FAULTS:
         return rllib_fault_main(args.plant_fault, card)
+    if args.plant_fault in VIT_FAULTS:
+        return vit_fault_main(args.plant_fault, dev, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -6350,6 +6704,7 @@ def run_all(dev, card: str) -> int:
     for b, t in SHAPES:
         rows[(b, t)] = kernel_phase(b, t, dev)
     band_rows = band_phase(TRAIN_BATCH, TRAIN_SEQ, dev)
+    nc_rows = nc_rect_phase(dev, card)
 
     main_run, loss_unsplit = train_phase(card)
     torch.cuda.empty_cache()
@@ -6366,7 +6721,7 @@ def run_all(dev, card: str) -> int:
     torch.cuda.empty_cache()
     moe_phase(card)
     torch.cuda.empty_cache()
-    mesh, plain = mesh_phase(main_run, card)
+    mesh, plain, bidir = mesh_phase(main_run, card)
     torch.cuda.empty_cache()
     tp_phase(mesh, plain, card)
     torch.cuda.empty_cache()
@@ -6415,6 +6770,16 @@ def run_all(dev, card: str) -> int:
                  "replaces": REPLACES[name], "causal": False,
                  "launches": vit_run["counts"][name], **vit_rows[name]}
                 for name in SQUARE]
+    # The non-causal rectangle at ViT-B/16's sp 4 shapes (the last block's
+    # 47 valid rows), with the launches of phase 12 (c'): ViT's ring,
+    # RingAttentionFn's forward and backward, on 4 ranks run as threads on
+    # this one card, one hop of each kernel a rank and a block. ViT itself
+    # on sp 4 needs four cards (--cards 4 prints its launches).
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "causal": False,
+                 "path": f"RingAttentionFn, sp {VIT_SP[0]} as threads",
+                 "launches": bidir[VIT_SP[0]]["counts"][name],
+                 **nc_rows[name]} for name in NC_RECT]
     # The forward kernel on the serving path: timed at a full batch
     # (SERVE_BATCH x 1024), launched by the replica of phase 17 (d).
     kernels.append({"name": "flash_fwd", "route": "cuda",

@@ -2270,11 +2270,131 @@ class DriverRuntime:
 
     # ---------------- head snapshot / restore (GCS HA analog) ---------
 
+    def snapshot_state(self) -> dict:
+        """Control-plane tables as a JSON-serializable dict (reference:
+        GCS tables journaled to Redis, redis_store_client.cc): KV,
+        named-actor specs (with identity), PG specs."""
+        import base64
+
+        def e(b: bytes) -> str:
+            return base64.b64encode(b).decode()
+
+        kv_rows = []
+        with self._kv_lock:
+            for (ns, k), v in self._kv.items():
+                kv_rows.append({"ns": ns, "k": e(k), "v": e(v)})
+        actor_rows = []
+        with self._actor_lock:
+            named = dict(self._named_actors)
+        for name, actor_id in named.items():
+            rec = self._actors.get(actor_id)
+            if rec is None or rec.state == "DEAD":
+                continue
+            pg = rec.options.placement_group
+            actor_rows.append({
+                "name": name,
+                "actor_id": rec.actor_id.hex(),
+                "cls_name": rec.cls_name,
+                "cls_blob": e(rec.cls_blob),
+                "init_args_blob": e(rec.init_args_blob),
+                "options_blob": e(ser.dumps(rec.options)),
+                "pg_id": pg.id.hex() if pg is not None else None,
+                "max_restarts": rec.max_restarts,
+                "max_concurrency": rec.max_concurrency,
+            })
+        pg_rows = []
+        with self._pg_lock:
+            for pg_id, pg in self._pgs.items():
+                pg_rows.append({"id": pg_id.hex(),
+                                "bundles": pg.bundles,
+                                "strategy": pg.strategy})
+        return {"kv": kv_rows, "named_actors": actor_rows,
+                "pgs": pg_rows}
+
+    def save_snapshot(self, path: str, extra: dict | None = None) -> dict:
+        """``snapshot_state`` written to ``path`` atomically (a temporary
+        file fsynced, then renamed); returns the counts written."""
+        import json
+        state = self.snapshot_state()
+        if extra:
+            state.update(extra)
+        tmp = path + ".tmp"
+        os.makedirs(os.path.dirname(os.path.abspath(path)),
+                    exist_ok=True)
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+        return {"kv": len(state["kv"]),
+                "named_actors": len(state["named_actors"]),
+                "pgs": len(state["pgs"])}
+
     def restore_snapshot(self, state: dict,
                          adopt_grace_s: float = 8.0) -> dict:
-        """Replay a head snapshot into THIS runtime after a head
-        restart: the head daemon's, which is multi-node work."""
-        raise _multi_node("restoring a head snapshot (the head daemon)")
+        """Replay a head snapshot into THIS runtime: KV restores
+        verbatim; PGs re-reserve (an actor's PG relinked to its new
+        id); named actors enter RESTARTING under their old identity and
+        start fresh after ``adopt_grace_s``. In the JAX package a
+        reconnecting node daemon may adopt a surviving incarnation in
+        that window; one node has no daemon to report one (multi-node:
+        ROADMAP.md §1, item 7), so every restored actor restarts fresh.
+        Actors whose name is already live are skipped."""
+        import base64
+
+        def d(s: str) -> bytes:
+            return base64.b64decode(s)
+
+        for row in state.get("kv", []):
+            self.kv_put(d(row["k"]), d(row["v"]), row["ns"])
+
+        from ray_tpu_torch.core.placement_group import PlacementGroup
+        pg_map: dict[str, PlacementGroup] = {}
+        for row in state.get("pgs", []):
+            bundles = [dict(b) for b in row["bundles"]]
+            new_id = self.create_placement_group(bundles,
+                                                 row["strategy"],
+                                                 row.get("name", ""))
+            pg_map[row.get("id", "")] = PlacementGroup(
+                new_id, bundles, row["strategy"])
+
+        restored = []
+        for row in state.get("named_actors", []):
+            name = row["name"]
+            with self._actor_lock:
+                if name in self._named_actors:
+                    continue
+            options = ser.loads(d(row["options_blob"]))
+            if row.get("pg_id") is not None:
+                options.placement_group = pg_map.get(row["pg_id"])
+                if options.placement_group is None:
+                    options.placement_group_bundle_index = -1
+                    options.scheduling_strategy = "DEFAULT"
+            actor_id = (ActorID(bytes.fromhex(row["actor_id"]))
+                        if row.get("actor_id") else
+                        ActorID.of(self.job_id))
+            rec = ActorRecord(
+                actor_id=actor_id, name=name,
+                cls_name=row["cls_name"], cls_blob=d(row["cls_blob"]),
+                init_args_blob=d(row["init_args_blob"]),
+                init_arg_refs=[], options=options,
+                max_restarts=row["max_restarts"],
+                max_concurrency=row["max_concurrency"],
+                state="RESTARTING")
+            with self._actor_lock:
+                self._named_actors[name] = actor_id
+                self._actors[actor_id] = rec
+            restored.append(name)
+
+            def _grace_start(rec=rec):
+                time.sleep(adopt_grace_s)
+                if (rec.worker is None and rec.state == "RESTARTING"
+                        and not self._shutdown):
+                    self._start_actor(rec)
+
+            threading.Thread(target=_grace_start, daemon=True).start()
+        return {"kv": len(state.get("kv", [])),
+                "named_actors": restored, "pgs": len(pg_map)}
 
     # ---------------- lineage reconstruction ----------------
 

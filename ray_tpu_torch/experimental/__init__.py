@@ -1,20 +1,17 @@
-"""ray_tpu_torch.experimental — unstable APIs (internal KV).
+"""ray_tpu_torch.experimental — unstable APIs (internal KV, pub/sub).
 
-Counterpart of ``ray_tpu/experimental``. Its ``pubsub`` (head-side
-topics) and ``channel`` (the shared-memory channel of compiled DAGs) are
-not ported yet: they raise NotImplementedError naming ROADMAP.md §1
-items 6 and 8.
+Counterpart of ``ray_tpu/experimental``. Its ``channel`` (the
+shared-memory channel of compiled DAGs) is not ported yet: it raises
+NotImplementedError naming ROADMAP.md §1 item 8.
 """
 
-from ray_tpu_torch.experimental import internal_kv
+from ray_tpu_torch.experimental import internal_kv, pubsub
 
-__all__ = ["internal_kv"]
+__all__ = ["internal_kv", "pubsub"]
 
 # Modules of the JAX package's ``experimental`` that this package lacks,
 # with the ROADMAP.md §1 item that ports each.
-_NOT_PORTED = {"pubsub": "item 6 (the util modules and the host "
-                         "collective plane)",
-               "channel": "item 8 (DAGs, compiled DAGs and workflows)"}
+_NOT_PORTED = {"channel": "item 8 (DAGs, compiled DAGs and workflows)"}
 
 
 def __getattr__(name: str):

@@ -32,18 +32,40 @@ takes its block of the hidden units after GELU through
 ``collective.device.copy_to`` (so that ``fc``'s gradient, which each
 rank holds only for its block, is summed over ``tp``), runs ``mlp_proj``
 on its rows, sums the partial products over ``tp`` (``reduce_from``) and
-adds the bias once. The JAX model also names the ``sp`` axis, where XLA
-pads T = 197 to split it; a ViT over sequence ranks is not in the port
-yet (ROADMAP §1) and raises NotImplementedError.
+adds the bias once.
+
+On a mesh with a real ``sp`` axis the sequence is split over the ``sp``
+ranks, as the JAX model's ``("batch", "seq", None)`` constraint names it
+(the JAX ``constrain`` drops an axis that does not divide T, so XLA
+keeps T whole there; the split is this port's, with the same numbers).
+T (197 for ViT-B/16) need not divide: each rank builds the embedded
+sequence of its images (CLS, patches, ``pos_embed``), pads it with zero
+rows at the end to ``sp`` blocks of ``ceil(T / sp)`` rows
+(:func:`seq_blocks`) and keeps its own block, so only the last blocks
+hold padding (ViT-B/16 on ``sp 4``: three blocks of 50 rows and one of
+47 valid ones; the tiny config's 17 tokens on ``sp 8``: blocks of 3, the
+last two empty). Attention is the bidirectional ring
+(``ops.attention._bidir_ring_attention``), each hop against the valid
+keys of its source block only; the padded rows are computed, row by row,
+and never reach a valid row. The CLS token sits on ``sp`` rank 0, which
+computes the head; its logits reach every ``sp`` rank through
+:func:`cls_logits`, whose backward sums the ranks' logit gradients into
+rank 0. So every rank computes the loss of its data shard, and the
+ranks' parameter gradients, each holding its rows' share, sum over
+``sp`` to ``sp`` times the shard's gradient, which the train step's mean
+over the data axes (``dp × fsdp × sp``) turns into the gradient of the
+mean loss. Padded rows get no gradient: no valid row depends on them.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -51,6 +73,7 @@ from ray_tpu_torch.core.accelerator import resolve_device
 from ray_tpu_torch.models.gpt2 import LayerNorm, enter, leave, remat_call
 from ray_tpu_torch.models.resnet import Conv, lecun_normal_, \
     softmax_cross_entropy
+from ray_tpu_torch.ops.attention import _bidir_ring_attention
 from ray_tpu_torch.ops.cuda.flash_attention import flash_attention
 
 
@@ -94,6 +117,42 @@ def _attention(q, k, v):
     """Bidirectional attention on [B, T, H, D], as the reference's
     ``jax.nn.dot_product_attention(q, k, v)``."""
     return flash_attention(q, k, v, causal=False)
+
+
+def seq_blocks(t: int, n: int) -> tuple[int, tuple[int, ...]]:
+    """``(block, lengths)``: the rows of each of ``n`` sequence blocks,
+    ``ceil(t / n)``, and the valid rows of each, the padding at the end
+    (0 for a block wholly past ``t``)."""
+    block = -(-t // n)
+    return block, tuple(max(0, min(block, t - r * block)) for r in range(n))
+
+
+class _FromFirstRank(torch.autograd.Function):
+    """``x`` of rank 0 of ``group`` on every rank of it; the backward sums
+    the ranks' gradients into rank 0 (0 on the others), the transpose of
+    the broadcast."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.detach().clone().contiguous()
+        dist.broadcast(y, dist.get_global_rank(group, 0), group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = dy.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        if dist.get_rank(ctx.group) != 0:
+            g = torch.zeros_like(g)
+        return g, None
+
+
+def cls_logits(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """The logits of the CLS token, which ``sp`` rank 0 computes, on every
+    ``sp`` rank of ``mesh`` (each rank passes the head's output on its own
+    first row, which only rank 0's is)."""
+    return _FromFirstRank.apply(logits, mesh.group("sp"))
 
 
 def _dense(n_in: int, n_out: int, config: ViTConfig, device, gen,
@@ -166,12 +225,9 @@ class ViT(nn.Module):
     def __init__(self, config: ViTConfig, *, device=None, seed: int = 0,
                  attn_fn: Callable = _attention, mesh=None):
         super().__init__()
-        if mesh is not None and mesh.shape.get("sp", 1) > 1:
-            raise NotImplementedError(
-                f"ViT on a mesh with sp={mesh.shape['sp']} is not in the "
-                "port yet (ROADMAP §1): T = 197 does not split evenly")
         self.config = c = config
         self.mesh = mesh
+        self.sp = 1 if mesh is None else mesh.shape.get("sp", 1)
         self.attn_fn = attn_fn
         device = resolve_device(device, mesh)
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -197,13 +253,22 @@ class ViT(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(b, -1, c.n_embd)
         x = torch.cat([self.cls.to(dt).expand(b, 1, c.n_embd), x], dim=1)
         x = x + self.pos_embed.to(dt)
-        for block in self.h:
+        attn_fn = self.attn_fn
+        if self.sp > 1:
+            t = x.shape[1]
+            block, lengths = seq_blocks(t, self.sp)
+            x = F.pad(x, (0, 0, 0, block * self.sp - t)).narrow(
+                1, self.mesh.axis_index("sp") * block, block)
+            attn_fn = functools.partial(_bidir_ring_attention,
+                                        lengths=lengths, mesh=self.mesh)
+        for blk in self.h:
             if c.remat:
-                x = remat_call(block, x, self.attn_fn, policy="nothing")
+                x = remat_call(blk, x, attn_fn, policy="nothing")
             else:
-                x = block(x, self.attn_fn)
+                x = blk(x, attn_fn)
         x = self.ln_f(x)
-        return F.linear(x[:, 0].float(), self.head.weight, self.head.bias)
+        logits = F.linear(x[:, 0].float(), self.head.weight, self.head.bias)
+        return cls_logits(logits, self.mesh) if self.sp > 1 else logits
 
     @torch.no_grad()
     def load_jax_params(self, params: dict) -> None:

@@ -24,6 +24,15 @@ Sequence parallelism, on activations whose sequence is split over the
   accumulators travel with their block and are home after the last
   rotation. Each hop's k, v rotation is posted before its kernels, in
   the forward and the backward; only the dk, dv rotation waits for them. The JAX ring computes the same function in float32 einsums.
+- ``_bidir_ring_attention`` (private: the JAX package has no such entry
+  point; it is ViT's attention on an ``sp`` mesh, ``models/vit.py``): the
+  same ``RingAttentionFn`` without a causal mask, over blocks padded to
+  one length at their end, each block with its own number of valid rows. Every hop
+  runs the non-causal rectangle (``flash_fwd_nc_rect``) on the rank's
+  whole padded query block against the source block's valid rows only,
+  so padded keys never enter a softmax; a source block without a valid
+  row launches nothing. The backward pads each hop's dk, dv to the block
+  length and rotates them home as the causal ring does.
 - ``ulysses_attention``: an all_to_all trades the sequence split for a
   head split, ``causal_attention`` runs on the whole sequence, and a
   second all_to_all trades back.
@@ -48,8 +57,11 @@ from ray_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_available,
     flash_attention_shapes_ok,
     flash_bwd_dkv,
+    flash_bwd_dkv_nc_rect,
     flash_bwd_dq,
+    flash_bwd_dq_nc_rect,
     flash_fwd,
+    flash_fwd_nc_rect,
     resolved_flash_config,
 )
 
@@ -149,6 +161,21 @@ class _Rotation:
         return self.out
 
 
+class GroupRing:
+    """The ranks of a process group as the ring :class:`RingAttentionFn`
+    runs on: ``n`` ranks, this one ``me``; :meth:`rotate` posts a
+    :class:`_Rotation`. Any object with these three members will do (a
+    harness may run every rank of a ring in one process)."""
+
+    def __init__(self, group):
+        self.group = group
+        self.n = dist.get_world_size(group)
+        self.me = dist.get_rank(group)
+
+    def rotate(self, tensors, tag: int = 0) -> _Rotation:
+        return _Rotation(tensors, self.group, tag)
+
+
 def _fold(x):
     b, t, h, d = x.shape
     return x.transpose(1, 2).reshape(b * h, t, d).contiguous()
@@ -159,34 +186,65 @@ def _unfold(x, b, h):
     return x.view(b, h, t, d).transpose(1, 2)
 
 
+def bidir_hop_forward(q, k, v, tk: int, scale: float):
+    """One hop of the bidirectional ring on folded blocks: the padded
+    ``[BH, t, D]`` queries of this rank against the first ``tk`` rows (the
+    valid ones) of a source block's k, v, read in place. ``(o, lse)`` from
+    the non-causal rectangle; None when the block holds no valid row (no
+    launch)."""
+    if tk == 0:
+        return None
+    return flash_fwd_nc_rect(q, k[:, :tk], v[:, :tk], scale)
+
+
+def bidir_hop_backward(q, k, v, do, lse, delta, tk: int, scale: float):
+    """One hop of the bidirectional ring backward, with the merged ``lse``
+    and ``delta`` of the whole row: ``(dq, dk, dv)``, dk and dv ``[BH,
+    tk, D]`` for the source block's valid rows; None when it has none."""
+    if tk == 0:
+        return None
+    k, v = k[:, :tk], v[:, :tk]
+    dq = flash_bwd_dq_nc_rect(q, k, v, do, lse, delta, scale)
+    dk, dv = flash_bwd_dkv_nc_rect(q, k, v, do, lse, delta, scale)
+    return dq, dk, dv
+
+
 class RingAttentionFn(torch.autograd.Function):
-    """Causal ring attention over the ranks of ``group`` on ``[B, t, H,
-    D]`` local blocks, on the flash kernels; see the module docstring."""
+    """Ring attention over the ranks of ``ring`` (a :class:`GroupRing`) on
+    ``[B, t, H, D]`` local blocks, on the flash kernels; see the module
+    docstring. ``lengths`` None: causal, the hops of
+    :func:`ring_hop_forward` and :func:`ring_hop_backward`. Else
+    bidirectional over blocks padded to one length ``t``, ``lengths[r]``
+    the valid rows of ring rank r's block: the hops of
+    :func:`bidir_hop_forward` and :func:`bidir_hop_backward`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, group, scale):
+    def forward(ctx, q, k, v, ring, scale, lengths):
         b, _, h, _ = q.shape
-        n, me = dist.get_world_size(group), dist.get_rank(group)
+        n, me = ring.n, ring.me
         qf, kf, vf = _fold(q), _fold(k), _fold(v)
         kb, vb = kf, vf
         state = None
         for i in range(n):
-            rot = _Rotation((kb, vb), group) if i < n - 1 else None
-            part = ring_hop_forward(qf, kb, vb, (me - i) % n, me, scale)
+            rot = ring.rotate((kb, vb)) if i < n - 1 else None
+            src = (me - i) % n
+            part = (ring_hop_forward(qf, kb, vb, src, me, scale)
+                    if lengths is None else
+                    bidir_hop_forward(qf, kb, vb, lengths[src], scale))
             if part is not None:
                 state = ring_merge(state, part)
             if rot is not None:
                 kb, vb = rot.wait()
         o, lse = ring_finish(state, q.dtype)
         ctx.save_for_backward(qf, kf, vf, o, lse)
-        ctx.group, ctx.scale, ctx.bh = group, scale, (b, h)
+        ctx.ring, ctx.scale, ctx.bh, ctx.lengths = ring, scale, (b, h), lengths
         return _unfold(o, b, h)
 
     @staticmethod
     def backward(ctx, do):
         qf, kf, vf, o, lse = ctx.saved_tensors
-        group, scale = ctx.group, ctx.scale
-        n, me = dist.get_world_size(group), dist.get_rank(group)
+        ring, scale, lengths = ctx.ring, ctx.scale, ctx.lengths
+        n, me = ring.n, ring.me
         dof = _fold(do.to(qf.dtype))
         delta = (o.float() * dof.float()).sum(-1)
         dq = torch.zeros(qf.shape, dtype=torch.float32, device=qf.device)
@@ -197,21 +255,43 @@ class RingAttentionFn(torch.autograd.Function):
             # k, v leave for the next hop before this hop's kernels run,
             # as in the forward; dk, dv leave when the kernels have added
             # to them, and their last rotation brings them home.
-            kv = _Rotation((kb, vb), group) if i < n - 1 else None
-            part = ring_hop_backward(qf, kb, vb, dof, lse, delta,
-                                     (me - i) % n, me, scale)
+            kv = ring.rotate((kb, vb)) if i < n - 1 else None
+            src = (me - i) % n
+            part = (ring_hop_backward(qf, kb, vb, dof, lse, delta, src, me,
+                                      scale)
+                    if lengths is None else
+                    bidir_hop_backward(qf, kb, vb, dof, lse, delta,
+                                       lengths[src], scale))
             if part is not None:
+                # The source block's valid rows (all of a causal block).
+                tk = part[1].shape[1]
                 dq += part[0].float()
-                dkb += part[1].float()
-                dvb += part[2].float()
+                dkb[:, :tk] += part[1].float()
+                dvb[:, :tk] += part[2].float()
             if n > 1:
-                dkb, dvb = _Rotation((dkb, dvb), group, tag=1).wait()
+                dkb, dvb = ring.rotate((dkb, dvb), tag=1).wait()
             if kv is not None:
                 kb, vb = kv.wait()
         b, h = ctx.bh
         return (_unfold(dq.to(qf.dtype), b, h),
                 _unfold(dkb.to(kf.dtype), b, h),
-                _unfold(dvb.to(vf.dtype), b, h), None, None)
+                _unfold(dvb.to(vf.dtype), b, h), None, None, None)
+
+
+def _bidir_ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: tuple[int, ...], axis_name: str = "sp",
+                          scale: float | None = None,
+                          mesh=None) -> torch.Tensor:
+    """Bidirectional attention over a sequence split into the padded
+    ``[B, t, H, D]`` blocks of the ``axis_name`` ranks of ``mesh``, block r
+    holding ``lengths[r]`` valid rows at its start; differentiable. The
+    padded rows' outputs are computed (against the valid keys) and are the
+    caller's to ignore."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return RingAttentionFn.apply(
+        q, k, v, GroupRing(_resolve_mesh(mesh).group(axis_name)),
+        float(scale), tuple(lengths))
 
 
 def _resolve_mesh(mesh):
@@ -227,9 +307,9 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     block; differentiable."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    return RingAttentionFn.apply(q, k, v,
-                                 _resolve_mesh(mesh).group(axis_name),
-                                 float(scale))
+    return RingAttentionFn.apply(
+        q, k, v, GroupRing(_resolve_mesh(mesh).group(axis_name)),
+        float(scale), None)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

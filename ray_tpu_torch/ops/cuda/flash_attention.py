@@ -25,12 +25,18 @@ A band of the causal split (``RAY_TPU_FLASH_SPLIT``, see
 :func:`flash_attention`) is ``q [BH, tq, D]`` against the key/value
 prefix ``k, v [BH, tk, D]``, ``tk >= tq``, with the causal diagonal
 bottom-right aligned: query row ``i`` sits at absolute row ``tk - tq +
-i``. The square attention is the case ``tq = tk``. Each kernel has one
+i``. The square attention is the case ``tq = tk``. The non-causal
+rectangle (``flash_fwd_nc_rect`` and its backward) is ``q [BH, tq, D]``
+against ``k, v [BH, tk, D]`` with ``tk <= tq`` and no mask but the
+ragged end of k: a hop of the bidirectional ring
+(``ops.attention._bidir_ring_attention``), whose source block holds
+``tk`` valid keys of a padded block of ``tq`` rows. Each kernel has one
 custom op, one input check (:func:`check_inputs`) and one autograd
-Function (:class:`FlashAttentionFn`) for both routes; the band route
-reads q, k, v and do in place through their head strides, so a band of
-a longer tensor is not copied. The kernels take each operand as a TMA
-tensor map whose geometry :func:`tensor_map_geometry` computes.
+Function (:class:`FlashAttentionFn`) for every route; the band and
+rectangle routes read q, k, v and do in place through their head
+strides, so a band of a longer tensor, or the valid rows of a padded
+block, are not copied. The kernels take each operand as a TMA tensor map
+whose geometry :func:`tensor_map_geometry` computes.
 
 Each kernel wrapper takes its kernel for CUDA tensors and raises if the
 inputs do not suit it or the launch fails; it takes the plain PyTorch
@@ -39,12 +45,12 @@ version beside it (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
 tensors. Each wrapper runs as a ``torch.library`` custom op, so that
 selective activation checkpointing (models' ``remat_policy``) sees one
 op it can save or recompute, never the launch inside it. Each kernel
-counts its launches per route (:func:`launch_counts`: ``flash_fwd`` and
-``flash_fwd_rect`` and so on). A launch captured into a CUDA graph runs
-only when the graph replays, so it is counted then: the capture records
-it (:func:`record_launches`) and each replay adds what its graph holds
-(:func:`count_replay`). :func:`agreement` is the measure by which a
-kernel is held against its plain version.
+counts its launches per route (:func:`launch_counts`: ``flash_fwd``,
+``flash_fwd_rect``, ``flash_fwd_nc_rect`` and so on). A launch captured
+into a CUDA graph runs only when the graph replays, so it is counted
+then: the capture records it (:func:`record_launches`) and each replay
+adds what its graph holds (:func:`count_replay`). :func:`agreement` is
+the measure by which a kernel is held against its plain version.
 """
 
 from __future__ import annotations
@@ -116,8 +122,9 @@ class _Kernel:
         return rc
 
 
-# Each route of a kernel (square, band: ``*_rect``) counts its launches
-# apart, so that a run shows which route ran. Each kernel has one C entry
+# Each route of a kernel (square; causal band: ``*_rect``; non-causal
+# rectangle: ``*_nc_rect``) counts its launches apart, so that a run shows
+# which route ran. Each kernel has one C entry
 # point for both routes (tensor maps, the output and row pointers, bh, tq,
 # tk, row0, d, scale, causal, fp16, stream).
 _FWD_ARGS = [_MAPS, _P, _P] + [_I] * 5 + [_F, _I, _I, _P]
@@ -131,6 +138,11 @@ _KERNELS = {k.name: k for k in (
     _Kernel("flash_bwd_dq_rect", "flash_bwd_dq", "rtt_flash_bwd_dq",
             _DQ_ARGS),
     _Kernel("flash_bwd_dkv_rect", "flash_bwd_dkv", "rtt_flash_bwd_dkv",
+            _DKV_ARGS),
+    _Kernel("flash_fwd_nc_rect", "flash_fwd", "rtt_flash_fwd", _FWD_ARGS),
+    _Kernel("flash_bwd_dq_nc_rect", "flash_bwd_dq", "rtt_flash_bwd_dq",
+            _DQ_ARGS),
+    _Kernel("flash_bwd_dkv_nc_rect", "flash_bwd_dkv", "rtt_flash_bwd_dkv",
             _DKV_ARGS),
 )}
 # The launches each CUDA graph under capture holds, innermost capture last
@@ -334,16 +346,18 @@ def _rows_ok(x: torch.Tensor) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
-def check_inputs(q_side, kv_side=(), row_tensors=(), band: bool = False
-                 ) -> None:
+def check_inputs(q_side, kv_side=(), row_tensors=(), band: bool = False,
+                 causal: bool = True) -> None:
     """Raise ValueError unless the operands suit the kernels: ``q`` (and
     ``do``) ``[BH, tq, D]`` and ``k``, ``v`` ``[BH, tk, D]`` of one dtype
     (bf16 or fp16), D in (64, 128), and contiguous float32 ``[BH, tq]``
     row statistics. The square route (``band`` False) takes every operand
     of one shape, contiguous and 16-byte aligned (``kv_side`` may be
-    empty); a band takes tk >= tq and rows contiguous and 16-byte aligned
-    with any head stride, so that a band of a longer tensor is read in
-    place."""
+    empty). A rectangle (``band`` True) takes rows contiguous and 16-byte
+    aligned with any head stride, so that a band of a longer tensor, or
+    the valid rows of a padded block, are read in place: the causal band
+    takes tk >= tq, the non-causal rectangle (``causal`` False, a hop of
+    the bidirectional ring) 1 <= tk <= tq."""
     ref = q_side[0]
     if ref.dim() != 3 or (band and any(x.dim() != 3 for x in kv_side)):
         raise ValueError(f"expected [BH, T, D] operands, got shape "
@@ -355,8 +369,11 @@ def check_inputs(q_side, kv_side=(), row_tensors=(), band: bool = False
     if not flash_attention_shapes_ok(tq, d):
         raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS} and "
                          f"seq >= 1, got T={tq}, D={d}")
-    if tk < tq:
+    if causal and tk < tq:
         raise ValueError(f"a band needs tk >= tq, got tq={tq}, tk={tk}")
+    if not causal and not 1 <= tk <= tq:
+        raise ValueError(f"a non-causal rectangle needs 1 <= tk <= tq, got "
+                         f"tq={tq}, tk={tk}")
     if bh < 1 or bh * tk >= 2 ** 31:
         raise ValueError(f"B*H={bh} with T={tk} is out of the kernels' range")
     for x, rows in [(x, tq) for x in q_side] + [(x, tk) for x in kv_side]:
@@ -441,6 +458,20 @@ def _bwd_maps(q, k, v, do, box_rows: tuple[int, int]) -> ctypes.Array:
 # CUDA tensors (the wrapper below has checked them) and runs the plain
 # version for CPU tensors. The ops return new tensors and mutate nothing.
 
+
+def _route(kernel: str, causal: bool, band: bool) -> _Kernel:
+    """The counted route of ``kernel``: square, causal band (``*_rect``)
+    or non-causal rectangle (``*_nc_rect``)."""
+    if not band:
+        return _KERNELS[kernel]
+    return _KERNELS[f"{kernel}_rect" if causal else f"{kernel}_nc_rect"]
+
+
+def _row0(tq: int, tk: int, causal: bool) -> int:
+    """Query row 0's absolute row: ``tk - tq`` on a causal band (0 on the
+    square), 0 where no diagonal is drawn."""
+    return tk - tq if causal else 0
+
 @torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
 def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
                   causal: bool, band: bool) -> tuple[Tensor, Tensor]:
@@ -451,10 +482,10 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
     o = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
     lse = torch.empty((bh, tq), device=q.device, dtype=torch.float32)
     bq, bk = _FWD_BOX_ROWS
-    _KERNELS["flash_fwd_rect" if band else "flash_fwd"].launch(
+    _route("flash_fwd", causal, band).launch(
         q.device, _tensor_maps((q, bq), (k, bk), (v, bk)), _P(o.data_ptr()),
-        _P(lse.data_ptr()), bh, tq, tk, tk - tq, d, scale, int(causal),
-        int(q.dtype == torch.float16))
+        _P(lse.data_ptr()), bh, tq, tk, _row0(tq, tk, causal), d, scale,
+        int(causal), int(q.dtype == torch.float16))
     return o, lse
 
 
@@ -467,10 +498,11 @@ def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     bh, tq, d = q.shape
     tk = k.shape[1]
     dq = torch.empty((bh, tq, d), device=q.device, dtype=q.dtype)
-    _KERNELS["flash_bwd_dq_rect" if band else "flash_bwd_dq"].launch(
+    _route("flash_bwd_dq", causal, band).launch(
         q.device, _bwd_maps(q, k, v, do, _DQ_BOX_ROWS[d]),
         _P(lse.data_ptr()), _P(delta.data_ptr()), _P(dq.data_ptr()), bh, tq,
-        tk, tk - tq, d, scale, int(causal), int(q.dtype == torch.float16))
+        tk, _row0(tq, tk, causal), d, scale, int(causal),
+        int(q.dtype == torch.float16))
     return dq
 
 
@@ -485,17 +517,17 @@ def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     tk = k.shape[1]
     dk = torch.empty((bh, tk, d), device=q.device, dtype=k.dtype)
     dv = torch.empty((bh, tk, d), device=q.device, dtype=v.dtype)
-    _KERNELS["flash_bwd_dkv_rect" if band else "flash_bwd_dkv"].launch(
+    _route("flash_bwd_dkv", causal, band).launch(
         q.device, _bwd_maps(q, k, v, do, _DKV_BOX_ROWS[d]),
         _P(lse.data_ptr()), _P(delta.data_ptr()), _P(dk.data_ptr()),
-        _P(dv.data_ptr()), bh, tq, tk, tk - tq, d, scale, int(causal),
-        int(q.dtype == torch.float16))
+        _P(dv.data_ptr()), bh, tq, tk, _row0(tq, tk, causal), d, scale,
+        int(causal), int(q.dtype == torch.float16))
     return dk, dv
 
 
 def _fwd(q, k, v, scale, causal, band):
     if not _on_cpu(q, k, v):
-        check_inputs((q,), (k, v), band=band)
+        check_inputs((q,), (k, v), band=band, causal=causal)
         if not scale > 0:
             raise ValueError(f"the flash forward kernel takes scale > 0, got "
                              f"{scale}")
@@ -504,14 +536,14 @@ def _fwd(q, k, v, scale, causal, band):
 
 def _bwd_dq(q, k, v, do, lse, delta, scale, causal, band):
     if not _on_cpu(q, k, v, do, lse, delta):
-        check_inputs((q, do), (k, v), (lse, delta), band=band)
+        check_inputs((q, do), (k, v), (lse, delta), band=band, causal=causal)
     return _flash_bwd_dq_op(q, k, v, do, lse, delta, float(scale),
                             bool(causal), bool(band))
 
 
 def _bwd_dkv(q, k, v, do, lse, delta, scale, causal, band):
     if not _on_cpu(q, k, v, do, lse, delta):
-        check_inputs((q, do), (k, v), (lse, delta), band=band)
+        check_inputs((q, do), (k, v), (lse, delta), band=band, causal=causal)
     return _flash_bwd_dkv_op(q, k, v, do, lse, delta, float(scale),
                              bool(causal), bool(band))
 
@@ -552,6 +584,42 @@ def flash_bwd_dkv_rect(q, k, v, do, lse, delta, scale: float):
     kernel's band route for CUDA tensors, the plain backward for CPU
     tensors."""
     return _bwd_dkv(q, k, v, do, lse, delta, scale, True, True)
+
+
+def flash_fwd_nc_rect(q, k, v, scale: float):
+    """``(o, lse)`` of the non-causal rectangle: q ``[BH, tq, D]`` against
+    every one of the ``tk <= tq`` keys of k, v ``[BH, tk, D]`` (the valid
+    rows of a padded block, read in place): the ``flash_fwd`` kernel's
+    rectangle route for CUDA tensors, :func:`flash_fwd_reference` with
+    ``causal=False`` for CPU tensors. With no key (``tk == 0``) it
+    launches nothing and returns o = 0 and lse = -inf, the attention over
+    an empty row (``jax.nn.dot_product_attention`` gives 0)."""
+    if k.shape[1] == 0:
+        _on_cpu(q, k, v)
+        return (torch.zeros_like(q), torch.full(q.shape[:2], -torch.inf,
+                                                dtype=torch.float32,
+                                                device=q.device))
+    return _fwd(q, k, v, scale, False, True)
+
+
+def flash_bwd_dq_nc_rect(q, k, v, do, lse, delta, scale: float):
+    """dq of the non-causal rectangle: the ``flash_bwd_dq`` kernel's
+    rectangle route for CUDA tensors, the plain backward for CPU tensors;
+    0 with no key (no launch)."""
+    if k.shape[1] == 0:
+        _on_cpu(q, k, v, do, lse, delta)
+        return torch.zeros_like(q)
+    return _bwd_dq(q, k, v, do, lse, delta, scale, False, True)
+
+
+def flash_bwd_dkv_nc_rect(q, k, v, do, lse, delta, scale: float):
+    """(dk, dv) ``[BH, tk, D]`` of the non-causal rectangle: the
+    ``flash_bwd_dkv`` kernel's rectangle route for CUDA tensors, the plain
+    backward for CPU tensors; empty with no key (no launch)."""
+    if k.shape[1] == 0:
+        _on_cpu(q, k, v, do, lse, delta)
+        return torch.zeros_like(k), torch.zeros_like(v)
+    return _bwd_dkv(q, k, v, do, lse, delta, scale, False, True)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -31,7 +31,10 @@ the routes run on the kernels' plain versions):
 - ``f``: ``spmd_pipeline`` over ``pp n`` (GPT-2's blocks cut into n
   stages), PIPE_MICROBATCHES microbatches: the loss and each stage's block
   gradients against the whole batch's, and the bubble;
-- ``g``: ViT and ResNet on ``dp n/2 × tp 2``, captured;
+- ``g``: ViT and ResNet on ``dp n/2 × tp 2``, and ViT on ``sp n`` (the
+  sequence padded to n blocks, the bidirectional ring on the non-causal
+  rectangle; ``models/vit.py``), captured; ViT on ``sp n`` launches each
+  rectangle kernel once a layer for each block with a valid row;
 - ``h``: GPT-2 saved on ``tp n`` after 2 steps, restored on ``dp n`` and
   off any mesh: every parameter bit-equal to the saved one.
 
@@ -629,9 +632,18 @@ def case_f(ctx) -> dict:
 
 
 def case_g(ctx) -> dict:
+    from ray_tpu_torch.models.vit import seq_blocks
     n = ctx.n
-    return {f"{kind} dp x tp 2": _mesh_run(ctx, kind, {"dp": n // 2, "tp": 2})
-            for kind in ("vit", "resnet")}
+    out = {f"{kind} dp x tp 2": _mesh_run(ctx, kind, {"dp": n // 2, "tp": 2})
+           for kind in ("vit", "resnet")}
+    sp = _mesh_run(ctx, "vit", {"sp": n})
+    cfg = ctx.s.vit()
+    _, lengths = seq_blocks(cfg.num_patches + 1, n)
+    hops = STEPS * cfg.n_layer * sum(1 for t in lengths if t)
+    sp["want_counts"] = {name: hops for name in (
+        "flash_fwd_nc_rect", "flash_bwd_dq_nc_rect", "flash_bwd_dkv_nc_rect")}
+    out[f"vit sp {n}"] = sp
+    return out
 
 
 def case_h(ctx) -> dict:
@@ -820,6 +832,11 @@ def checks(results: list[dict], captured: bool = True) -> list[tuple]:
                             f"{STEP0_LOSS_RTOL}",
                             run["loss0_rel"] <= STEP0_LOSS_RTOL,
                             f"{run['loss0_rel']:.3g}"))
+            if "want_counts" in run and captured:
+                out.append((f"{where}: launches {run['want_counts']} and no "
+                            "other kernel",
+                            run["counts"] == run["want_counts"],
+                            str(run["counts"])))
             if "stats_rel" in run:
                 out.append((f"{where}: running statistics within "
                             f"{STATS_RTOL}", run["stats_rel"] <= STATS_RTOL,

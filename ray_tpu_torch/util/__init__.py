@@ -4,9 +4,7 @@ The reference's ``ray.util`` namespace re-exports its utility family;
 mirrored here so ``ray_tpu_torch.util.ActorPool`` etc. resolve the
 same way. Heavy siblings (state, metrics, tracing, storage) resolve
 lazily, and ``collective`` is the port's ``ray_tpu_torch.collective``,
-as the JAX package's resolves to its own; the JAX package's other
-utility modules (queue, multiprocessing, joblib, chaos, ...) are not
-ported yet and raise.
+as the JAX package's resolves to its own.
 """
 
 from __future__ import annotations
@@ -40,6 +38,8 @@ __all__ = [
     "get_placement_group",
     "get_current_placement_group",
     "placement_group_table",
+    "collective",
+    "queue",
     "state",
     "metrics",
 ]
@@ -79,24 +79,17 @@ def __getattr__(name: str):
         val = getattr(pg_mod, name)
         globals()[name] = val
         return val
-    if name in ("state", "metrics", "tracing", "storage", "net"):
-        import importlib
-        mod = importlib.import_module(f"ray_tpu_torch.util.{name}")
-        globals()[name] = mod
-        return mod
     if name == "collective":
         import importlib
         mod = importlib.import_module("ray_tpu_torch.collective")
         globals()[name] = mod
         return mod
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"ray_tpu_torch.util.{name} is not ported yet "
-            f"(ROADMAP.md §1)")
+    if name in ("queue", "state", "metrics", "multiprocessing",
+                "joblib", "tracing", "scheduling_strategies", "chaos",
+                "ha", "storage", "usage", "net", "logdir"):
+        import importlib
+        mod = importlib.import_module(f"ray_tpu_torch.util.{name}")
+        globals()[name] = mod
+        return mod
     raise AttributeError(
         f"module 'ray_tpu_torch.util' has no attribute {name!r}")
-
-
-# Utility modules of the JAX package that this package lacks so far.
-_NOT_PORTED = ("queue", "multiprocessing", "joblib",
-               "scheduling_strategies", "chaos", "ha", "usage")

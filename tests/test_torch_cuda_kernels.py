@@ -13,7 +13,9 @@ The band routes of the causal split (``flash_fwd_rect``,
 ``flash_bwd_dq_rect``, ``flash_bwd_dkv_rect``) are held the same way at
 ragged ``(tq, tk)`` that cut the 128-row tiles, read in place from bands
 of a longer tensor, and through the split and remat paths of a small
-GPT-2. Two launches on the same inputs give the same bits. T = 197 is
+GPT-2; so is the non-causal rectangle of the bidirectional ring
+(``*_nc_rect``, tk <= tq, the valid rows of a padded block read in
+place). Two launches on the same inputs give the same bits. T = 197 is
 ViT-B/16's length; a small ViT trains through the non-causal route, and
 a tiny float32 ResNet's train-mode forward (cuDNN, ``channels_last``,
 TF32 off) is held against the same module on the CPU.
@@ -110,7 +112,10 @@ def test_autograd_function_and_launch_counts(cuda):
     assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dq": 1,
                                   "flash_bwd_dkv": 1, "flash_fwd_rect": 0,
                                   "flash_bwd_dq_rect": 0,
-                                  "flash_bwd_dkv_rect": 0}
+                                  "flash_bwd_dkv_rect": 0,
+                                  "flash_fwd_nc_rect": 0,
+                                  "flash_bwd_dq_nc_rect": 0,
+                                  "flash_bwd_dkv_nc_rect": 0}
 
     def fold(x):
         return x.detach().transpose(1, 2).reshape(b * h, t, d).contiguous()
@@ -199,7 +204,9 @@ def test_gpt2_train_step_on_card_matches_cpu(cuda):
         launched = fa.launch_counts()
     assert launched == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                         "flash_fwd_rect": 0, "flash_bwd_dq_rect": 0,
-                        "flash_bwd_dkv_rect": 0}
+                        "flash_bwd_dkv_rect": 0,
+                        "flash_fwd_nc_rect": 0, "flash_bwd_dq_nc_rect": 0,
+                        "flash_bwd_dkv_nc_rect": 0}
     cpu, card = metrics["cpu"], metrics[str(cuda)]
     assert abs(card["loss"] - cpu["loss"]) < 1e-2 * cpu["loss"]
     assert abs(card["grad_norm"] - cpu["grad_norm"]) < 5e-2 * cpu["grad_norm"]
@@ -342,6 +349,87 @@ def test_dq_band_refuses_a_view_tma_cannot_read(cuda):
     assert fa.launch_counts()["flash_bwd_dq_rect"] == 0
 
 
+# The non-causal rectangle (a hop of the bidirectional ring, ViT on sp):
+# the padded query block of tq rows against the tk <= tq valid rows of a
+# padded key/value block, read in place. (50, 47) and (25, 22) are
+# ViT-B/16's last blocks on sp 4 and 8; the others cut the tiles.
+NC_RECTS = [(50, 47), (50, 50), (25, 22), (129, 1), (197, 130), (256, 255),
+            (300, 129)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("tq,tk", NC_RECTS)
+def test_nc_rect_kernels_match_plain(cuda, tq, tk, d, dtype):
+    q, block_k, block_v, do = _band_inputs(3, tq, tq, d, dtype, cuda, seed=5)
+    k, v = block_k[:, :tk], block_v[:, :tk]
+    scale = d ** -0.5
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd_nc_rect(q, k, v, scale)
+    o_ref, lse_ref = fa.flash_fwd_reference(q, k, v, scale, False)
+    torch.cuda.synchronize()
+    _assert_agrees(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) < LSE_TOL
+
+    delta = (o_ref.float() * do.float()).sum(-1)
+    bwd = (q, k, v, do, lse_ref, delta, scale)
+    dq = fa.flash_bwd_dq_nc_rect(*bwd)
+    dk, dv = fa.flash_bwd_dkv_nc_rect(*bwd)
+    ref = (fa.flash_bwd_dq_reference(*bwd, False),
+           *fa.flash_bwd_dkv_reference(*bwd, False))
+    torch.cuda.synchronize()
+    assert dk.shape == (3, tk, d) and dv.shape == (3, tk, d)
+    counts = fa.launch_counts()
+    assert [counts[f"{n}_nc_rect"] for n in
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")] == [1, 1, 1]
+    assert sum(counts.values()) == 3
+    if tk == 1:
+        # One key, as test_kernels_match_plain's T = 1: dq and dk vanish.
+        for got in (dq, dk):
+            assert float(got.float().abs().max()) < 1e-5
+        _assert_agrees(dv, ref[2])
+        return
+    for got, want in zip((dq, dk, dv), ref):
+        _assert_agrees(got, want)
+
+
+def test_nc_rect_reads_valid_rows_in_place_and_skips_empty_blocks(cuda):
+    """The valid rows of a padded block give, bit for bit, what a
+    contiguous copy of them gives; a block without a valid row launches
+    nothing (o = 0, lse = -inf, dq = 0, dk and dv empty); tk > tq is
+    refused before any launch."""
+    q, kb, vb, do = _band_inputs(6, 50, 50, 64, torch.bfloat16, cuda, seed=6)
+    scale = 0.125
+    k, v = kb[:, :47], vb[:, :47]
+    assert not k.is_contiguous()
+    o, lse = fa.flash_fwd_nc_rect(q, k, v, scale)
+    o_c, lse_c = fa.flash_fwd_nc_rect(q, k.contiguous(), v.contiguous(),
+                                      scale)
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    delta = (o.float() * do.float()).sum(-1)
+    got = (fa.flash_bwd_dq_nc_rect(q, k, v, do, lse, delta, scale),
+           *fa.flash_bwd_dkv_nc_rect(q, k, v, do, lse, delta, scale))
+    want = (fa.flash_bwd_dq_nc_rect(q, k.contiguous(), v.contiguous(), do,
+                                    lse, delta, scale),
+            *fa.flash_bwd_dkv_nc_rect(q, k.contiguous(), v.contiguous(), do,
+                                      lse, delta, scale))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    fa.reset_launch_counts()
+    o0, lse0 = fa.flash_fwd_nc_rect(q, kb[:, :0], vb[:, :0], scale)
+    dq0 = fa.flash_bwd_dq_nc_rect(q, kb[:, :0], vb[:, :0], do, lse, delta,
+                                  scale)
+    dk0, dv0 = fa.flash_bwd_dkv_nc_rect(q, kb[:, :0], vb[:, :0], do, lse,
+                                        delta, scale)
+    torch.cuda.synchronize()
+    assert sum(fa.launch_counts().values()) == 0
+    assert not o0.any() and not dq0.any() and torch.isneginf(lse0).all()
+    assert dk0.shape == (6, 0, 64) and dv0.shape == (6, 0, 64)
+    with pytest.raises(ValueError, match="1 <= tk <= tq"):
+        fa.flash_fwd_nc_rect(q[:, :40], kb, vb, scale)
+    assert sum(fa.launch_counts().values()) == 0
+
+
 @pytest.mark.parametrize("n_split", [2, 4])
 def test_split_attention_on_card(cuda, n_split, monkeypatch):
     """The split through autograd: o equal to the unsplit kernels' bit
@@ -363,7 +451,9 @@ def test_split_attention_on_card(cuda, n_split, monkeypatch):
     assert fa.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
         "flash_fwd_rect": n_split, "flash_bwd_dq_rect": n_split,
-        "flash_bwd_dkv_rect": n_split}
+        "flash_bwd_dkv_rect": n_split,
+        "flash_fwd_nc_rect": 0, "flash_bwd_dq_nc_rect": 0,
+        "flash_bwd_dkv_nc_rect": 0}
     assert torch.equal(out, whole)
 
     def fold(x):
@@ -424,11 +514,15 @@ def test_gpt2_split_and_remat_grads_match_plain(cuda, route, monkeypatch):
     if split:
         want = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                 "flash_fwd_rect": 2 * n, "flash_bwd_dq_rect": 2 * n,
-                "flash_bwd_dkv_rect": 2 * n}
+                "flash_bwd_dkv_rect": 2 * n,
+                "flash_fwd_nc_rect": 0, "flash_bwd_dq_nc_rect": 0,
+                "flash_bwd_dkv_nc_rect": 0}
     else:
         want = {"flash_fwd": n * (1 if route == "everything" else 2),
                 "flash_bwd_dq": n, "flash_bwd_dkv": n, "flash_fwd_rect": 0,
-                "flash_bwd_dq_rect": 0, "flash_bwd_dkv_rect": 0}
+                "flash_bwd_dq_rect": 0, "flash_bwd_dkv_rect": 0,
+                "flash_fwd_nc_rect": 0, "flash_bwd_dq_nc_rect": 0,
+                "flash_bwd_dkv_nc_rect": 0}
     assert launched == want
     for (pname, _), gk, gp in zip(model.named_parameters(), grads["kernels"],
                                   grads["plain"]):
@@ -503,7 +597,9 @@ def test_vit_train_step_on_card_matches_cpu(cuda):
         launched = fa.launch_counts()
     assert launched == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
                         "flash_fwd_rect": 0, "flash_bwd_dq_rect": 0,
-                        "flash_bwd_dkv_rect": 0}
+                        "flash_bwd_dkv_rect": 0,
+                        "flash_fwd_nc_rect": 0, "flash_bwd_dq_nc_rect": 0,
+                        "flash_bwd_dkv_nc_rect": 0}
     cpu, card = metrics["cpu"], metrics[str(cuda)]
     assert abs(card["loss"] - cpu["loss"]) < 1e-2 * cpu["loss"]
     assert abs(card["grad_norm"] - cpu["grad_norm"]) < 5e-2 * cpu["grad_norm"]

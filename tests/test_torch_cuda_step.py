@@ -253,7 +253,9 @@ def test_replays_count_their_kernel_launches(cuda):
     n = 2 * model.config.n_layer
     assert fa.launch_counts() == {
         "flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-        "flash_fwd_rect": 0, "flash_bwd_dq_rect": 0, "flash_bwd_dkv_rect": 0}
+        "flash_fwd_rect": 0, "flash_bwd_dq_rect": 0, "flash_bwd_dkv_rect": 0,
+        "flash_fwd_nc_rect": 0, "flash_bwd_dq_nc_rect": 0,
+        "flash_bwd_dkv_nc_rect": 0}
     q = torch.randn(8, 128, 64, device=cuda, dtype=torch.bfloat16)
     graph = torch.cuda.CUDAGraph()
     with pytest.raises(RuntimeError, match="record_launches"):

@@ -191,7 +191,10 @@ def test_cpu_path_launches_no_kernel():
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0,
                                   "flash_bwd_dkv": 0, "flash_fwd_rect": 0,
                                   "flash_bwd_dq_rect": 0,
-                                  "flash_bwd_dkv_rect": 0}
+                                  "flash_bwd_dkv_rect": 0,
+                                  "flash_fwd_nc_rect": 0,
+                                  "flash_bwd_dq_nc_rect": 0,
+                                  "flash_bwd_dkv_nc_rect": 0}
 
 
 def test_wrappers_refuse_other_devices():
@@ -270,3 +273,101 @@ def test_agreement_passes_rounding_and_fails_a_dropped_tile(dtype):
     faulty = (p.to(dtype).float() @ v.float()).to(dtype)
     reading = fa.agreement(faulty, want)
     assert not reading["ok"], reading
+
+
+# The non-causal rectangle: a hop of the bidirectional ring (ViT on sp),
+# the rank's padded query block of tq rows against the tk <= tq valid
+# rows of a source block. (50, 47) and (25, 22) are ViT-B/16's last
+# blocks on sp 4 and 8, (3, 0) the tiny config's empty blocks on sp 8.
+NC_RECT_CASES = [(50, 47), (50, 50), (25, 22), (17, 5), (3, 0)]
+
+
+def _nc_rect_inputs(tq, tk, seed=3):
+    """bf16 q, do [B, tq, H, D] and k, v [B, tk, H, D] (as float32 numpy
+    arrays of bf16 values, so both packages read the same numbers)."""
+    rng = np.random.default_rng(seed)
+    b, h, d = 2, 3, 64
+    shapes = [(b, tq, h, d), (b, tk, h, d), (b, tk, h, d), (b, tq, h, d)]
+    return [np.asarray(jnp.asarray(rng.standard_normal(s), jnp.bfloat16)
+                       .astype(jnp.float32)) for s in shapes]
+
+
+def _fold_np(x, dtype):
+    b, t, h, d = x.shape
+    return (torch.from_numpy(x.copy()).to(dtype).transpose(1, 2)
+            .reshape(b * h, t, d).contiguous())
+
+
+def _unfold_np(x, b, h):
+    bh, t, d = x.shape
+    return x.float().view(b, h, t, d).transpose(1, 2).numpy()
+
+
+@pytest.mark.parametrize("tq,tk", NC_RECT_CASES)
+def test_nc_rect_plain_forward_matches_jax_in_bf16(tq, tk):
+    """o in bf16 against ``jax.nn.dot_product_attention`` on the same bf16
+    inputs within two bf16 units of the largest output (one rounding of
+    o, and p rounded to bf16 before p·v on both sides, in other orders);
+    lse against the float32 log-sum-exp of the same scores within
+    FWD_TOL. With tk = 0 both give o = 0 (and the port lse = -inf, the
+    log of an empty sum), and the port launches nothing."""
+    q, k, v, _ = _nc_rect_inputs(tq, tk)
+    b, _, h, d = q.shape
+    ref = np.asarray(jax.nn.dot_product_attention(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+        .astype(jnp.float32))
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd_nc_rect(*(_fold_np(x, torch.bfloat16)
+                                    for x in (q, k, v)), d ** -0.5)
+    assert sum(fa.launch_counts().values()) == 0
+    got = _unfold_np(o, b, h)
+    assert o.dtype == torch.bfloat16 and got.shape == ref.shape
+    atol = 2.0 ** -6 * max(float(np.abs(ref).max()), 1.0)
+    np.testing.assert_allclose(got, ref, atol=atol, rtol=0)
+    scores = np.einsum("bqhd,bkhd->bhqk", q, k) * d ** -0.5
+    lse_ref = np.asarray(jax.nn.logsumexp(jnp.asarray(scores), axis=-1))
+    np.testing.assert_allclose(lse.numpy(), lse_ref.reshape(b * h, tq),
+                               atol=FWD_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("tq,tk", NC_RECT_CASES)
+def test_nc_rect_plain_gradients_match_jax(tq, tk):
+    """dq, dk, dv of the plain rectangle (what the CPU wrappers run), fed
+    their own lse and delta = rowsum(o·do), against ``jax.grad`` of
+    ``jax.nn.dot_product_attention`` on the same inputs in float32,
+    within GRAD_TOL."""
+    q, k, v, g = _nc_rect_inputs(tq, tk, seed=4)
+    b, _, h, d = q.shape
+
+    def loss(q, k, v):
+        return (jax.nn.dot_product_attention(q, k, v) * g).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    qf, kf, vf, gf = (_fold_np(x, torch.float32) for x in (q, k, v, g))
+    o, lse = fa.flash_fwd_nc_rect(qf, kf, vf, d ** -0.5)
+    delta = (o * gf).sum(-1)
+    dq = fa.flash_bwd_dq_nc_rect(qf, kf, vf, gf, lse, delta, d ** -0.5)
+    dk, dv = fa.flash_bwd_dkv_nc_rect(qf, kf, vf, gf, lse, delta, d ** -0.5)
+    for got, ref in zip((dq, dk, dv), want):
+        got = _unfold_np(got, b, h)
+        assert got.shape == np.asarray(ref).shape
+        np.testing.assert_allclose(got, np.asarray(ref), atol=GRAD_TOL,
+                                   rtol=0)
+
+
+def test_nc_rect_input_checks():
+    """The rectangle takes 1 <= tk <= tq (the causal band tk >= tq), rows
+    read in place through the head stride of a padded block."""
+    q = torch.zeros(4, 50, 64, dtype=torch.bfloat16)
+    block = torch.zeros(4, 50, 64, dtype=torch.bfloat16)
+    rows = torch.zeros(4, 50)
+    nc = {"band": True, "causal": False}
+    fa.check_inputs((q, q), (block[:, :47], block[:, :47]), (rows, rows),
+                    **nc)
+    fa.check_inputs((q,), (block, block), **nc)
+    with pytest.raises(ValueError, match="1 <= tk <= tq"):
+        fa.check_inputs((q[:, :40],), (block, block), **nc)
+    with pytest.raises(ValueError, match="1 <= tk <= tq"):
+        fa.check_inputs((q,), (block[:, :0], block[:, :0]), **nc)
+    with pytest.raises(ValueError, match="tk >= tq"):
+        fa.check_rect_inputs((q,), (block[:, :47], block[:, :47]))

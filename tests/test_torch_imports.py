@@ -63,7 +63,12 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.rllib.appo", "ray_tpu_torch.rllib.dqn",
            "ray_tpu_torch.rllib.sac", "ray_tpu_torch.rllib.cql",
            "ray_tpu_torch.rllib.bc", "ray_tpu_torch.rllib.marwil",
-           "ray_tpu_torch.rllib.dreamer"} - set(names)
+           "ray_tpu_torch.rllib.dreamer", "ray_tpu_torch.util.queue",
+           "ray_tpu_torch.util.multiprocessing", "ray_tpu_torch.util.joblib",
+           "ray_tpu_torch.util.scheduling_strategies",
+           "ray_tpu_torch.util.chaos", "ray_tpu_torch.util.ha",
+           "ray_tpu_torch.util.usage", "ray_tpu_torch.util.logdir",
+           "ray_tpu_torch.experimental.pubsub"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

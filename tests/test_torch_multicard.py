@@ -6,9 +6,10 @@ One world runs every case; each rank holds each mesh route against the
 mesh-less step on its own process, as it does on the cards. Here the
 checks of the language models, the pipeline and the checkpoint must hold
 (the step-0 loss and gradient norm within the gloo tests' limits; the
-restored parameters bit-equal). The vision case must run; its limits
-assume 128 images, and the float32 parity of those routes is
-``tests/test_torch_vision_tp.py``'s. A second world runs case (c) with
+restored parameters bit-equal). The vision case (ViT and ResNet on dp x
+tp 2, ViT on sp 4) must run; its limits assume 128 images, and the
+float32 parity of those routes is ``tests/test_torch_vision_tp.py``'s and
+``tests/test_torch_vit_sp.py``'s. A second world runs case (c) with
 the planted ring fault (dk, dv one rotation short of home), which the
 layer-gradient and step-0 checks must fail.
 """
@@ -50,7 +51,7 @@ def test_case_holds_against_the_mesh_less_step(results, case):
 
 def test_vision_case_runs_on_every_rank(results):
     runs = [run for r in results for run in r["g"].values()]
-    assert len(runs) == 8 and all("losses" in run for run in runs)
+    assert len(runs) == 12 and all("losses" in run for run in runs)
 
 
 def test_report_names_every_rank_and_case(results):

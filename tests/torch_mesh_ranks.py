@@ -740,3 +740,76 @@ def vision_tp_cases(inputs: dict) -> dict:
         "fault_norm_params": lambda: train("resnet", dp_tp, "norm_params"),
         "fault_vit_fc": lambda: train("vit", dp_tp, "vit_fc"),
     })
+
+
+# ViT on sp (tests/test_torch_vit_sp.py): each planted fault is
+# (module, attribute, replacement). The padded keys enter every softmax
+# (every block taken as wholly valid); the step averages the gradients
+# over dp and fsdp but not sp; every rank takes the head of its own first
+# row as the CLS token's.
+def _all_valid(t: int, n: int):
+    block = -(-t // n)
+    return block, (block,) * n
+
+
+VIT_SP_FAULTS = {
+    "padded_keys": ("ray_tpu_torch.models.vit", "seq_blocks", _all_valid),
+    "no_sp_sum": ("ray_tpu_torch.train.step", "DATA_AXES", ("dp", "fsdp")),
+    "cls_first_row": ("ray_tpu_torch.models.vit", "cls_logits",
+                      lambda logits, mesh: logits),
+}
+VIT_SP_MESHES = {"dp2_sp4": {"dp": 2, "sp": 4}, "sp8": {"sp": 8}}
+
+
+def vit_sp_cases(inputs: dict) -> dict:
+    """The tiny ViT (float32) on each mesh of VIT_SP_MESHES: the eval
+    logits of this rank's rows, then two SGD steps at lr 0.1, clean and
+    with each planted fault of VIT_SP_FAULTS."""
+    import importlib
+
+    from ray_tpu_torch.models import ViT, ViTConfig, vit_loss_fn
+    from ray_tpu_torch.train import (init_train_state, make_train_step,
+                                     sgd, shard_batch)
+
+    def build(mesh):
+        model = ViT(ViTConfig.tiny(dtype=torch.float32), mesh=mesh)
+        model.load_jax_params(inputs["vit_params"])
+        return model
+
+    def logits(axes):
+        mesh = make_mesh(axes, device="cpu")
+        batch = shard_batch(inputs["vit_batches"][0], mesh)
+        with torch.no_grad():
+            out = build(mesh)(batch["images"])
+        return {"logits": out, "dp": mesh.axis_index("dp")}
+
+    def train(axes, fault=None):
+        patched = None
+        if fault is not None:
+            module, attr, value = VIT_SP_FAULTS[fault]
+            module = importlib.import_module(module)
+            patched = (module, attr, getattr(module, attr))
+            setattr(module, attr, value)
+        try:
+            mesh = make_mesh(axes, device="cpu")
+            model = build(mesh)
+            opt = sgd(0.1)
+            state = init_train_state(model, opt, mesh=mesh)
+            step = make_train_step(vit_loss_fn(), opt)
+            metrics = []
+            for batch in inputs["vit_batches"]:
+                state, m = step(state, shard_batch(batch, mesh))
+                metrics.append({k: float(v) for k, v in m.items()})
+        finally:
+            if patched is not None:
+                setattr(*patched)
+        return {"metrics": metrics, "params": local_params(model)}
+
+    cases = {}
+    for name, axes in VIT_SP_MESHES.items():
+        cases[f"logits_{name}"] = lambda axes=axes: logits(axes)
+        cases[f"train_{name}"] = lambda axes=axes: train(axes)
+        for fault in VIT_SP_FAULTS:
+            cases[f"fault_{fault}_{name}"] = \
+                lambda axes=axes, fault=fault: train(axes, fault)
+    return _run(cases)

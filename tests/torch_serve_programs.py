@@ -27,6 +27,7 @@ import os
 import pickle
 import shutil
 import socket
+import sys
 import tempfile
 import threading
 import time
@@ -1326,9 +1327,40 @@ class LoadClient:
                 not any(t.is_alive() for t in self._threads)]
 
 
+def _full_strength(rt, controller, name: str, n: int, dead: set,
+                   timeout: float = 30.0) -> list:
+    """The ``n`` replicas of ``name`` once the controller lists ``n`` and
+    none of them was killed (a killed one respawned), within ``timeout``;
+    [] if it does not come to that."""
+    live: list = []
+
+    def listed() -> bool:
+        _, replicas = rt.get(controller.get_replicas.remote(name),
+                             timeout=10)
+        live[:] = [r for r in replicas if r.actor_id not in dead]
+        return len(live) == n == len(replicas)
+
+    return live if _wait_until(listed, timeout, 0.05) else []
+
+
+def _said_if_unexpected(program: str, out: list, **detail) -> list:
+    """``out``; when it is not ``EXPECTED[program]``, first a line on
+    stderr with it and ``detail`` (the counts behind its booleans), so
+    that a failure under load names the part that came out wrong."""
+    if out != EXPECTED[program]:
+        print(f"{program}: outcome {out}, expected {EXPECTED[program]}; "
+              + ", ".join(f"{k} {v}" for k, v in detail.items()),
+              file=sys.stderr, flush=True)
+    return out
+
+
 def replica_kill_zero_loss(rt):
     """Two replicas killed (``kill``) under load, one after the other: no
-    request fails; the controller respawns them."""
+    request fails; the controller respawns them. Each step waits for a
+    condition, with a deadline, not for a fixed time (fixed pauses came
+    out too short on a loaded host): load flowing before the first kill,
+    both replicas listed and alive (the first respawned) before the
+    second, then more than 30 requests sent and the second respawned."""
     serve = _serve(rt)
 
     @serve.deployment(num_replicas=2)
@@ -1340,17 +1372,20 @@ def replica_kill_zero_loss(rt):
     handle = serve.run(Echo.bind())
     controller = _controller(rt)
     client = LoadClient(handle)
-    killed = 0
-    for pause in (0.5, 1.5):        # then time for the first to respawn
-        time.sleep(pause)
-        _, replicas = rt.get(controller.get_replicas.remote("Echo"),
-                             timeout=10)
+    _wait_until(lambda: client.sent >= 10, 30, 0.02)
+    killed, dead = 0, set()
+    for _ in range(2):
+        replicas = _full_strength(rt, controller, "Echo", 2, dead)
         if replicas:
+            dead.add(replicas[0].actor_id)
             rt.kill(replicas[0])
             killed += 1
-    time.sleep(1.5)
+    _wait_until(lambda: client.sent > 30, 60, 0.02)
+    _full_strength(rt, controller, "Echo", 2, dead)
     sent = client.sent
-    return client.finish() + [killed, sent > 30]
+    return _said_if_unexpected("replica_kill_zero_loss",
+                               client.finish() + [killed, sent > 30],
+                               killed=killed, sent=sent)
 
 
 def rolling_redeploy_zero_loss(rt):
@@ -1366,13 +1401,15 @@ def rolling_redeploy_zero_loss(rt):
 
     handle = serve.run(make_app("v1"), name="roll")
     client = LoadClient(handle)
-    time.sleep(0.5)
+    _wait_until(lambda: client.sent >= 10, 30, 0.02)
     serve.run(make_app("v2"), name="roll")
     took = _wait_until(
         lambda: handle.remote({}).result(timeout_s=60) == "v2", 60, 0.2)
-    time.sleep(0.5)
+    _wait_until(lambda: client.sent > 30, 60, 0.02)
     sent = client.sent
-    return client.finish() + [took, sent > 30, _reaped(rt, 2)]
+    return _said_if_unexpected(
+        "rolling_redeploy_zero_loss",
+        client.finish() + [took, sent > 30, _reaped(rt, 2)], sent=sent)
 
 
 def autoscale_down_zero_loss(rt):
@@ -1399,7 +1436,9 @@ def autoscale_down_zero_loss(rt):
         return (info["Worky"]["desired"], info["Worky"]["num_replicas"]) \
             == (1, 1)
     done = _wait_until(shrunk, 25, 0.1)
-    return client.finish() + [done, _reaped(rt, 1)]
+    return _said_if_unexpected("autoscale_down_zero_loss",
+                               client.finish() + [done, _reaped(rt, 1)],
+                               sent=client.sent)
 
 
 def overload_sheds_never_hangs(rt):
