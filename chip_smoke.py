@@ -11,6 +11,8 @@
     python3 chip_smoke.py --plant-fault learner_no_allreduce
     python3 chip_smoke.py --plant-fault sac_stale_critic
     python3 chip_smoke.py --plant-fault vit_padded_keys
+    python3 chip_smoke.py --plant-fault dag_stage_skips_block
+    python3 chip_smoke.py --plant-fault workflow_reruns_done_step
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -481,6 +483,51 @@ exits non-zero without its result line:
    worker left. ``--cards N --plant-fault node_cards_from_head`` takes
    every daemon node's cards from this process's environment (all card
    0): the head refuses the second node, and (e) must fail.
+21. DAGs, compiled DAGs and workflows, in one runtime
+   (``ray_tpu_torch.dag``, ``experimental.channel``, ``workflow``). (a)
+   GPT-2 124M (phase 14 (c)'s weights) as a compiled DAG of two
+   ``GPT2Stage`` actors at ``num_gpus=0.5`` on this card, ``with
+   InputNode() as x: s1.fwd.bind(s0.fwd.bind(x))``: stage 0 holds the
+   embeddings and blocks 0-5, stage 1 blocks 6-11, ``ln_f`` and the head;
+   the edge carries the bf16 residual stream (8 x 1024 x 768, 12 MiB,
+   inside the 16-MiB channel), stage 1 returns each sequence's summed
+   next-token log-probability and the last position's float32 logits
+   (``head_reduction``). DAG_EXECUTES batches of 8 x 1024 token ids (numpy
+   seed 0), the first alone, the rest with up to DAG_IN_FLIGHT executes
+   issued before a ``get``. Checks: channel mode; each output within
+   DAG_RTOL of the whole model's forward in this process (same weights,
+   tokens and kernels: bit-equal expected); each stage launches
+   ``flash_fwd`` once a block an execute and no backward kernel (counted
+   in the actors); stage 1 receives a CPU bf16 tensor with the bits stage
+   0 sent (sha256, first execute); both stages on this card; a CUDA
+   tensor through a channel here arrives a CPU tensor, bit-equal; no
+   actor outlives ``teardown()``. Prints executes/s, ms an execute, the
+   whole forward in this process, the edge's host copy (write, read) and
+   the compile time with the actors' start. (b) A durable workflow
+   ``train_span.bind(train_span.bind(None, 2), 2)``, each step a
+   ``num_gpus=1`` task that restores the previous step's saved train
+   state (or starts from phase 14 (c)'s weights), runs WORKFLOW_SPAN
+   captured steps at 32 x 1024 (``gpt2_steps``) and saves the state,
+   returning its path and losses; the second step fails on its first run
+   (a marker file under the workflow's root), the run ends FAILED, then
+   ``workflow.resume``. Checks: step 1 ran once and step 2 twice (files
+   the steps write); the 4 losses within CAPTURE_LOSS_RTOL of phase 14
+   (c)'s 4 steps in this process; step 2's first loss bit-equal to step
+   1's loss after its save; 12 launches of each square kernel a train
+   step and ``compile_count`` 1 in each step; no task worker outlives
+   the runtime. Prints each step's start to its first loss, the save and
+   restore times and the leg's time. ``--plant-fault
+   dag_stage_skips_block`` runs (a) with stage 1 starting at block 7,
+   ``--plant-fault workflow_reruns_done_step`` runs (b) with a resume that
+   reads no stored step; each reads its checks without raising and prints
+   ``{"fault": ..., "caught": ...}``: exit 1 caught, 2 missed or failed
+   before the checks. Under ``--cards N``, after phase 20 (e): (c) a
+   card-less head and N node daemons, daemon i on card i, and GPT-2 124M
+   as an N-stage compiled DAG, stage i on daemon i (3 blocks each for N =
+   4), every edge a ``CommChannel`` over ``DcnTcpCommunicator``:
+   DAG_CARDS_EXECUTES executes against the whole model in this process
+   (DAG_RTOL), each stage on its daemon's card UUID, executes/s printed;
+   no daemon or worker left.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -497,7 +544,10 @@ with phase 12 (c')'s launches on ``sp 4``, its ``"path"`` saying so;
 ``--cards`` prints its own line of the rectangle with (g)'s launches;
 ``flash_fwd`` at phase 17's
 full batch, 8 x 1024, with the replica's launches, as the entry with
-``"path": "serve"``), the card line again, and
+``"path": "serve"``, and with phase 21 (a)'s stages' launches as the
+entry with ``"path": "compiled dag stage"``; the square kernels with
+phase 20 (b)'s launches, ``"path": "node daemon actor"``, and with phase
+21 (b)'s, ``"path": "workflow step"``), the card line again, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
 GPU is visible, and when the package is not beside it.
 
@@ -572,6 +622,7 @@ from ray_tpu_torch.models.gpt2 import (
     chunked_cross_entropy,
     gpt2_loss_fn,
     matmul_f32,
+    vocab_embedding,
 )
 from ray_tpu_torch.models import vit as vit_model
 from ray_tpu_torch.ops.attention import (
@@ -740,6 +791,16 @@ RUNTIME_WAIT_S = 2.0               # a second GPU task stays pending so long
 NODE_DRAIN_AT = 1                  # phase 20 (d): the drain after report 2
 NODE_DRAIN_GRACE_S = 0.2           # (d)'s drain: grace, then its deadline
 NODE_DRAIN_DEADLINE_S = 3.0
+DAG_EXECUTES = 16                  # phase 21 (a): executes of the DAG
+DAG_IN_FLIGHT = 2                  # ... at most this many before a get
+DAG_SHARE = 0.5                    # each stage actor's share of the card
+DAG_CARDS_EXECUTES = 8             # (c): executes across four daemons
+# The stages against the whole model in this process: the same weights,
+# tokens and kernels, so bit-equal is expected (phase 20 (b) read the
+# same across processes); a block dropped or repeated moves them by
+# orders of magnitude more.
+DAG_RTOL = 1e-6
+WORKFLOW_SPAN = 2                  # (b): train steps of each workflow step
 RUNTIME_TASKS = 1000               # no-op tasks of the host rate
 RUNTIME_ACTOR_CALLS = 2000         # calls to one actor of the host rate
 DATA_STEPS = 12                    # steps (batches) of the Data feed
@@ -865,6 +926,11 @@ _ARGS_ROW0 = "  args.row0 = row0;"
 NODE_FAULTS = {"node_cards_from_head": "a daemon node's cards are read from "
                "the head process's environment, not the daemon's report"}
 SERVE_FAULTS = {"serve_left_pad": "GPT2Server pads each batch on the left"}
+# Faults of phase 21's user code (the stages, the resume).
+DAG_FAULTS = {"dag_stage_skips_block": "the compiled DAG's second stage "
+              "starts one block late (block 7)",
+              "workflow_reruns_done_step": "workflow.resume ignores the "
+              "stored result of the first step"}
 # A fault of ViT's bidirectional ring: every row of a padded block taken
 # as a valid key (models.vit.seq_blocks planted), so the hops read the
 # padding; phase 12 (c') must fail it.
@@ -2943,21 +3009,28 @@ def load_weights(model, weights: dict) -> None:
 
 
 def gpt2_steps(model, host, steps: int, timed: int, capture: bool,
-               save_to: str | None = None, report=None) -> dict:
+               save_to: str | None = None, report=None,
+               restore_from: str | None = None) -> dict:
     """GPT-2 on the host batch ``host`` through ``make_train_step`` with
-    the LM optimizer, off a mesh: ``steps`` steps give the losses and the
-    launch counts (counts set to 0 just before, read just after), each
-    passed to ``report`` when given; the state is saved to ``save_to``
-    when given and one more step's loss kept (``next_loss``); ``timed``
-    more steps are timed on the host clock. The same code runs in this
-    process, in a runtime actor and in a TorchTrainer worker."""
+    the LM optimizer, off a mesh: the train state restored from
+    ``restore_from`` when given (``restore_s``); ``steps`` steps give the
+    losses and the launch counts (counts set to 0 just before, read just
+    after), each passed to ``report`` when given; the state is saved to
+    ``save_to`` when given (``save_s``) and one more step's loss kept
+    (``next_loss``); ``timed`` more steps are timed on the host clock.
+    The same code runs in this process, in a runtime actor, in a
+    TorchTrainer worker and in a workflow step."""
     dev = next(model.parameters()).device
     opt = lm_opt()
     state = init_train_state(model, opt)
+    run = {"losses": []}
+    if restore_from is not None:
+        t0 = time.perf_counter()
+        restore_train_state(restore_from, state)
+        run["restore_s"] = time.perf_counter() - t0
     step = make_train_step(gpt2_loss_fn(ce_chunk=2048), opt,
                            grad_norm=False)
     batch = device_batch(*host, dev)
-    run = {"losses": []}
     with contextlib.nullcontext() if capture else disable_capture():
         fa.reset_launch_counts()
         for _ in range(steps):
@@ -2966,7 +3039,9 @@ def gpt2_steps(model, host, steps: int, timed: int, capture: bool,
                 report({"loss": run["losses"][-1], "t": time.time()})
         run["counts"] = fa.launch_counts()
         if save_to is not None:
+            t0 = time.perf_counter()
             save_train_state(state, save_to)
+            run["save_s"] = time.perf_counter() - t0
             run["next_loss"] = float(step(state, batch)[1]["loss"])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3240,6 +3315,7 @@ def runtime_phase(card: str) -> dict:
     check(not rebuilt, f"the workers loaded the kernels the driver built "
           f"(rebuilt: {rebuilt})")
     return {"first_s": first_s, "fit_s": fit_s,
+            "ref_losses": ref_run["losses"],
             "actor_losses": actor_run["losses"], "trainer_losses": reported}
 
 
@@ -6539,9 +6615,10 @@ def wait_for(cond, timeout: float, what: str, period: float = 0.05):
 
 
 def node_processes_left(daemons: set, timeout: float = 20.0) -> list[str]:
-    """Processes that outlive the node daemons ``daemons`` (pids) by
-    ``timeout`` seconds: a daemon, or a worker one spawned (its socket's
-    path names its daemon's pid), whether reparented or not."""
+    """Processes that outlive ``daemons`` (pids of node daemons, or of
+    any processes) by ``timeout`` seconds: one of them, or a worker a
+    daemon of them spawned (its socket's path names its daemon's pid),
+    whether reparented or not."""
     marks = [f"/node-{pid}-" for pid in daemons]
 
     def left() -> list[str]:
@@ -7006,6 +7083,543 @@ def nodes_cards_phase(n: int, card: str, one_node: dict,
     return report_checks(checks, card, strict=not fault, prefix="nodes")
 
 
+# -- phase 21: DAGs, compiled DAGs and workflows ------------------------------
+
+
+def tensor_sha(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bits, wherever it lies."""
+    raw = t.detach().contiguous().cpu().reshape(-1).view(torch.uint8)
+    return hashlib.sha256(raw.numpy().tobytes()).hexdigest()
+
+
+def head_reduction(model, h, tokens):
+    """What a GPT-2 forward of a batch hands back through a channel:
+    each sequence's summed next-token log-probability (float32, ``[B]``)
+    and the last position's float32 logits (``[B, vocab]``), from the
+    final hidden states ``h`` (after ``ln_f``). The full logits, ``[B, T,
+    vocab]`` float32, stay on the card."""
+    b, t, e = h.shape
+    dt = model.config.dtype
+    logits = matmul_f32(h.reshape(b * t, e).to(dt),
+                        model.wte.weight.to(dt).t()).view(b, t, -1)
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    lp = logp.gather(-1, tokens[:, 1:, None].long())[..., 0].sum(-1)
+    return lp, logits[:, -1]
+
+
+def dag_bounds(n_layer: int, stages: int, fault: str | None = None) -> list:
+    """Each stage's blocks ``[lo, hi)``, an even split; under
+    ``dag_stage_skips_block`` the second stage starts one block late."""
+    step = n_layer // stages
+    bounds = [[i * step, (i + 1) * step] for i in range(stages)]
+    bounds[-1][1] = n_layer
+    if fault == "dag_stage_skips_block":
+        bounds[1][0] += 1
+    return [tuple(b) for b in bounds]
+
+
+class GPT2Stage:
+    """A stage actor of GPT-2 in a compiled DAG (phase 21): the whole
+    model built from ``weights`` (``numpy_weights``' arrays), of which it
+    keeps blocks ``[lo, hi)``, with the embeddings on the first stage and
+    ``ln_f`` and the tied head on the last. ``fwd`` takes the DAG's input,
+    ``{"tokens": [B, T] int32, "probe": bool}``, on the first stage and
+    the previous stage's message on the others; a message carries the
+    residual stream ``x`` (bf16 on the stage's card, which the channel
+    ships as host bits), the tokens, and each stage's record (pid, card,
+    launches of this call; with ``probe``, the sha256 of what it sent and
+    received). The last stage returns ``head_reduction``'s numpy
+    readings."""
+
+    def __init__(self, weights, lo: int, hi: int, config=None,
+                 device=None):
+        cfg = config or GPT2Config.small()
+        if device is not None and torch.device(device).type == "cpu":
+            torch.set_num_threads(1)
+        model = GPT2(cfg, seed=1, device=device)   # other weights ...
+        load_weights(model, weights)               # ... replaced
+        self.first, self.last = lo == 0, hi == cfg.n_layer
+        model.h = model.h[lo:hi]
+        self.model, self.lo, self.hi = model, lo, hi
+        self.dev = model.wte.weight.device
+        self.info = {"pid": os.getpid(), "blocks": [lo, hi],
+                     "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                     "node": os.environ.get("RAY_TPU_NODE_ID"),
+                     "device": str(self.dev),
+                     "card": (str(torch.cuda.get_device_properties(
+                         self.dev).uuid) if self.dev.type == "cuda"
+                         else None)}
+
+    @torch.inference_mode()
+    def fwd(self, msg: dict) -> dict:
+        m, probe = self.model, msg["probe"]
+        fa.reset_launch_counts()
+        tokens = torch.from_numpy(np.require(
+            msg["tokens"], requirements="W")).to(self.dev)
+        rec = dict(self.info)
+        if self.first:
+            t = tokens.shape[1]
+            x = vocab_embedding(tokens, m.wte.weight, m.tp, m.config.dtype) \
+                + m.wpe.weight[:t].to(m.config.dtype)
+            stages = []
+        else:
+            got = msg["x"]
+            rec["got"] = [type(got).__name__, got.device.type, str(got.dtype)]
+            rec["got_sha"] = tensor_sha(got) if probe else None
+            x = got.to(self.dev)
+            stages = msg["stages"]
+        for block in m.h:
+            x = block(x, m.attn_fn)
+        if not self.last:
+            rec["sent_sha"] = tensor_sha(x) if probe else None
+            rec["counts"] = fa.launch_counts()
+            return {"x": x, "tokens": msg["tokens"], "probe": probe,
+                    "stages": stages + [rec]}
+        lp, last = head_reduction(m, m.ln_f(x), tokens)
+        out = {"lp": lp.cpu().numpy(), "last": last.cpu().numpy()}
+        rec["counts"] = fa.launch_counts()
+        return dict(out, stages=stages + [rec])
+
+
+def gpt2_dag(rt, weights, cfg, bounds: list, opts: list, device=None):
+    """The compiled DAG of GPT-2's stages (``with InputNode() as x``, each
+    stage's ``fwd`` bound to the previous one's), stage i an actor of
+    ``GPT2Stage`` with ``opts[i]`` holding blocks ``bounds[i]``;
+    ``weights`` is an ObjectRef of ``numpy_weights``' dict."""
+    from ray_tpu_torch.dag import InputNode
+    stage = rt.remote(GPT2Stage)
+    with InputNode() as x:
+        node = x
+        for (lo, hi), o in zip(bounds, opts, strict=True):
+            node = stage.options(**o).bind(weights, lo, hi, cfg, device) \
+                .fwd.bind(node)
+    return node.experimental_compile()
+
+
+def gpt2_reduction(model, tokens: np.ndarray) -> dict:
+    """The whole model's ``head_reduction`` of one batch in this process,
+    as numpy."""
+    dev = model.wte.weight.device
+    with torch.inference_mode():
+        toks = torch.from_numpy(tokens).to(dev)
+        lp, last = head_reduction(model, model(toks, return_hidden=True),
+                                  toks)
+        return {"lp": lp.cpu().numpy(), "last": last.cpu().numpy()}
+
+
+def reduction_rel(out: dict, ref: dict) -> float:
+    """The larger relative distance of the two readings: max |a - b| /
+    max |b| over each."""
+    return max(float(np.max(np.abs(out[k] - ref[k])) / np.max(np.abs(ref[k])))
+               for k in ("lp", "last"))
+
+
+def run_dag(cdag, batches: np.ndarray, in_flight: int) -> tuple[list, float]:
+    """Every batch through ``cdag``, the first alone with ``probe`` (and
+    fetched before the rest), the rest with up to ``in_flight`` executes
+    issued before their ``get``. Returns the outputs in order and the
+    seconds of all but the first."""
+    outs = [cdag.execute({"tokens": batches[0], "probe": True})
+            .get(timeout=600)]
+    pending: list = []
+    t0 = time.perf_counter()
+    for tokens in batches[1:]:
+        if len(pending) == in_flight:
+            outs.append(pending.pop(0).get(timeout=600))
+        pending.append(cdag.execute({"tokens": tokens, "probe": False}))
+    outs += [ref.get(timeout=600) for ref in pending]
+    return outs, time.perf_counter() - t0
+
+
+def dag_leg(rt, card: str, weights_ref, model, cfg=None,
+            executes: int = DAG_EXECUTES, fault: str | None = None
+            ) -> tuple[dict, list]:
+    """Phase 21 (a): GPT-2's two-stage compiled DAG on this card (each
+    stage ``num_gpus=DAG_SHARE``), ``executes`` batches of SERVE_BATCH x
+    TRAIN_SEQ token ids from numpy seed 0, against ``model`` (the whole
+    model, same weights) in this process. Returns the readings and the
+    checks."""
+    from ray_tpu_torch.experimental.channel import Channel
+    cfg = cfg or GPT2Config.small()
+    bounds = dag_bounds(cfg.n_layer, 2, fault)
+    batches = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (executes, SERVE_BATCH, TRAIN_SEQ)
+    ).astype(np.int32)
+    refs = [gpt2_reduction(model, b) for b in batches]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        gpt2_reduction(model, b)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) / executes * 1e3
+    # The edge's host copy: the residual stream through a channel here.
+    with torch.inference_mode():
+        x = torch.randn(SERVE_BATCH, TRAIN_SEQ, cfg.n_embd,
+                        device=model.wte.weight.device).to(cfg.dtype)
+    ch = Channel()
+    try:
+        ch.register_reader()
+        copy_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ch.write({"x": x})
+            t1 = time.perf_counter()
+            back = ch.read(timeout=60)["x"]
+            copy_ms.append(((t1 - t0) * 1e3,
+                            (time.perf_counter() - t1) * 1e3))
+    finally:
+        ch.close()
+        ch.detach()
+    edge_ok = (back.device.type == "cpu" and back.dtype == cfg.dtype
+               and tensor_sha(back) == tensor_sha(x))
+    del x, back
+    t0 = time.perf_counter()
+    cdag = gpt2_dag(rt, weights_ref, cfg, bounds,
+                    [{"num_gpus": DAG_SHARE}] * 2)
+    compile_s = time.perf_counter() - t0
+    mode = cdag._mode
+    try:
+        outs, run_s = run_dag(cdag, batches, DAG_IN_FLIGHT)
+    finally:
+        t0 = time.perf_counter()
+        cdag.teardown()
+        teardown_s = time.perf_counter() - t0
+    pids = sorted({s["pid"] for o in outs for s in o["stages"]})
+    left = node_processes_left(set(pids))
+    rel = [reduction_rel(o, r) for o, r in zip(outs, refs, strict=True)]
+    per = [[s["counts"] for s in o["stages"]] for o in outs]
+    want = [{name: (hi - lo if name == "flash_fwd" else 0)
+             for name in fa._KERNELS} for lo, hi in bounds]
+    s0, s1 = outs[0]["stages"]
+    rate = (executes - 1) / run_s
+    readings = {"launches": sum(c[i].get("flash_fwd", 0) for c in per
+                                for i in range(2)),
+                "rate": rate, "fwd_ms": fwd_ms, "compile_s": compile_s,
+                "rel": rel, "mode": mode}
+    print(f"dag (a) GPT-2 124M as a two-stage compiled DAG ({mode} mode), "
+          f"stages {bounds} at num_gpus={DAG_SHARE} each (pids {pids}, "
+          f"CUDA_VISIBLE_DEVICES {[s0['visible'], s1['visible']]}, cards "
+          f"{[str(s0['card'])[:13], str(s1['card'])[:13]]}), {executes} "
+          f"executes of "
+          f"{SERVE_BATCH} x {TRAIN_SEQ} tokens, up to {DAG_IN_FLIGHT} in "
+          f"flight: {rate:.2f} executes/s ({1e3 / rate:.2f} ms an execute, "
+          f"the first, with the probe, apart) vs the whole forward in this "
+          f"process {fwd_ms:.2f} ms; compile (the actors' start included) "
+          f"{compile_s:.2f} s, teardown {teardown_s:.2f} s; largest "
+          f"relative difference to the in-process forward {max(rel):.3g} "
+          f"(bit-equal {max(rel) == 0}, limit {DAG_RTOL}); launches of the "
+          f"first execute {per[0]}; the edge received {s1['got']}, sha "
+          f"equal {s1['got_sha'] == s0['sent_sha']}; the edge's host copy "
+          f"here (12 MiB bf16 from the card): write "
+          f"{[round(w, 2) for w, _ in copy_ms]} ms, read "
+          f"{[round(r, 2) for _, r in copy_ms]} ms, a CPU tensor bit-equal "
+          f"{edge_ok}; processes left {left}; card {card}", flush=True)
+    checks = [
+        ("(a) compiled in channel mode", mode == "channels", mode),
+        (f"(a) each output within {DAG_RTOL} of the whole model in this "
+         f"process", max(rel) <= DAG_RTOL, max(rel)),
+        ("(a) each stage launches flash_fwd once a block an execute and no "
+         "backward kernel", all(p == want for p in per),
+         per[0] if all(p == want for p in per) else
+         [p for p in per if p != want][:2]),
+        ("(a) stage 1 received a CPU bf16 tensor with the bits stage 0 sent",
+         s1["got"] == ["Tensor", "cpu", str(cfg.dtype)]
+         and s1["got_sha"] == s0["sent_sha"], s1["got"]),
+        ("(a) both stages on this card, one CUDA_VISIBLE_DEVICES",
+         s0["card"] == s1["card"] and s0["visible"] == s1["visible"]
+         and s0["pid"] != s1["pid"], [s0["visible"], s1["visible"]]),
+        ("(a) a CUDA tensor through a channel arrives a CPU tensor, "
+         "bit-equal", edge_ok, edge_ok),
+        ("(a) no actor of the DAG outlives teardown()", not left, left)]
+    return readings, checks
+
+
+def train_span(prev, steps: int, ctx: dict) -> dict:
+    """Phase 21 (b)'s workflow step, a ``num_gpus=1`` task: GPT-2 124M
+    from ``prev``'s saved train state, or from ``ctx["init"]``'s weights
+    when ``prev`` is None, trained ``steps`` captured steps on
+    ``ctx["init"]``'s batch (``gpt2_steps``), the state saved under
+    ``ctx["root"]``. It logs each run to a file (``span<i>.runs``) and,
+    while ``ctx["fail_mark"]`` exists, fails its first run of step
+    ``ctx["fail_at"]``. Returns the state's path (never the state: the
+    workflow pickles step results into its storage), every step's losses
+    so far and each step's record."""
+    t_start = time.time()
+    index = 1 if prev is None else prev["index"] + 1
+    with open(os.path.join(ctx["root"], f"span{index}.runs"), "a") as f:
+        f.write("x")
+    if index == ctx["fail_at"] and os.path.exists(ctx["fail_mark"]):
+        os.unlink(ctx["fail_mark"])
+        raise RuntimeError(f"planted failure of step {index}")
+    data = np.load(ctx["init"])
+    model = GPT2(ctx["config"], seed=1)
+    if prev is None:
+        load_weights(model, {n: data[n] for n, _ in model.named_parameters()})
+    first: dict = {}
+    path = os.path.join(ctx["root"], f"state{index}-{os.getpid()}-"
+                        f"{time.time_ns()}")
+    run = gpt2_steps(model, (data["tokens"], data["targets"]), steps, 0,
+                     ctx["capture"], save_to=path,
+                     report=lambda m: first.setdefault("t", m["t"]),
+                     restore_from=None if prev is None else prev["state"])
+    rec = {"index": index, "pid": os.getpid(),
+           "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "losses": run["losses"], "next_loss": run["next_loss"],
+           "counts": run["counts"], "compile_count": run["compile_count"],
+           "first_loss_s": first["t"] - t_start, "save_s": run["save_s"],
+           "restore_s": run.get("restore_s")}
+    return {"index": index, "state": path,
+            "losses": (prev["losses"] if prev else []) + run["losses"],
+            "spans": (prev["spans"] if prev else []) + [rec]}
+
+
+def workflow_leg(rt, card: str, weights: dict, host, ref_losses: list,
+                 fault: str | None = None) -> tuple[dict, list]:
+    """Phase 21 (b): ``train_span.bind(train_span.bind(None, 2), 2)`` as
+    a durable workflow, each step a ``num_gpus=1`` task; the second step
+    fails on its first run, the run ends FAILED and ``workflow.resume``
+    runs the rest. Under ``workflow_reruns_done_step`` the resume reads
+    no stored step. Returns the readings and the checks."""
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.workflow.storage import WorkflowStorage
+    root = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    t_leg = time.perf_counter()
+    try:
+        workflow.init(os.path.join(root, "store"))
+        init = os.path.join(root, "init.npz")
+        np.savez(init, tokens=host[0], targets=host[1], **weights)
+        mark = os.path.join(root, "fail_once")
+        open(mark, "w").close()
+        ctx = {"root": root, "init": init, "fail_at": 2, "fail_mark": mark,
+               "capture": CAPTURE, "config": GPT2Config.small()}
+        span = rt.remote(num_gpus=1)(train_span)
+        dag = span.bind(span.bind(None, WORKFLOW_SPAN, ctx), WORKFLOW_SPAN,
+                        ctx)
+        wid = "chip_smoke_gpt2"
+        t0 = time.perf_counter()
+        try:
+            workflow.run(dag, workflow_id=wid, timeout=900)
+            first_error = None
+        except rt.TaskError as e:        # the planted failure of step 2
+            first_error = f"{type(e).__name__}: {e}"
+        run_s = time.perf_counter() - t0
+        status = workflow.get_status(wid)
+        saved = WorkflowStorage.has_step
+        if fault == "workflow_reruns_done_step":
+            WorkflowStorage.has_step = lambda self, key: False
+        try:
+            t0 = time.perf_counter()
+            out = workflow.resume(wid, timeout=900)
+            resume_s = time.perf_counter() - t0
+        finally:
+            WorkflowStorage.has_step = saved
+        runs = []
+        for i in (1, 2):
+            with open(os.path.join(root, f"span{i}.runs")) as f:
+                runs.append(len(f.read()))
+        final_status = workflow.get_status(wid)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    leg_s = time.perf_counter() - t_leg
+    spans = out["spans"]
+    rel = [_rel(a, b) for a, b in zip(out["losses"], ref_losses,
+                                      strict=True)]
+    want_captures = 1 if CAPTURE else None
+    per = GPT2Config.small().n_layer
+    bad = [(s["index"], s["counts"]) for s in spans
+           if any(s["counts"][k] != per * WORKFLOW_SPAN for k in SQUARE)]
+    readings = {"counts": {k: sum(s["counts"][k] for s in spans)
+                           for k in SQUARE},
+                "pids": sorted({s["pid"] for s in spans}), "leg_s": leg_s}
+    print(f"dag (b) a durable workflow of two GPT-2 124M steps, each a "
+          f"num_gpus=1 task of {WORKFLOW_SPAN} captured steps at "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: the first run failed at step 2 "
+          f"({(first_error or '')[-160:]!r}) after {run_s:.1f} s, status "
+          f"{status}; resume "
+          f"{resume_s:.1f} s, status {final_status}; runs of each step "
+          f"{runs}; losses {out['losses']} vs this process's "
+          f"{ref_losses} (relative {max(rel):.3g}, limit "
+          f"{CAPTURE_LOSS_RTOL}); step 1's loss after its save "
+          f"{spans[0]['next_loss']} vs step 2's first after its restore "
+          f"{spans[1]['losses'][0]}; each step's start to its first loss "
+          f"{[round(s['first_loss_s'], 2) for s in spans]} s, save "
+          f"{[round(s['save_s'], 2) for s in spans]} s, restore "
+          f"{spans[1]['restore_s']:.2f} s; compile_count "
+          f"{[s['compile_count'] for s in spans]}; launches "
+          f"{[s['counts'] for s in spans]}; leg {leg_s:.1f} s; card {card}",
+          flush=True)
+    checks = [
+        ("(b) the first run failed at step 2 and ended FAILED",
+         first_error is not None and "planted failure of step 2"
+         in first_error and status == "FAILED",
+         [(first_error or "")[-120:], status]),
+        ("(b) resume finished the workflow: step 1 ran once, step 2 twice",
+         final_status == "SUCCESSFUL" and runs == [1, 2], runs),
+        (f"(b) the {2 * WORKFLOW_SPAN} losses after resume within "
+         f"{CAPTURE_LOSS_RTOL} of the same steps in this process",
+         max(rel) <= CAPTURE_LOSS_RTOL, rel),
+        ("(b) step 2 restored step 1's saved state bit-equal",
+         spans[1]["losses"][0] == spans[0]["next_loss"],
+         [spans[0]["next_loss"], spans[1]["losses"][0]]),
+        (f"(b) each step launches {per} of each square kernel a train "
+         f"step, compile_count {want_captures}",
+         not bad and all(s["compile_count"] == want_captures
+                         for s in spans), bad or "all held")]
+    return readings, checks
+
+
+def dag_phase(card: str, runtime: dict | None = None,
+              fault: str | None = None) -> dict:
+    """Phase 21 (see the module docstring): (a) and (b) in one runtime,
+    then no process of either leg may outlive it. ``runtime`` (phase
+    14's readings) gives (b) the driver's losses; without it they are
+    run here. With ``fault`` only the leg it plants into runs, its
+    checks read without raising. Returns the readings and whether every
+    check held."""
+    import ray_tpu_torch as rt
+    cfg = GPT2Config.small()
+    host = train_batch(cfg.vocab_size)
+    model = GPT2(cfg, seed=0)                   # phase 14 (c)'s weights
+    weights = numpy_weights(model)
+    if runtime is None and fault != "dag_stage_skips_block":
+        ref_losses = gpt2_steps(GPT2(cfg, seed=0), host, 2 * WORKFLOW_SPAN,
+                                0, CAPTURE)["losses"]
+    else:
+        ref_losses = (runtime or {}).get("ref_losses")
+    torch.cuda.empty_cache()
+    out, checks = {}, []
+    t0 = time.perf_counter()
+    rt.init()
+    try:
+        if fault != "workflow_reruns_done_step":
+            t_a = time.perf_counter()
+            out["a"], c = dag_leg(rt, card, rt.put(weights), model,
+                                  fault=fault)
+            out["a"]["leg_s"] = time.perf_counter() - t_a
+            checks += c
+        del model
+        torch.cuda.empty_cache()
+        if fault != "dag_stage_skips_block":
+            out["b"], c = workflow_leg(rt, card, weights, host, ref_losses,
+                                       fault=fault)
+            checks += c
+    finally:
+        rt.shutdown()
+    left = node_processes_left(set(out.get("b", {}).get("pids", [])))
+    checks.append(("no task worker of (b) outlives the runtime", not left,
+                   left))
+    out["s"] = time.perf_counter() - t0
+    out["held"] = report_checks(checks, card, strict=fault is None,
+                                prefix="dag")
+    return out
+
+
+def dag_fault_main(name: str, card: str) -> int:
+    """``--plant-fault dag_stage_skips_block`` or
+    ``workflow_reruns_done_step``: the build, then phase 21's leg that the
+    fault plants into, its checks read without raising. Exits 1 when a
+    check fails it (caught), 2 when none does or the run failed before
+    its checks."""
+    print(f"planted fault {name}: {DAG_FAULTS[name]}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        build.ensure_built()
+        print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+        held = dag_phase(card, fault=name)["held"]
+    except Exception:  # noqa: BLE001 — the harness failed, not the checks
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_checks": True}), flush=True)
+        return 2
+    print(json.dumps({"fault": name, "caught": not held}), flush=True)
+    return 1 if not held else 2
+
+
+def dag_cards_phase(n: int, card: str) -> dict:
+    """Phase 21 (c), under ``--cards n``: a card-less head and ``n`` node
+    daemons, daemon i on card i; GPT-2 124M as an ``n``-stage compiled
+    DAG, stage i on daemon i's card, every edge a ``CommChannel`` over
+    the host communicator; DAG_CARDS_EXECUTES executes against the whole
+    model in this process (card 0). Then no daemon or worker may outlive
+    the cluster. Returns the readings."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.dag.comm_channel import CommChannel
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    weights = numpy_weights(model)
+    bounds = dag_bounds(cfg.n_layer, n)
+    batches = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (DAG_CARDS_EXECUTES, SERVE_BATCH, TRAIN_SEQ)
+    ).astype(np.int32)
+    refs = [gpt2_reduction(model, b) for b in batches]
+    del model
+    torch.cuda.empty_cache()
+    uuids = [str(torch.cuda.get_device_properties(i).uuid) for i in range(n)]
+    c = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
+    checks: list[tuple] = []
+    try:
+        t0 = time.perf_counter()
+        nodes = [c.add_node(num_cpus=2, num_gpus=1, gpu_ids=[i],
+                            timeout_s=60) for i in range(n)]
+        opts = [{"num_gpus": 1, "scheduling_strategy":
+                 NodeAffinitySchedulingStrategy(nd.node_id, soft=False)}
+                for nd in nodes]
+        cdag = gpt2_dag(rt, rt.put(weights), cfg, bounds, opts)
+        compile_s = time.perf_counter() - t0
+        kinds = [type(ch).__name__ for ch in cdag._all_channels]
+        comm = all(isinstance(ch, CommChannel) for ch in cdag._all_channels)
+        try:
+            outs, run_s = run_dag(cdag, batches, DAG_IN_FLIGHT)
+        finally:
+            cdag.teardown()
+        rel = [reduction_rel(o, r) for o, r in zip(outs, refs, strict=True)]
+        stages = outs[0]["stages"]
+        got = [s["got"] for s in stages[1:]]
+        bits = [s["got_sha"] == p["sent_sha"]
+                for p, s in zip(stages, stages[1:])]
+        rate = (DAG_CARDS_EXECUTES - 1) / run_s
+        print(f"dag (c) GPT-2 124M as a {n}-stage compiled DAG "
+              f"({cdag._mode} mode), stages {bounds}, stage i on daemon i's "
+              f"card (visible {[s['visible'] for s in stages]}, cards "
+              f"{[str(s['card'])[:13] for s in stages]}); edges {kinds}; "
+              f"{DAG_CARDS_EXECUTES} executes, up to {DAG_IN_FLIGHT} in "
+              f"flight: {rate:.2f} executes/s ({1e3 / rate:.2f} ms an "
+              f"execute); daemons and compile {compile_s:.1f} s; largest "
+              f"relative difference to the in-process forward {max(rel):.3g}"
+              f" (limit {DAG_RTOL}); each edge received {got}, sha equal "
+              f"{bits}; flash_fwd launches of the first execute "
+              f"{[s['counts']['flash_fwd'] for s in stages]}; card {card}",
+              flush=True)
+        checks += [
+            ("(c) compiled in channel mode, every edge a CommChannel",
+             cdag._mode == "channels" and comm and len(kinds) == n + 1,
+             kinds),
+            (f"(c) each output within {DAG_RTOL} of the whole model in this "
+             f"process", max(rel) <= DAG_RTOL, max(rel)),
+            ("(c) each stage received a CPU bf16 tensor with the bits the "
+             "one before sent",
+             all(g == ["Tensor", "cpu", str(cfg.dtype)] for g in got)
+             and all(bits), [got, bits]),
+            ("(c) stage i on daemon i's card",
+             [s["card"] for s in stages] == uuids
+             and [s["visible"] for s in stages] == [str(i) for i in range(n)],
+             [s["visible"] for s in stages])]
+    finally:
+        daemons = {nd.proc.pid for nd in c.list_all_nodes
+                   if nd.proc is not None}
+        c.shutdown()
+        left = node_processes_left(daemons)
+    checks.append(("(c) no daemon or worker outlives the cluster", not left,
+                   left))
+    report_checks(checks, card, prefix="dag")
+    return {"rate": rate, "rel": rel}
+
+
 def node_cards_from_head(self, resources, reported):
     """The planted fault ``node_cards_from_head``: a daemon node's cards
     read from this (the head's) process's environment, not its report."""
@@ -7265,9 +7879,14 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     print(f"multicard rllib: {time.perf_counter() - t19:.1f} s", flush=True)
     t20 = time.perf_counter()
     nodes_cards_phase(n, card, ddp)
-    print(f"multicard nodes: phase 20 (e) {time.perf_counter() - t20:.1f} s; "
-          f"chip_smoke --cards {n}: {time.perf_counter() - t0:.1f} s after "
-          "the build began", flush=True)
+    print(f"multicard nodes: phase 20 (e) {time.perf_counter() - t20:.1f} s",
+          flush=True)
+    t21 = time.perf_counter()
+    dag_cards = dag_cards_phase(n, card)
+    print(f"multicard dag: phase 21 (c) {time.perf_counter() - t21:.1f} s, "
+          f"{dag_cards['rate']:.2f} executes/s; chip_smoke --cards {n}: "
+          f"{time.perf_counter() - t0:.1f} s after the build began",
+          flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7281,7 +7900,7 @@ def main() -> int:
                         choices=sorted(FAULTS) + sorted(multicard.FAULTS)
                         + list(SERVE_FAULTS) + list(TUNE_FAULTS)
                         + list(RLLIB_FAULTS) + list(VIT_FAULTS)
-                        + list(NODE_FAULTS))
+                        + list(NODE_FAULTS) + list(DAG_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -7311,6 +7930,8 @@ def main() -> int:
         return rllib_fault_main(args.plant_fault, card)
     if args.plant_fault in VIT_FAULTS:
         return vit_fault_main(args.plant_fault, dev, card)
+    if args.plant_fault in DAG_FAULTS:
+        return dag_fault_main(args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -7401,6 +8022,13 @@ def run_all(dev, card: str) -> int:
           f"{nodes['legs']['drain_to_resume_s']:.1f} s); card {card}",
           flush=True)
     phase_s["20"] = time.perf_counter() - t20
+    t21 = time.perf_counter()
+    dag = dag_phase(card, runtime)
+    phase_s["21"] = time.perf_counter() - t21
+    print(f"dag: phase 21 {phase_s['21']:.1f} s ((a) {dag['a']['leg_s']:.1f}"
+          f" s: {dag['a']['rate']:.2f} executes/s, compile "
+          f"{dag['a']['compile_s']:.1f} s; (b) {dag['b']['leg_s']:.1f} s); "
+          f"card {card}", flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}"
                                      for k, v in phase_s.items()),
           flush=True)
@@ -7446,6 +8074,20 @@ def run_all(dev, card: str) -> int:
     kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
                  "replaces": REPLACES[name], "path": "node daemon actor",
                  "launches": nodes["counts"][name], **main_rows[name]}
+                for name in SQUARE]
+    # The forward kernel on the compiled DAG's path: launched by phase 21
+    # (a)'s two stage actors (one launch a block an execute), timed at
+    # their shape, phase 17's full batch.
+    kernels.append({"name": "flash_fwd", "route": "cuda",
+                    "source": SOURCES["flash_fwd"],
+                    "replaces": REPLACES["flash_fwd"],
+                    "path": "compiled dag stage",
+                    **dict(served["kernel"], launches=dag["a"]["launches"])})
+    # The square kernels on the workflow path: launched by phase 21 (b)'s
+    # steps, each a num_gpus=1 task, timed at GPT-2's shape.
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "path": "workflow step",
+                 "launches": dag["b"]["counts"][name], **main_rows[name]}
                 for name in SQUARE]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)

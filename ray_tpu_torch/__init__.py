@@ -10,7 +10,10 @@ GPU as a scheduler resource, the Data library on it (``data``),
 Serve (``serve``), whose replicas hold cards, Tune (``tune``), whose
 trials hold cards or shares of one, and RLlib (``rllib``), whose learners
 hold the card while its env runners step on the CPU, with the host
-collective plane (``collective``) between learner processes.
+collective plane (``collective``) between learner processes, DAGs and
+compiled DAGs (``dag``), whose stage actors pipeline over shared-memory
+channels (``experimental.channel``), and durable workflows
+(``workflow``).
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.
@@ -88,8 +91,9 @@ __all__ = [
 ]
 
 
-_SUBPACKAGES = ("data", "train", "serve", "tune", "rllib", "experimental",
-                "util", "runtime_env", "collective", "cluster_utils")
+_SUBPACKAGES = ("data", "train", "serve", "tune", "rllib", "workflow",
+                "dag", "experimental", "util", "runtime_env", "collective",
+                "cluster_utils")
 
 
 def __getattr__(name: str):

@@ -11,7 +11,12 @@ queues fed by demux threads.
 
 Wire: each logical message is two frames on the peer socket —
 ``(tag, (dtype, shape))`` via pickle, then the raw payload via
-``send_bytes`` (no pickle copy of the array body).
+``send_bytes`` (no pickle copy of the array body). Any other value is
+pickled by the port's serializer (``core.serialization.dumps``), so a
+torch tensor travels as host bits and arrives a CPU tensor, as through
+the object store; ``Connection.send`` would pickle it with torch's
+multiprocessing reducers, which hand the peer a shared-memory or CUDA
+IPC handle that an unrelated process cannot open.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import Any
 
 import numpy as np
 
+from ray_tpu_torch.core import serialization as _ser
 from ray_tpu_torch.util.net import routable_ip as _routable_ip
 
 _RAW = "__raw__"
@@ -157,7 +163,7 @@ class PeerMesh:
                     # half-closes under us.
                     break
                 if meta is None:
-                    payload = conn.recv()
+                    payload = _ser.loads(conn.recv_bytes())
                 elif meta[0] == _RAW:
                     payload = conn.recv_bytes()
                 else:
@@ -215,7 +221,7 @@ class PeerMesh:
                     conn.send_bytes(value)
                 else:
                     conn.send((tag, None))
-                    conn.send(value)
+                    conn.send_bytes(_ser.dumps(value))
         except (OSError, BrokenPipeError) as e:
             raise PeerDiedError(f"rank {dst} unreachable") from e
 

@@ -6,10 +6,7 @@ from typing import Any
 
 from ray_tpu_torch.core import serialization as ser
 from ray_tpu_torch.core.ids import ActorID
-from ray_tpu_torch.core.remote_function import (
-    dag_not_ported,
-    make_task_options,
-)
+from ray_tpu_torch.core.remote_function import make_task_options
 
 
 class ActorMethod:
@@ -70,7 +67,8 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Bind this method on a live actor into a DAG."""
-        raise dag_not_ported()
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
 
 class ActorHandle:
@@ -165,7 +163,8 @@ class ActorClass:
 
     def bind(self, *args, **kwargs):
         """Lazily bind actor construction into a DAG."""
-        raise dag_not_ported()
+        from ray_tpu_torch.dag.dag_node import ClassNode
+        return ClassNode(self, args, kwargs)
 
     @property
     def underlying_class(self) -> type:

@@ -320,8 +320,16 @@ def get(refs, timeout: float | None = None):
     elif isinstance(refs, (list, tuple)) and any(
             _is_duck_ref(r) for r in refs):
         refs = [_unwrap_duck_ref(r) for r in refs]
-    # (The JAX package also unwraps compiled DAGs' CompiledDAGRefs
-    # here; compiled DAGs are not ported yet, ROADMAP.md §1.)
+    # Channel-mode compiled DAGs hand back CompiledDAGRefs (values ride
+    # shm channels, not the object store) — unwrap them here so
+    # ``ray.get(dag.execute(x))`` works across both modes.
+    from ray_tpu_torch.dag.compiled_dag import CompiledDAGRef
+    if isinstance(refs, CompiledDAGRef):
+        return refs.get(timeout)
+    if isinstance(refs, (list, tuple)) and any(
+            isinstance(r, CompiledDAGRef) for r in refs):
+        return [r.get(timeout) if isinstance(r, CompiledDAGRef)
+                else get_runtime().get(r, timeout) for r in refs]
     return get_runtime().get(refs, timeout)
 
 

@@ -19,13 +19,6 @@ def _build_resources(num_cpus=None, num_gpus=None, resources=None,
     return out
 
 
-def dag_not_ported() -> NotImplementedError:
-    """The error of ``bind()``: DAGs are not ported yet."""
-    return NotImplementedError(
-        "bind() builds a DAG; DAGs and compiled DAGs are not ported to "
-        "ray_tpu_torch yet (ROADMAP.md §1)")
-
-
 def _is_duck_ref(o) -> bool:
     # TYPE-level lookup: an instance __getattr__ that answers every
     # probe (mock objects) must not read as a duck-ref.
@@ -163,7 +156,8 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazily bind into a DAG (reference: dag_node.py bind)."""
-        raise dag_not_ported()
+        from ray_tpu_torch.dag.dag_node import FunctionNode
+        return FunctionNode(self, args, kwargs)
 
     @property
     def underlying_function(self):

@@ -1,12 +1,15 @@
 """Build the native library (g++; ctypes ABI, no pybind11): the
-shared-memory store (``store.cpp``) and the TFRecord scanner
+shared-memory store (``store.cpp``), the mutable shared-memory channel
+of compiled DAGs (``channel.cpp``) and the TFRecord scanner
 (``tfrec.cpp``, the Data library's frame walk and crc32c).
 
 Host C++, not a kernel. Compiles lazily into
 ``ray_tpu_torch/native/_build/`` on first use; rebuilt when a source
 is newer than the library. Safe under concurrent processes (atomic
-rename). The JAX package's ``channel.cpp`` (compiled DAGs) is not
-ported yet.
+rename). Linked ``-Bsymbolic``: the library's calls into its own C
+functions bind to its own definitions, never to a same-named one of
+another library in the process (the JAX package's exports the same
+names).
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import tempfile
 
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(_SRC_DIR, "_build")
-_SOURCES = ["store.cpp", "tfrec.cpp"]
+_SOURCES = ["store.cpp", "channel.cpp", "tfrec.cpp"]
 _LIB = "libraytpu_torch_native.so"
 
 
@@ -44,7 +47,7 @@ def ensure_built() -> str | None:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
     os.close(fd)
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17",
-           "-o", tmp, *srcs, "-lpthread", "-lrt"]
+           "-Wl,-Bsymbolic", "-o", tmp, *srcs, "-lpthread", "-lrt"]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, lib_path())

@@ -74,7 +74,11 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.experimental.pubsub",
            "ray_tpu_torch.core.node_daemon", "ray_tpu_torch.core.head",
            "ray_tpu_torch.core.oplog", "ray_tpu_torch.client_builder",
-           "ray_tpu_torch.dashboard.agent"} - set(names)
+           "ray_tpu_torch.dashboard.agent", "ray_tpu_torch.dag.dag_node",
+           "ray_tpu_torch.dag.compiled_dag", "ray_tpu_torch.dag.comm_channel",
+           "ray_tpu_torch.experimental.channel", "ray_tpu_torch.native.channel",
+           "ray_tpu_torch.workflow.api", "ray_tpu_torch.workflow.storage",
+           "ray_tpu_torch.workflow.common"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -179,6 +183,21 @@ print("OK")
 def test_multi_node_host_modules_import_no_torch_and_no_jax(module):
     """A node daemon is a host process: only the workers it spawns touch
     a card. These modules load nothing of torch, JAX or ``ray_tpu``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _HOST_CHILD % (BLOCKED + ("torch",), module, module)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.dag", "ray_tpu_torch.workflow",
+    "ray_tpu_torch.experimental.channel"])
+def test_dag_and_workflow_modules_import_no_torch(module):
+    """A DAG, its channels and a workflow load no torch (nor JAX, nor
+    ``ray_tpu``): torch comes in with a tensor that a value carries."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c",

@@ -168,11 +168,14 @@ def test_no_module_of_the_jax_package_in_a_worker(port):
 def test_features_outside_this_slice_raise(port):
     # A client of a running head is multi-node, which the port runs
     # (tests/test_torch_cluster*.py); a process that runs a runtime
-    # does not start a second one.
+    # does not start a second one. ``bind`` builds a DAG node, which the
+    # port runs (tests/test_torch_dag.py); the dashboard is not ported.
+    from ray_tpu_torch.dag import FunctionNode
     with pytest.raises(RuntimeError, match="called twice"):
         port.init(address="auto")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.remote(programs.echo).bind(1)
+    node = port.remote(programs.echo).bind(1)
+    assert isinstance(node, FunctionNode)
+    assert port.get(node.execute()) == 1
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port.init(include_dashboard=True)
     assert port.is_initialized()
