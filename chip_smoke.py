@@ -13,6 +13,7 @@
     python3 chip_smoke.py --plant-fault vit_padded_keys
     python3 chip_smoke.py --plant-fault dag_stage_skips_block
     python3 chip_smoke.py --plant-fault workflow_reruns_done_step
+    python3 chip_smoke.py --plant-fault fake_node_gpu_as_resource
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -528,6 +529,48 @@ exits non-zero without its result line:
    DAG_CARDS_EXECUTES executes against the whole model in this process
    (DAG_RTOL), each stage on its daemon's card UUID, executes/s printed;
    no daemon or worker left.
+22. Dashboard, job submission and autoscaler (``ray_tpu_torch.dashboard``,
+   ``job_submission``, ``autoscaler``). (a) ``init(include_dashboard=True,
+   dashboard_port=0)`` with the card visible; ``POST /api/jobs`` an
+   entrypoint ``python <script>`` (the script written under the run's
+   temporary directory, this checkout on its ``PYTHONPATH`` through the
+   job's ``runtime_env``) that joins the session (``init(address=
+   "auto")``), prints its ``CUDA_VISIBLE_DEVICES`` and runs one
+   ``num_gpus=1`` task (``job_train``) of WORKFLOW_SPAN captured GPT-2
+   124M steps at 32 x 1024 from phase 14 (c)'s weights; ``GET
+   /api/jobs/<id>`` until it ends, its line from ``GET
+   /api/jobs/<id>/logs``. Checks: SUCCEEDED, return code 0; the losses
+   within CAPTURE_LOSS_RTOL of phase 14 (c)'s first steps (bit-equal
+   expected); 12 launches of each square kernel a step, ``compile_count``
+   1; the entrypoint saw ``CUDA_VISIBLE_DEVICES=""`` (its supervisor holds
+   no GPU) and the task ran on this card's UUID; ``/api/cluster`` and
+   ``/api/nodes`` report GPU 1, ``/api/agents``, ``/simple`` and the page
+   carry the ``gpus`` column with 1; ``/metrics`` the system gauges; a job
+   that exits 3 ends FAILED, a sleeping one stopped over REST ends
+   STOPPED and leaves no process (its entrypoint's child of the shell
+   too); no worker left after ``shutdown()``. Prints submit to
+   SUCCEEDED and the entrypoint's start to its first loss. (b) A
+   card-less head (``Cluster``), an ``Autoscaler`` over
+   ``FakeMultiNodeProvider`` with node type ``h100 = {"CPU": 2, "GPU":
+   1}`` (0 to 1 workers, idle timeout AUTOSCALE_IDLE_S) and one pending
+   ``num_gpus=1`` task (``autoscaled_forward``): GPT-2 124M's forward of
+   phase 17's full batch (8 x 1024). Checks: one node launched, holding
+   this card (its daemon started with ``--num-gpus 1`` and
+   ``CUDA_VISIBLE_DEVICES`` naming it, the head's card ids, the task on
+   this card's UUID); the forward bit-equal to this process's; 12
+   ``flash_fwd`` launches and no backward kernel; ``request_resources(
+   bundles=[{"GPU": 1}])`` keeps the idle node past twice the timeout,
+   ``request_resources(bundles=[])`` lets it go; the node terminated,
+   ``non_terminated_nodes()`` empty; no daemon or worker left. Prints
+   demand to node registered to result, and the cleared floor to the
+   node terminated. ``--plant-fault fake_node_gpu_as_resource`` runs (b)
+   with the JAX package's pass-through of ``GPU`` as a bare resource
+   (the node's daemon given no card): exit 1 caught, 2 missed. Under
+   ``--cards N``, after phase 21 (c): (c) node type ``h100x4 = {"CPU": 4,
+   "GPU": N}`` (0 to 1) and a ``STRICT_PACK`` group of N ``{"GPU": 1}``
+   bundles: one N-card node launched whole, the N bundles' forwards at
+   once on N distinct card UUIDs of it, each bit-equal to this process's,
+   12 ``flash_fwd`` each; the node scaled down, nothing left.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -547,7 +590,10 @@ full batch, 8 x 1024, with the replica's launches, as the entry with
 ``"path": "serve"``, and with phase 21 (a)'s stages' launches as the
 entry with ``"path": "compiled dag stage"``; the square kernels with
 phase 20 (b)'s launches, ``"path": "node daemon actor"``, and with phase
-21 (b)'s, ``"path": "workflow step"``), the card line again, and
+21 (b)'s, ``"path": "workflow step"``; the square kernels with phase 22
+(a)'s launches, ``"path": "job task"``, and ``flash_fwd`` at phase 17's
+full batch with (b)'s, ``"path": "autoscaled node"``), the card line
+again, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
 GPU is visible, and when the package is not beside it.
 
@@ -801,6 +847,8 @@ DAG_CARDS_EXECUTES = 8             # (c): executes across four daemons
 # orders of magnitude more.
 DAG_RTOL = 1e-6
 WORKFLOW_SPAN = 2                  # (b): train steps of each workflow step
+AUTOSCALE_IDLE_S = 2.0             # phase 22 (b), (c): the idle timeout
+AUTOSCALE_TTL_S = 1.0              # ... and an idle worker's reaping there
 RUNTIME_TASKS = 1000               # no-op tasks of the host rate
 RUNTIME_ACTOR_CALLS = 2000         # calls to one actor of the host rate
 DATA_STEPS = 12                    # steps (batches) of the Data feed
@@ -931,6 +979,11 @@ DAG_FAULTS = {"dag_stage_skips_block": "the compiled DAG's second stage "
               "starts one block late (block 7)",
               "workflow_reruns_done_step": "workflow.resume ignores the "
               "stored result of the first step"}
+# A fault of phase 22 (b)'s fake provider: the JAX package's pass-through
+# of a node type's resources, GPU a bare row of a node given no card.
+JOB_FAULTS = {"fake_node_gpu_as_resource": "the fake provider passes a node "
+              "type's GPU to Cluster.add_node as a bare resource, so the "
+              "node's daemon is given no card"}
 # A fault of ViT's bidirectional ring: every row of a padded block taken
 # as a valid key (models.vit.seq_blocks planted), so the hops read the
 # padding; phase 12 (c') must fail it.
@@ -7620,6 +7673,576 @@ def dag_cards_phase(n: int, card: str) -> dict:
     return {"rate": rate, "rel": rel}
 
 
+# -- phase 22: dashboard, job submission and autoscaler ----------------------
+
+# The job's entrypoint (phase 22 (a)), written under the run's temporary
+# directory: it joins the session ("auto": the session whose head is its
+# ancestor), prints what it sees, and runs one num_gpus=1 task. It loads
+# no torch itself: the task imports chip_smoke where it runs.
+JOB_ENTRY = """\
+import json, os, sys, time
+t_entry = time.time()
+visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+print(f"entrypoint: CUDA_VISIBLE_DEVICES={visible!r}", flush=True)
+import ray_tpu_torch as rt
+
+
+def train(steps, capture):
+    import chip_smoke
+    return chip_smoke.job_train(steps, capture)
+
+
+rt.init(address="auto")
+task = rt.remote(num_gpus=1)(train)
+out = rt.get(task.remote(int(sys.argv[1]), sys.argv[2] == "1"), timeout=900)
+out.update(entry_visible=visible, t_entry=t_entry)
+print("JOB" + json.dumps(out), flush=True)
+"""
+
+
+def http_json(url: str, body: dict | None = None, timeout: float = 120.0):
+    """(status, JSON or text) of a GET, or of a POST of ``body``."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, raw = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+    try:
+        return code, json.loads(raw)
+    except ValueError:
+        return code, raw.decode("utf-8", "replace")
+
+
+def job_train(steps: int, capture: bool) -> dict:
+    """Phase 22 (a)'s task, which the job's entrypoint runs at
+    ``num_gpus=1``: GPT-2 124M from phase 14 (c)'s weights (seed 0) on
+    its batch, ``steps`` steps of ``gpt2_steps``. Returns the losses, the
+    launches, ``compile_count``, the card's UUID and what the task's
+    process sees."""
+    t_start = time.time()
+    cfg = GPT2Config.small()
+    model = GPT2(cfg, seed=0)
+    first: dict = {}
+    run = gpt2_steps(model, train_batch(cfg.vocab_size), steps, 0, capture,
+                     report=lambda m: first.setdefault("t", m["t"]))
+    return {"losses": run["losses"], "counts": run["counts"],
+            "compile_count": run["compile_count"],
+            "uuid": card_uuid(next(model.parameters()).device),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "pid": os.getpid(), "t_start": t_start, "t_first": first["t"]}
+
+
+def runtime_workers() -> set:
+    """Pids of this process's children that are runtime workers."""
+    out = set()
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, ValueError, IndexError):
+            continue
+        if ppid == os.getpid() and b"core.worker_entry" in cmd:
+            out.add(int(pid))
+    return out
+
+
+def job_status(url: str, sid: str, timeout: float) -> dict:
+    """``GET /api/jobs/<sid>`` until the job ends."""
+    return wait_for(lambda: (lambda i: i if i["status"] in (
+        "SUCCEEDED", "FAILED", "STOPPED") else None)(
+        http_json(f"{url}/api/jobs/{sid}")[1]), timeout,
+        f"job {sid} ended", period=0.2)
+
+
+def job_leg(url: str, card: str, ref_losses: list, uuid: str
+            ) -> tuple[dict, list]:
+    """Phase 22 (a) in a runtime started with the dashboard: the GPT-2
+    job over ``POST /api/jobs``, the dashboard's reads, a job that exits 3
+    and a sleeping one stopped over REST. Returns readings and checks."""
+    n = GPT2Config.small().n_layer
+    want_captures = 1 if CAPTURE else None
+    root = tempfile.mkdtemp(prefix="chip_smoke_job_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {"env_vars": {"PYTHONPATH": here}}
+    try:
+        entry = os.path.join(root, "train_job.py")
+        with open(entry, "w") as f:
+            f.write(JOB_ENTRY)
+        t0 = time.time()
+        code, sub = http_json(f"{url}/api/jobs", {
+            "entrypoint": f"{sys.executable} {entry} {WORKFLOW_SPAN} "
+                          f"{int(CAPTURE)}", "runtime_env": env,
+            "metadata": {"phase": "22"}})
+        sid = sub["submission_id"]
+        info = job_status(url, sid, 900)
+        done_s = time.time() - t0
+        logs = http_json(f"{url}/api/jobs/{sid}/logs")[1]["logs"]
+        line = [x for x in logs.splitlines() if x.startswith("JOB")]
+        out = json.loads(line[-1][3:]) if line else None
+        cluster = http_json(f"{url}/api/cluster")[1]
+        nodes = http_json(f"{url}/api/nodes")[1]
+        agents = http_json(f"{url}/api/agents")[1]
+        simple = http_json(f"{url}/simple")[1]
+        page = http_json(f"{url}/")[1]
+        metrics = http_json(f"{url}/metrics")[1]
+        t1 = time.time()
+        failed = http_json(f"{url}/api/jobs", {
+            "entrypoint": f"{sys.executable} -c 'import sys; sys.exit(3)'"}
+            )[1]["submission_id"]
+        sleeper = http_json(f"{url}/api/jobs", {
+            "entrypoint": f"{sys.executable} -c 'import os, time; "
+                          f"print(\"PID\", os.getpid(), flush=True); "
+                          f"time.sleep(600)'"})[1]["submission_id"]
+        failed_info = job_status(url, failed, 300)
+
+        def sleeping_pid():
+            lines = [x for x in http_json(f"{url}/api/jobs/{sleeper}/logs")[
+                1]["logs"].splitlines() if x.startswith("PID ")]
+            return int(lines[0].split()[1]) if lines else None
+        pid = wait_for(sleeping_pid, 300, "the sleeping job running", 0.2)
+        stop = http_json(f"{url}/api/jobs/{sleeper}/stop", {})
+        stopped = job_status(url, sleeper, 120)
+        others_s = time.time() - t1
+        # Its process, a child of the entrypoint's shell, ends with it.
+        sleeper_left = node_processes_left({pid}, timeout=15)
+        jobs = http_json(f"{url}/api/jobs")[1]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gauges = sorted(set(re.findall(r"^# TYPE (ray_tpu_\w+) gauge$",
+                                   metrics, re.M)))
+    head_row = simple.split("<tr><td>head</td>")[-1].split("</tr>")[0]
+    readings = {"done_s": done_s, "others_s": others_s, "out": out,
+                "counts": (out or {}).get("counts", {})}
+    if out is None:
+        print(f"jobs (a) the job's logs: {logs[-3000:]}", flush=True)
+        out = {"losses": [], "counts": {}, "compile_count": None,
+               "uuid": None, "visible": None, "entry_visible": None,
+               "pid": None, "t_entry": t0, "t_start": t0, "t_first": t0}
+    rel = [_rel(a, b) for a, b in zip(out["losses"], ref_losses)]
+    print(f"jobs (a) a job submitted over POST /api/jobs (status {code}), "
+          f"its entrypoint a script that joins the session and runs one "
+          f"num_gpus=1 task of {WORKFLOW_SPAN} captured GPT-2 124M steps "
+          f"at {TRAIN_BATCH} x {TRAIN_SEQ}: {info['status']}, return code "
+          f"{info['return_code']}; submit to SUCCEEDED {done_s:.2f} s; the "
+          f"entrypoint's start to its first loss "
+          f"{out['t_first'] - out['t_entry']:.2f} s (the task's own start to "
+          f"it {out['t_first'] - out['t_start']:.2f} s); losses "
+          f"{out['losses']} vs phase 14 (c)'s {ref_losses} (relative "
+          f"{max(rel) if rel else None}, limit {CAPTURE_LOSS_RTOL}); "
+          f"launches {out['counts']}, compile_count {out['compile_count']}; "
+          f"the entrypoint's CUDA_VISIBLE_DEVICES {out['entry_visible']!r}, "
+          f"the task's {out['visible']!r} on card {out['uuid']}; card "
+          f"{card}", flush=True)
+    print(f"jobs (a) the dashboard: /api/cluster GPU "
+          f"{cluster['resources'].get('GPU')}, /api/nodes GPU "
+          f"{[r['resources_total'].get('GPU') for r in nodes]}, "
+          f"/api/agents head gpus {agents['head'].get('gpus')}; /simple's "
+          f"head row {head_row!r}; {len(gauges)} ray_tpu_* gauges on "
+          f"/metrics; a job that exits 3 {failed_info['status']} (return "
+          f"code {failed_info['return_code']}), a sleeping job stopped over "
+          f"REST {stop} then {stopped['status']} (its process left "
+          f"{sleeper_left}), both in {others_s:.2f} s; {len(jobs)} jobs "
+          f"listed; card {card}",
+          flush=True)
+    bad = {k: v for k, v in out["counts"].items()
+           if k in SQUARE and v != n * WORKFLOW_SPAN}
+    checks = [
+        ("(a) the job SUCCEEDED with return code 0",
+         info["status"] == "SUCCEEDED" and info["return_code"] == 0,
+         [info["status"], info["return_code"]]),
+        (f"(a) the job's {WORKFLOW_SPAN} losses within {CAPTURE_LOSS_RTOL} "
+         f"of phase 14 (c)'s first steps",
+         len(rel) == WORKFLOW_SPAN and max(rel) <= CAPTURE_LOSS_RTOL, rel),
+        (f"(a) {n} launches of each square kernel a step, compile_count "
+         f"{want_captures}",
+         len(out["counts"]) > 0 and not bad
+         and all(k in out["counts"] for k in SQUARE)
+         and out["compile_count"] == want_captures,
+         [out["counts"], out["compile_count"]]),
+        ("(a) the entrypoint saw no card (CUDA_VISIBLE_DEVICES=''), the "
+         "task ran on this card",
+         out["entry_visible"] == "" and out["uuid"] == uuid,
+         [out["entry_visible"], out["uuid"], uuid]),
+        ("(a) /api/cluster and /api/nodes report GPU 1, the node tables "
+         "the gpus column with 1",
+         cluster["resources"].get("GPU") == 1.0
+         and [r["resources_total"].get("GPU") for r in nodes] == [1.0]
+         and agents["head"].get("gpus") == 1 and "<th>gpus</th>" in simple
+         and head_row.endswith("<td>1</td>") and '"gpus"]' in page
+         and "s.gpus" in page,
+         [cluster["resources"].get("GPU"), head_row]),
+        ("(a) /metrics carries the system gauges",
+         all(g in gauges for g in (
+             "ray_tpu_nodes_alive", "ray_tpu_workers_total",
+             "ray_tpu_tasks_pending", "ray_tpu_tasks_running",
+             "ray_tpu_actors_alive", "ray_tpu_object_store_bytes",
+             "ray_tpu_head_queue_depth")), gauges),
+        ("(a) a job that exits 3 ends FAILED, a sleeping one stopped over "
+         "REST ends STOPPED and leaves no process",
+         failed_info["status"] == "FAILED"
+         and failed_info["return_code"] == 3
+         and stop == (200, {"stopped": True})
+         and stopped["status"] == "STOPPED" and not sleeper_left,
+         [failed_info["status"], stop, stopped["status"], sleeper_left])]
+    return readings, checks
+
+
+def autoscaled_forward(tokens: np.ndarray, gate: str | None = None,
+                       gang: int = 0) -> dict:
+    """Phase 22 (b), (c): a ``num_gpus=1`` task on an autoscaled node,
+    GPT-2 124M from phase 14 (c)'s weights (seed 0), one forward of
+    ``tokens`` (``gpt2_reduction``), the flash launches counted around
+    it. With ``gate``, it first waits until ``gang`` tasks are running,
+    so that each holds its card at once."""
+    import ray_tpu_torch as rt
+    if gate is not None:
+        open(os.path.join(gate, str(os.getpid())), "w").close()
+        wait_for(lambda: len(os.listdir(gate)) >= gang, 300,
+                 f"{gang} tasks holding their cards")
+    model = GPT2(GPT2Config.small(), seed=0)
+    fa.reset_launch_counts()
+    red = gpt2_reduction(model, tokens)
+    counts = fa.launch_counts()
+    return {**red, "counts": counts, "pid": os.getpid(),
+            "uuid": card_uuid(next(model.parameters()).device),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "node": rt.get_runtime_context().get_node_id()}
+
+
+def daemon_pid(cluster, node_id: str) -> int:
+    """The pid of the node daemon behind ``node_id`` in ``cluster``."""
+    return next(nd.proc.pid for nd in cluster.list_all_nodes
+                if nd.node_id == node_id)
+
+
+def process_env(pid: int, name: str) -> str | None:
+    """``name`` in the environment process ``pid`` was started with."""
+    with open(f"/proc/{pid}/environ", "rb") as f:
+        for item in f.read().split(b"\0"):
+            key, _, value = item.partition(b"=")
+            if key.decode() == name:
+                return value.decode()
+    return None
+
+
+def process_flag(pid: int, flag: str) -> str | None:
+    """The value after ``flag`` on process ``pid``'s command line."""
+    with open(f"/proc/{pid}/cmdline", "rb") as f:
+        args = f.read().decode().split("\0")
+    return args[args.index(flag) + 1] if flag in args else None
+
+
+def fake_provider(fault: str | None):
+    """The fake provider's class; under ``fake_node_gpu_as_resource`` the
+    JAX package's pass-through of every resource but CPU into
+    ``Cluster.add_node(resources=...)``, so the node is given no card."""
+    from ray_tpu_torch.autoscaler.fake_provider import FakeMultiNodeProvider
+    if fault != "fake_node_gpu_as_resource":
+        return FakeMultiNodeProvider
+
+    class GpuAsResource(FakeMultiNodeProvider):
+        def create_node(self, node_type, resources):
+            res = dict(resources)
+            cpus = res.pop("CPU", 1.0)
+            node = self._cluster.add_node(num_cpus=cpus, resources=res)
+            with self._lock:
+                self._nodes[node.node_id] = (node, node_type)
+            return node.node_id
+    return GpuAsResource
+
+
+def autoscale_tokens(vocab: int) -> np.ndarray:
+    """Phase 17's full batch of token ids, 8 x 1024 (numpy seed 0)."""
+    return np.random.default_rng(0).integers(
+        0, vocab, (SERVE_BATCH, TRAIN_SEQ)).astype(np.int32)
+
+
+def autoscale_leg(card: str, fault: str | None = None
+                  ) -> tuple[dict, list]:
+    """Phase 22 (b): a card-less head, an ``Autoscaler`` over the fake
+    provider with node type ``h100 = {"CPU": 2, "GPU": 1}`` (0 to 1),
+    one pending ``num_gpus=1`` forward; the ``request_resources`` floor
+    holding the idle node, then released. Returns readings and checks."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (
+        Autoscaler,
+        AutoscalerConfig,
+        NodeTypeConfig,
+        sdk,
+    )
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.api import get_runtime
+    from ray_tpu_torch.core.config import env_overrides
+    cfg = GPT2Config.small()
+    tokens = autoscale_tokens(cfg.vocab_size)
+    model = GPT2(cfg, seed=0)
+    ref = gpt2_reduction(model, tokens)
+    uuid = card_uuid(next(model.parameters()).device)
+    del model
+    torch.cuda.empty_cache()
+    gpu_id = node_gpu_ids(1)[0]
+    t = {}
+    daemon = None
+    with env_overrides(idle_worker_ttl_s=AUTOSCALE_TTL_S):
+        c = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
+        try:
+            head = get_runtime()
+            provider = fake_provider(fault)(c)
+            asc = Autoscaler(AutoscalerConfig(
+                node_types=[NodeTypeConfig("h100", {"CPU": 2, "GPU": 1},
+                                           0, 1)],
+                idle_timeout_s=AUTOSCALE_IDLE_S, update_interval_s=0.2),
+                provider, head)
+            asc.start()
+            try:
+                t0 = time.perf_counter()
+                ref_task = rt.remote(num_gpus=1)(autoscaled_forward).remote(
+                    tokens)
+                node_id = wait_for(provider.non_terminated_nodes, 120,
+                                   "a node launched")[0].node_id
+                t["node_s"] = time.perf_counter() - t0
+                daemon = daemon_pid(c, node_id)
+                out = rt.get(ref_task, timeout=600)
+                t["result_s"] = time.perf_counter() - t0
+                given = [process_flag(daemon, "--num-gpus"),
+                         process_env(daemon, "CUDA_VISIBLE_DEVICES")]
+                cards = sorted(head._nodes[node_id].cards)
+                # The floor: the idle node stays past the idle timeout.
+                sdk.request_resources(bundles=[{"GPU": 1}])
+                wait_for(lambda: any(
+                    r["NodeID"] == node_id and r["alive_workers"] == 0
+                    and r["Available"] == r["Resources"]
+                    for r in rt.nodes()), 120, "the node idle")
+                t_idle = time.perf_counter()
+                time.sleep(2 * AUTOSCALE_IDLE_S)
+                held = [n.node_id for n in provider.non_terminated_nodes()]
+                sdk.request_resources(bundles=[])
+                t1 = time.perf_counter()
+                wait_for(lambda: not provider.non_terminated_nodes()
+                         and asc.terminated_total == 1, 120,
+                         "the idle node terminated")
+                t["terminate_s"] = time.perf_counter() - t1
+                t["idle_s"] = t1 - t_idle
+            finally:
+                asc.stop()
+                sdk.request_resources(bundles=[])
+        finally:
+            c.shutdown()
+    left = node_processes_left({daemon, out["pid"]} - {None})
+    rel = reduction_rel(out, ref)
+    print(f"autoscale (b) a card-less head and an Autoscaler over the fake "
+          f"provider, node type h100 {{CPU: 2, GPU: 1}} (0-1), idle timeout "
+          f"{AUTOSCALE_IDLE_S} s: one num_gpus=1 GPT-2 124M forward of "
+          f"{SERVE_BATCH} x {TRAIN_SEQ} pending -> node registered "
+          f"{t['node_s']:.2f} s -> result {t['result_s']:.2f} s; nodes "
+          f"launched {asc.launched_total}, its daemon started with "
+          f"--num-gpus {given[0]} and CUDA_VISIBLE_DEVICES {given[1]!r}, "
+          f"the head's card ids {cards}; the task's CUDA_VISIBLE_DEVICES "
+          f"{out['visible']!r} on card {out['uuid']}; relative difference "
+          f"to this process's forward {rel:.3g} (bit-equal "
+          f"{rel == 0.0}); launches {out['counts']}; request_resources"
+          f"([{{GPU: 1}}]) kept {held} through {2 * AUTOSCALE_IDLE_S:.1f} s "
+          f"idle; cleared -> terminated {t['terminate_s']:.2f} s; card "
+          f"{card}", flush=True)
+    fwd = out["counts"].get("flash_fwd", 0)
+    bwd = {k: v for k, v in out["counts"].items() if k != "flash_fwd" and v}
+    checks = [
+        ("(b) one node launched, holding this card (its daemon given it: "
+         "--num-gpus 1 and CUDA_VISIBLE_DEVICES, the head's card ids)",
+         asc.launched_total == 1 and given == ["1", gpu_id]
+         and cards == [gpu_id] and out["uuid"] == uuid
+         and out["node"] == node_id,
+         [asc.launched_total, given, cards, out["uuid"] == uuid]),
+        ("(b) the forward on the autoscaled node bit-equal to this "
+         "process's", rel == 0.0, rel),
+        (f"(b) {cfg.n_layer} flash_fwd launches and no backward kernel in "
+         f"the task", fwd == cfg.n_layer and not bwd, out["counts"]),
+        ("(b) request_resources keeps the idle node past the timeout, "
+         "clearing it lets the node go", held == [node_id], held),
+        ("(b) the node terminated, non_terminated_nodes() empty, its "
+         "daemon gone", not provider.non_terminated_nodes()
+         and asc.terminated_total == 1
+         and not any(x.startswith(f"{daemon}:") for x in left),
+         [asc.terminated_total, left]),
+        ("(b) no daemon or worker left", not left, left)]
+    return {"counts": out["counts"], **t}, checks
+
+
+def jobs_phase(card: str, runtime: dict | None = None,
+               fault: str | None = None) -> dict:
+    """Phase 22 (see the module docstring): (a) in a runtime started with
+    the dashboard, then (b) on a cluster of its own. ``runtime`` (phase
+    14's readings) gives (a) the driver's losses; without it they are run
+    here. With ``fault`` only (b) runs, its checks read without raising.
+    Returns the readings and whether every check held."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.api import get_runtime
+    out, checks = {}, []
+    t0 = time.perf_counter()
+    if fault is None:
+        cfg = GPT2Config.small()
+        if runtime is None:
+            ref_losses = gpt2_steps(GPT2(cfg, seed=0),
+                                    train_batch(cfg.vocab_size),
+                                    WORKFLOW_SPAN, 0, CAPTURE)["losses"]
+        else:
+            ref_losses = runtime["ref_losses"][:WORKFLOW_SPAN]
+        torch.cuda.empty_cache()
+        uuid = card_uuid(default_device())
+        t_a = time.perf_counter()
+        rt.init(include_dashboard=True, dashboard_port=0)
+        try:
+            url = get_runtime()._dashboard.url
+            out["a"], c = job_leg(url, card, ref_losses, uuid)
+            checks += c
+            workers = runtime_workers()
+        finally:
+            rt.shutdown()
+        task_pid = (out["a"]["out"] or {}).get("pid")
+        left = node_processes_left(workers | ({task_pid} - {None}))
+        checks.append(("(a) no worker left after shutdown()", not left,
+                       left))
+        out["a"]["leg_s"] = time.perf_counter() - t_a
+    t_b = time.perf_counter()
+    out["b"], c = autoscale_leg(card, fault)
+    out["b"]["leg_s"] = time.perf_counter() - t_b
+    checks += c
+    out["s"] = time.perf_counter() - t0
+    out["held"] = report_checks(checks, card, strict=fault is None,
+                                prefix="jobs")
+    return out
+
+
+def jobs_fault_main(name: str, card: str) -> int:
+    """``--plant-fault fake_node_gpu_as_resource``: the build, then phase
+    22 (b) with the fault's provider, its checks read without raising.
+    Exits 1 when a check fails it (caught), 2 when none does or the run
+    failed before its checks."""
+    print(f"planted fault {name}: {JOB_FAULTS[name]}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        build.ensure_built()
+        print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+        held = jobs_phase(card, fault=name)["held"]
+    except Exception:  # noqa: BLE001 — the harness failed, not the checks
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_checks": True}), flush=True)
+        return 2
+    print(json.dumps({"fault": name, "caught": not held}), flush=True)
+    return 1 if not held else 2
+
+
+def autoscale_cards_phase(n: int, card: str) -> dict:
+    """Phase 22 (c), under ``--cards n``: a card-less head, an
+    ``Autoscaler`` with node type ``h100x4 = {"CPU": 4, "GPU": n}`` (0 to
+    1) and a ``STRICT_PACK`` placement group of ``n`` ``{"GPU": 1}``
+    bundles: one ``n``-card node launched whole, a forward in each bundle
+    at once on ``n`` distinct cards of it, each bit-equal to this
+    process's; then the node scaled down and nothing left."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (
+        Autoscaler,
+        AutoscalerConfig,
+        NodeTypeConfig,
+    )
+    from ray_tpu_torch.autoscaler.fake_provider import FakeMultiNodeProvider
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.api import get_runtime
+    from ray_tpu_torch.core.config import env_overrides
+    from ray_tpu_torch.util.scheduling_strategies import (
+        PlacementGroupSchedulingStrategy,
+    )
+    cfg = GPT2Config.small()
+    tokens = autoscale_tokens(cfg.vocab_size)
+    ref = gpt2_reduction(GPT2(cfg, seed=0), tokens)
+    torch.cuda.empty_cache()
+    uuids = sorted(str(torch.cuda.get_device_properties(i).uuid)
+                   for i in range(n))
+    gate = tempfile.mkdtemp(prefix="chip_smoke_gang_")
+    t = {}
+    daemon = None
+    outs: list = []
+    with env_overrides(idle_worker_ttl_s=AUTOSCALE_TTL_S):
+        c = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
+        try:
+            head = get_runtime()
+            provider = FakeMultiNodeProvider(c)
+            asc = Autoscaler(AutoscalerConfig(
+                node_types=[NodeTypeConfig("h100x4", {"CPU": 4, "GPU": n},
+                                           0, 1)],
+                idle_timeout_s=AUTOSCALE_IDLE_S, update_interval_s=0.2),
+                provider, head)
+            asc.start()
+            try:
+                t0 = time.perf_counter()
+                pg = rt.placement_group([{"GPU": 1}] * n,
+                                        strategy="STRICT_PACK")
+                ready = pg.ready(timeout=300)
+                t["ready_s"] = time.perf_counter() - t0
+                task = rt.remote(num_cpus=0, num_gpus=1)(autoscaled_forward)
+                outs = rt.get([task.options(
+                    scheduling_strategy=PlacementGroupSchedulingStrategy(
+                        pg, placement_group_bundle_index=i)).remote(
+                    tokens, gate, n) for i in range(n)], timeout=900)
+                t["result_s"] = time.perf_counter() - t0
+                nodes = provider.non_terminated_nodes()
+                node_id = nodes[0].node_id
+                daemon = daemon_pid(c, node_id)
+                cards = sorted(head._nodes[node_id].cards)
+                types = [nd.node_type for nd in nodes]
+                rt.remove_placement_group(pg)
+                t1 = time.perf_counter()
+                wait_for(lambda: not provider.non_terminated_nodes()
+                         and asc.terminated_total == 1, 180,
+                         "the idle node terminated")
+                t["terminate_s"] = time.perf_counter() - t1
+            finally:
+                asc.stop()
+        finally:
+            c.shutdown()
+            shutil.rmtree(gate, ignore_errors=True)
+    left = node_processes_left({daemon} | {o["pid"] for o in outs}
+                               - {None})
+    rel = [reduction_rel(o, ref) for o in outs]
+    print(f"autoscale (c) node type h100x4 {{CPU: 4, GPU: {n}}} (0-1), a "
+          f"STRICT_PACK group of {n} {{GPU: 1}} bundles: ready "
+          f"{t['ready_s']:.2f} s, nodes launched {asc.launched_total} "
+          f"({types}), its card ids {cards}; {n} forwards at once, one a "
+          f"bundle, on cards {[o['uuid'][:13] for o in outs]} (visible "
+          f"{[o['visible'] for o in outs]}), relative differences to this "
+          f"process's forward {rel}; results {t['result_s']:.2f} s; the "
+          f"group removed -> terminated {t['terminate_s']:.2f} s; card "
+          f"{card}", flush=True)
+    checks = [
+        (f"(c) one {n}-card node launched whole",
+         asc.launched_total == 1 and types == ["h100x4"] and ready
+         and len(cards) == n, [asc.launched_total, types, cards]),
+        (f"(c) the {n} bundles' tasks on {n} distinct cards of that node",
+         sorted(o["uuid"] for o in outs) == uuids
+         and all(o["node"] == node_id for o in outs),
+         [o["uuid"][:13] for o in outs]),
+        ("(c) each forward bit-equal to this process's",
+         all(r == 0.0 for r in rel), rel),
+        (f"(c) {cfg.n_layer} flash_fwd launches a task, no backward",
+         all(o["counts"].get("flash_fwd") == cfg.n_layer and not {
+             k for k, v in o["counts"].items() if k != "flash_fwd" and v}
+             for o in outs), [o["counts"] for o in outs]),
+        ("(c) the node scaled down, nothing left",
+         asc.terminated_total == 1 and not left, [asc.terminated_total,
+                                                   left])]
+    report_checks(checks, card, prefix="jobs")
+    return t
+
+
 def node_cards_from_head(self, resources, reported):
     """The planted fault ``node_cards_from_head``: a daemon node's cards
     read from this (the head's) process's environment, not its report."""
@@ -7884,7 +8507,13 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     t21 = time.perf_counter()
     dag_cards = dag_cards_phase(n, card)
     print(f"multicard dag: phase 21 (c) {time.perf_counter() - t21:.1f} s, "
-          f"{dag_cards['rate']:.2f} executes/s; chip_smoke --cards {n}: "
+          f"{dag_cards['rate']:.2f} executes/s", flush=True)
+    t22 = time.perf_counter()
+    scaled = autoscale_cards_phase(n, card)
+    print(f"multicard jobs: phase 22 (c) {time.perf_counter() - t22:.1f} s "
+          f"(group ready {scaled['ready_s']:.2f} s, results "
+          f"{scaled['result_s']:.2f} s, terminated "
+          f"{scaled['terminate_s']:.2f} s); chip_smoke --cards {n}: "
           f"{time.perf_counter() - t0:.1f} s after the build began",
           flush=True)
     print(f"card: {card}", flush=True)
@@ -7900,7 +8529,8 @@ def main() -> int:
                         choices=sorted(FAULTS) + sorted(multicard.FAULTS)
                         + list(SERVE_FAULTS) + list(TUNE_FAULTS)
                         + list(RLLIB_FAULTS) + list(VIT_FAULTS)
-                        + list(NODE_FAULTS) + list(DAG_FAULTS))
+                        + list(NODE_FAULTS) + list(DAG_FAULTS)
+                        + list(JOB_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -7932,6 +8562,8 @@ def main() -> int:
         return vit_fault_main(args.plant_fault, dev, card)
     if args.plant_fault in DAG_FAULTS:
         return dag_fault_main(args.plant_fault, card)
+    if args.plant_fault in JOB_FAULTS:
+        return jobs_fault_main(args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -8029,6 +8661,15 @@ def run_all(dev, card: str) -> int:
           f" s: {dag['a']['rate']:.2f} executes/s, compile "
           f"{dag['a']['compile_s']:.1f} s; (b) {dag['b']['leg_s']:.1f} s); "
           f"card {card}", flush=True)
+    t22 = time.perf_counter()
+    jobs = jobs_phase(card, runtime)
+    phase_s["22"] = time.perf_counter() - t22
+    print(f"jobs: phase 22 {phase_s['22']:.1f} s ((a) "
+          f"{jobs['a']['leg_s']:.1f} s: submit to SUCCEEDED "
+          f"{jobs['a']['done_s']:.2f} s; (b) {jobs['b']['leg_s']:.1f} s: "
+          f"demand to node {jobs['b']['node_s']:.2f} s, to result "
+          f"{jobs['b']['result_s']:.2f} s, cleared floor to terminated "
+          f"{jobs['b']['terminate_s']:.2f} s); card {card}", flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}"
                                      for k, v in phase_s.items()),
           flush=True)
@@ -8089,6 +8730,20 @@ def run_all(dev, card: str) -> int:
                  "replaces": REPLACES[name], "path": "workflow step",
                  "launches": dag["b"]["counts"][name], **main_rows[name]}
                 for name in SQUARE]
+    # The square kernels on the job's path: launched by phase 22 (a)'s
+    # num_gpus=1 task of the job submitted over REST, timed at GPT-2's
+    # shape; the forward kernel on the autoscaled node's path: launched by
+    # (b)'s task there, timed at phase 17's full batch (its shape).
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "path": "job task",
+                 "launches": jobs["a"]["counts"][name], **main_rows[name]}
+                for name in SQUARE]
+    kernels.append({"name": "flash_fwd", "route": "cuda",
+                    "source": SOURCES["flash_fwd"],
+                    "replaces": REPLACES["flash_fwd"],
+                    "path": "autoscaled node",
+                    **dict(served["kernel"],
+                           launches=jobs["b"]["counts"]["flash_fwd"])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

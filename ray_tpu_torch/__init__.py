@@ -12,8 +12,10 @@ trials hold cards or shares of one, and RLlib (``rllib``), whose learners
 hold the card while its env runners step on the CPU, with the host
 collective plane (``collective``) between learner processes, DAGs and
 compiled DAGs (``dag``), whose stage actors pipeline over shared-memory
-channels (``experimental.channel``), and durable workflows
-(``workflow``).
+channels (``experimental.channel``), durable workflows
+(``workflow``), the dashboard (``dashboard``), job submission
+(``job_submission``) and the autoscaler (``autoscaler``), whose nodes
+hold cards.
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.
@@ -92,8 +94,8 @@ __all__ = [
 
 
 _SUBPACKAGES = ("data", "train", "serve", "tune", "rllib", "workflow",
-                "dag", "experimental", "util", "runtime_env", "collective",
-                "cluster_utils")
+                "autoscaler", "dag", "experimental", "util", "runtime_env",
+                "collective", "cluster_utils")
 
 
 def __getattr__(name: str):

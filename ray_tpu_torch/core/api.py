@@ -94,6 +94,7 @@ def init(num_cpus: int | None = None,
          object_store_memory: int | None = None,
          namespace: str | None = None,
          include_dashboard: bool | None = None,
+         dashboard_port: int | None = None,
          cluster_token: str | bytes | None = None,
          _system_config: dict[str, Any] | None = None):
     """Start the runtime's head in this process (driver), or — with
@@ -117,18 +118,17 @@ def init(num_cpus: int | None = None,
     other. The session's socket and worker logs live under
     ``ray_tpu_torch_sessions/<pid>/`` in the temporary directory.
 
-    ``include_dashboard`` raises NotImplementedError: the dashboard
-    is not ported yet.
+    ``include_dashboard`` starts the dashboard head
+    (``dashboard.start_dashboard``) on ``dashboard_port`` (8265 by
+    default; 0 picks a free one), reached through
+    ``get_runtime()._dashboard``; ``shutdown()`` stops it. A dashboard
+    that cannot bind its port fails ``init``, and the session with it.
 
     Reference analog: ``ray.init`` (python/ray/_private/worker.py:1240).
     ``_system_config`` injects config overrides for the whole session —
     same test pattern as the reference's conftest injection.
     """
     global _runtime
-    if include_dashboard:
-        raise NotImplementedError(
-            "the dashboard is not ported to ray_tpu_torch yet "
-            "(ROADMAP.md §1)")
     with _runtime_lock:
         if _runtime is not None:
             if ignore_reinit_error:
@@ -150,6 +150,7 @@ def init(num_cpus: int | None = None,
         if address is not None:
             bad = {"num_cpus": num_cpus, "num_gpus": num_gpus,
                    "object_store_memory": object_store_memory,
+                   "include_dashboard": include_dashboard,
                    "resources": resources,
                    "_system_config": _system_config}
             passed = [k for k, v in bad.items() if v]
@@ -205,6 +206,19 @@ def init(num_cpus: int | None = None,
             cfg, num_cpus=num_cpus, num_gpus=num_gpus,
             resources=resources, local_mode=local_mode,
             runtime_env=runtime_env, log_to_driver=log_to_driver)
+        if include_dashboard:
+            from ray_tpu_torch.dashboard.head import start_dashboard
+            try:
+                # kept on the runtime: callers reach the bound port
+                # via get_runtime()._dashboard.port
+                _runtime._dashboard = start_dashboard(
+                    port=dashboard_port
+                    if dashboard_port is not None else 8265)
+            except BaseException:
+                rt, _runtime = _runtime, None
+                reset_config()
+                rt.shutdown()
+                raise
         atexit.register(_shutdown_at_exit)
         return _runtime
 
@@ -274,6 +288,12 @@ def shutdown() -> None:
         rt = _runtime
         _runtime = None
         reset_config()
+    dash = getattr(rt, "_dashboard", None)
+    if dash is not None:
+        try:  # init(include_dashboard=True) owns this server
+            dash.stop()
+        except Exception:  # noqa: BLE001
+            pass
     rt.shutdown()
 
 

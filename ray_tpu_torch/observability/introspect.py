@@ -13,7 +13,6 @@ verbs and to HTTP via ``/api/v1/{memory,status}``.
 
 from __future__ import annotations
 
-import socket
 import time
 
 __all__ = ["memory_summary", "cluster_status",
@@ -22,6 +21,8 @@ __all__ = ["memory_summary", "cluster_status",
 
 def _loc_row(loc, head_node_id: str) -> tuple[str, str]:
     """(location kind, node_id) for one directory entry."""
+    if isinstance(loc, tuple):          # ("node", node_id)
+        return "node", loc[1]
     if loc == "err":
         return "error", head_node_id
     return loc, head_node_id            # "mem" | "shm" on the head
@@ -30,10 +31,12 @@ def _loc_row(loc, head_node_id: str) -> tuple[str, str]:
 def memory_summary(rt, top_n: int = 20) -> dict:
     """Cluster object-store summary: per-node usage plus the top-N
     objects by size with owner, ref counts, pin state, and
-    primary/spill placement."""
+    primary/replica/spill placement."""
     with rt._obj_cv:
         locs = dict(rt._obj_locations)
         sizes = dict(rt._obj_sizes)
+        replicas = {oid: sorted(nodes)
+                    for oid, nodes in rt._obj_replicas.items()}
     with rt._ref_lock:
         refcounts = dict(rt._refcounts)
         borrows = dict(rt._borrows)
@@ -59,7 +62,9 @@ def memory_summary(rt, top_n: int = 20) -> dict:
             obj = rt.memory_store.try_get(oid)
             if obj is not None:
                 size = obj.total_size
-        owner = rt.head_node_id
+        tag = oid.owner_tag()
+        owner = (rt._owner_tags.get(tag) if tag is not None
+                 else None) or rt.head_node_id
         pins = {
             "local_refs": refcounts.get(oid, 0),
             "borrows": borrows.get(oid, 0),
@@ -73,6 +78,7 @@ def memory_summary(rt, top_n: int = 20) -> dict:
             "node_id": node_id,
             "owner": owner,
             "primary": kind != "error",
+            "replicas": replicas.get(oid, []),
             "pinned": any(pins.values()),
             "pins": pins,
         })
@@ -87,12 +93,19 @@ def memory_summary(rt, top_n: int = 20) -> dict:
             "node_id": n.node_id,
             "is_head": n.is_head,
             "alive": n.alive,
+            "draining": n.draining,
             "objects": usage["objects"],
             "object_bytes": usage["bytes"],
-            "store_used_bytes": rt.shm_store.used_bytes(),
-            "store_capacity_bytes": getattr(rt.shm_store,
-                                            "_capacity", 0),
         }
+        if n.is_head:
+            row["store_used_bytes"] = rt.shm_store.used_bytes()
+            row["store_capacity_bytes"] = getattr(
+                rt.shm_store, "_capacity", 0)
+        else:
+            # The daemon's versioned load report (ND_RSYNC) carries
+            # its local store occupancy.
+            row["store_used_bytes"] = int(
+                (n.observed or {}).get("store_bytes", 0))
         nodes.append(row)
 
     rows.sort(key=lambda r: (-r["size"], r["object_id"]))
@@ -104,6 +117,7 @@ def memory_summary(rt, top_n: int = 20) -> dict:
             "pinned": sum(1 for r in rows if r["pinned"]),
             "spilled": sum(1 for r in rows
                            if r["location"] == "spilled"),
+            "replicated": sum(1 for r in rows if r["replicas"]),
         },
         "nodes": nodes,
         "top_objects": rows[:max(0, int(top_n))],
@@ -150,18 +164,21 @@ def cluster_status(rt) -> dict:
 
     nodes = []
     for n in node_recs:
-        state = "ALIVE" if n.alive else "DEAD"
+        state = ("DEAD" if not n.alive
+                 else "DRAINING" if n.draining else "ALIVE")
         used = {k: round(v - n.avail.get(k, 0.0), 6)
                 for k, v in n.resources.items()}
         nodes.append({
             "node_id": n.node_id,
             "state": state,
             "is_head": n.is_head,
-            "hostname": socket.gethostname(),
+            "hostname": n.hostname,
             "resources_total": dict(n.resources),
             "resources_available": dict(n.avail),
             "resources_used": used,
+            "drain_reason": n.drain_reason,
             "workers": per_node_workers.get(n.node_id, 0),
+            "observed": dict(n.observed or {}),
             "labels": dict(n.labels),
         })
 
@@ -234,14 +251,15 @@ def format_memory_summary(ms: dict) -> str:
     lines += ["", f"top {len(ms['top_objects'])} objects by size:"]
     lines.append(f"  {'object_id':<20} {'size':>10} {'loc':<8} "
                  f"{'node':<12} {'refs':>4} {'borrows':>7} "
-                 f"{'pin':>3}")
+                 f"{'pin':>3} replicas")
     for r in ms["top_objects"]:
         lines.append(
             f"  {r['object_id'][:20]:<20} "
             f"{_human_bytes(r['size']):>10} {r['location']:<8} "
             f"{r['node_id'][:12]:<12} {r['pins']['local_refs']:>4} "
             f"{r['pins']['borrows']:>7} "
-            f"{'y' if r['pinned'] else 'n':>3}")
+            f"{'y' if r['pinned'] else 'n':>3} "
+            f"{len(r['replicas'])}")
     return "\n".join(lines) + "\n"
 
 

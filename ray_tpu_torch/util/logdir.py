@@ -1,8 +1,8 @@
 """Shared session log-dir helpers (counterpart of
 ``ray_tpu/util/logdir.py``): one implementation for a CLI's ``logs``
-command and a dashboard's log viewer, neither of which the port has yet
-(ROADMAP.md §1, items 9 and 10); on one node they read the session's
-``logs/`` directory."""
+command (not ported yet: ROADMAP.md §1, item 10) and the dashboard's log
+viewer (``/api/logs``); on one node they read the session's ``logs/``
+directory."""
 
 from __future__ import annotations
 

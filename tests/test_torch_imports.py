@@ -2,7 +2,8 @@
 nothing of JAX (jax, flax, optax, orbax) and nothing of ``ray_tpu``, and
 the port's entry points refuse to run without a GPU unless told to use
 the CPU. The multi-node host processes (the node daemon, the head
-daemon, the op log) and what drives them import no torch either."""
+daemon, the op log) and what drives them import no torch either, nor do
+the dashboard, job submission and the autoscaler."""
 
 from __future__ import annotations
 
@@ -78,7 +79,15 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.dag.compiled_dag", "ray_tpu_torch.dag.comm_channel",
            "ray_tpu_torch.experimental.channel", "ray_tpu_torch.native.channel",
            "ray_tpu_torch.workflow.api", "ray_tpu_torch.workflow.storage",
-           "ray_tpu_torch.workflow.common"} - set(names)
+           "ray_tpu_torch.workflow.common", "ray_tpu_torch.dashboard.head",
+           "ray_tpu_torch.dashboard.system_metrics",
+           "ray_tpu_torch.dashboard.metrics_config",
+           "ray_tpu_torch.job_submission", "ray_tpu_torch.autoscaler",
+           "ray_tpu_torch.autoscaler.autoscaler",
+           "ray_tpu_torch.autoscaler.node_provider",
+           "ray_tpu_torch.autoscaler.fake_provider",
+           "ray_tpu_torch.autoscaler.sdk", "ray_tpu_torch.autoscaler.k8s",
+           "ray_tpu_torch.autoscaler.launcher"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -198,6 +207,24 @@ def test_multi_node_host_modules_import_no_torch_and_no_jax(module):
 def test_dag_and_workflow_modules_import_no_torch(module):
     """A DAG, its channels and a workflow load no torch (nor JAX, nor
     ``ray_tpu``): torch comes in with a tensor that a value carries."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _HOST_CHILD % (BLOCKED + ("torch",), module, module)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.dashboard", "ray_tpu_torch.dashboard.system_metrics",
+    "ray_tpu_torch.dashboard.metrics_config", "ray_tpu_torch.job_submission",
+    "ray_tpu_torch.autoscaler", "ray_tpu_torch.autoscaler.fake_provider",
+    "ray_tpu_torch.autoscaler.k8s", "ray_tpu_torch.autoscaler.launcher"])
+def test_dashboard_jobs_and_autoscaler_modules_import_no_torch(module):
+    """The dashboard, a job's supervisor and the autoscaler run on the
+    head's host: they load no torch (nor JAX, nor ``ray_tpu``). A job
+    reaches a card only through the ``num_gpus`` tasks of its session."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run(
         [sys.executable, "-c",

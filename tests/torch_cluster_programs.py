@@ -605,7 +605,12 @@ def _wait_port(port: int, timeout: float = 60.0) -> None:
 def head_restart_readopts(rt):
     """A head daemon with a journal is SIGKILLed and started again: the
     node daemon reconnects, the named actor on it is re-adopted with its
-    state, the KV survives, and the client resumes."""
+    state, the KV survives, and the client resumes.
+
+    After the restart the program waits, reading only, until the
+    restarted head lists the node alive and the actor ``ALIVE``, and
+    then makes ONE call: ``bump`` changes the actor's state, so a call
+    retried after a timeout could land twice."""
     port = _free_port()
     journal = os.path.join(tempfile.mkdtemp(), "journal")
     env = _env(RAY_TPU_CLUSTER_TOKEN=TOKEN)
@@ -639,21 +644,38 @@ def head_restart_readopts(rt):
 
         ctr = Counter.options(name="survivor").remote()
         first = rt.get(ctr.bump.remote(), timeout=90)
+        node = next(n["NodeID"] for n in rt.nodes() if not n["IsHead"])
         h.kill()
         h.wait(10)
+        t0 = time.monotonic()
         h = head()
         _wait_port(port)
+        seen = []
 
-        def bumped():
+        def readopted():
             try:
-                return rt.get(ctr.bump.remote(), timeout=30)
-            except Exception:  # noqa: BLE001 — the head is coming back
-                return None
-        second = _until(bumped, 120, "the actor answered after the head "
-                        "restart", period=0.5)
+                alive = any(n["NodeID"] == node and n["Alive"]
+                            for n in rt.nodes())
+                actors = [a["state"] for a in runtime.list_state(
+                    "actors", [("name", "=", "survivor")])]
+            except Exception as e:  # noqa: BLE001 — the head is coming back
+                seen.append((round(time.monotonic() - t0, 2),
+                             type(e).__name__))
+                return False
+            return alive and actors == ["ALIVE"]
+        _until(readopted, 120, "the node and the actor re-adopted",
+               period=0.2)
+        ready_s = time.monotonic() - t0
+        second = rt.get(ctr.bump.remote(), timeout=120)
         kv = runtime.kv_get(b"job/state", "t")
-        named = rt.get(rt.get_actor("survivor").bump.remote(), timeout=60)
-        return [first, second, kv, named]
+        named = rt.get(rt.get_actor("survivor").bump.remote(), timeout=120)
+        out = [first, second, kv, named]
+        if out != EXPECTED["head_restart_readopts"]:
+            print(f"head_restart_readopts: outcome {out}, re-adopted "
+                  f"{ready_s:.2f} s after the restart, answered at "
+                  f"{time.monotonic() - t0:.2f} s; reads that failed "
+                  f"{seen[:20]}", file=sys.stderr, flush=True)
+        return out
     finally:
         try:
             rt.shutdown()

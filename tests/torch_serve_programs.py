@@ -879,9 +879,9 @@ def deploy_config_user_config(rt):
 def rest_deploy_calls(rt):
     """What the dashboard's REST deploy (``PUT /api/serve/applications``)
     does with its JSON body: ``deploy_config(dict)``, then ``status()`` on
-    GET, and a ValueError naming the field (its 400) for a bad config.
-    The HTTP server is the dashboard's, which the port lacks (ROADMAP item
-    9); this program drives the Serve calls it makes."""
+    GET, and a ValueError naming the field (its 400) for a bad config:
+    the Serve calls the dashboard makes. The route itself, over HTTP, is
+    the ``rest_deploy`` program of tests/torch_ops_programs.py."""
     serve = _serve(rt)
     body = json.loads(json.dumps({"applications": [
         {"name": "echo", "route_prefix": "/echo",
