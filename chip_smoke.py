@@ -14,6 +14,8 @@
     python3 chip_smoke.py --plant-fault dag_stage_skips_block
     python3 chip_smoke.py --plant-fault workflow_reruns_done_step
     python3 chip_smoke.py --plant-fault fake_node_gpu_as_resource
+    python3 chip_smoke.py --plant-fault container_jax_forwards
+    python3 chip_smoke.py --plant-fault trace_summary_adds_host_ops
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -571,6 +573,45 @@ exits non-zero without its result line:
    bundles: one N-card node launched whole, the N bundles' forwards at
    once on N distinct card UUIDs of it, each bit-equal to this process's,
    12 ``flash_fwd`` each; the node scaled down, nothing left.
+23. The command line, the device-trace summary and a container
+   (``ray_tpu_torch.scripts.cli``, ``observability.chrome_trace``, the
+   ``container`` runtime_env). (a) ``python -m ray_tpu_torch.scripts.cli
+   start --head --num-cpus 4 --num-gpus 1 --port <free> --host 127.0.0.1
+   --head-info-file <tmp>`` in a subprocess with the card visible; ``cli
+   doctor`` (its card line this card's), ``cli status`` (GPU 1); ``cli
+   job submit --address <its socket> -- python <script>``, the script
+   joining with ``init(address="auto")`` and running one ``num_gpus=1``
+   task (``cli_job_train``): WORKFLOW_SPAN captured GPT-2 124M steps at
+   32 x 1024 from phase 14 (c)'s weights between
+   ``util.tracing.start_device_profile()`` and ``stop_device_profile``,
+   then ``device_trace_summary(logdir, top_k=TRACE_TOP_K,
+   steps=WORKFLOW_SPAN)`` and, from the same ``prof.key_averages()``, the
+   device total and each flash kernel's device time. Checks: the
+   head-info file 0600; SUCCEEDED; the losses bit-equal to phase 14
+   (c)'s first steps; 12 launches of each square kernel a step,
+   ``compile_count`` 1, the task on this card's UUID; the summary's
+   ``plane`` the card's, its total and each flash kernel's summed time
+   within TRACE_RTOL of ``key_averages``'; ``top_matmul`` naming only
+   kernels of KERNEL_GROUPS' matmul and convolution markers. (b) ``cli
+   list tasks|actors|nodes``, ``summary``, ``memory``, ``logs``,
+   ``metrics``, ``job list|status|logs`` against the live head: each
+   exits 0 and carries the job's task, supervisor and id, or the GPU
+   node's row; then ``cli stop --head-info-file``: the head exits 0, its
+   info file is gone, no daemon or worker is left. (c) In a runtime of
+   this process, one ``num_gpus=1`` task with ``runtime_env={"container":
+   {"image": "fake"}}`` through a fake runner (``FAKE_RUNNER``: records
+   its argv, execs the command): GPT-2 124M's forward of phase 17's full
+   batch (``autoscaled_forward``). Checks: the runner got
+   ``--device=nvidia.com/gpu=all`` and the forwarded
+   ``CUDA_VISIBLE_DEVICES``; the task ran on this card's UUID, the card
+   the scheduler gave it; the forward bit-equal to this process's; 12
+   ``flash_fwd`` launches. (d) ``python -m
+   ray_tpu_torch.examples.train_gpt2_mesh``, run after (c) (a process
+   of its own, no runtime session), exits 0 with 5 finite losses.
+   ``--plant-fault container_jax_forwards`` runs (c) with the JAX
+   package's forward list, ``--plant-fault trace_summary_adds_host_ops``
+   runs (a) with a summary that also sums ``cpu_op`` events: exit 1
+   caught, 2 missed.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -592,8 +633,10 @@ entry with ``"path": "compiled dag stage"``; the square kernels with
 phase 20 (b)'s launches, ``"path": "node daemon actor"``, and with phase
 21 (b)'s, ``"path": "workflow step"``; the square kernels with phase 22
 (a)'s launches, ``"path": "job task"``, and ``flash_fwd`` at phase 17's
-full batch with (b)'s, ``"path": "autoscaled node"``), the card line
-again, and
+full batch with (b)'s, ``"path": "autoscaled node"``; the square kernels
+with phase 23 (a)'s launches, ``"path": "cli job task"``, and
+``flash_fwd`` at phase 17's full batch with (c)'s, ``"path": "container
+task"``), the card line again, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero when no
 GPU is visible, and when the package is not beside it.
 
@@ -619,6 +662,7 @@ call (checks, tensor-map geometry and encoding, allocation, launch).
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import ctypes
 import functools
@@ -644,9 +688,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
 
-from ray_tpu_torch.core.accelerator import default_device, node_gpu_ids
+from ray_tpu_torch.core.accelerator import (
+    default_device, node_gpu_ids, visible_gpu_ids,
+)
 from ray_tpu_torch.models import (
     GPT2,
     GPT2Config,
@@ -688,7 +733,7 @@ from ray_tpu_torch.parallel import initialize, make_mesh, multicard
 from ray_tpu_torch.parallel.dryrun import dryrun_multichip
 from ray_tpu_torch.parallel.mesh import DATA_AXES
 from ray_tpu_torch.parallel.pipeline import spmd_pipeline
-from ray_tpu_torch.parallel.sharding import _place_forced
+from ray_tpu_torch.parallel.sharding import _place_forced, is_sharded
 import ray_tpu_torch
 from ray_tpu_torch import serve, tune
 from ray_tpu_torch.rllib import learner_group
@@ -984,6 +1029,16 @@ DAG_FAULTS = {"dag_stage_skips_block": "the compiled DAG's second stage "
 JOB_FAULTS = {"fake_node_gpu_as_resource": "the fake provider passes a node "
               "type's GPU to Cluster.add_node as a bare resource, so the "
               "node's daemon is given no card"}
+# Faults of phase 23: (c)'s worker spawn forwarding the JAX package's
+# variables only (no CUDA_VISIBLE_DEVICES into the container), and (a)'s
+# trace summary adding the host's ATen ops to the card's kernels.
+CLI_FAULTS = {"container_jax_forwards": "a containerized worker's spawn "
+              "forwards the JAX package's variables only, not "
+              "CUDA_VISIBLE_DEVICES",
+              "trace_summary_adds_host_ops": "device_trace_summary also "
+              "sums the host's cpu_op events"}
+TRACE_TOP_K = 20                   # phase 23 (a): the summary's rows each way
+TRACE_RTOL = 0.01                  # (a): summary against key_averages
 # A fault of ViT's bidirectional ring: every row of a padded block taken
 # as a valid key (models.vit.seq_blocks planted), so the hops read the
 # padding; phase 12 (c') must fail it.
@@ -2425,7 +2480,7 @@ def mesh_train(mesh, forced: tuple[str, ...], host_batch, what: str,
            "tok_s": host_batch[0].size / dt,
            "compile_count": compile_count(step),
            "donated": buffers_donated(step, state),
-           "sharded": sum(isinstance(p, DTensor) for p in params),
+           "sharded": sum(is_sharded(p) for p in params),
            "before": seen}
     print(f"mesh {what}: {run['sharded']} of {len(params)} parameters "
           f"sharded by FSDP2; first {steps} losses {losses}; step "
@@ -3119,6 +3174,10 @@ class GPT2Actor:
         run = gpt2_steps(model, host, steps, timed, capture)
         run["setup_s"] = time.perf_counter() - t0
         run["pid"] = os.getpid()
+        run["heavy"] = [m for m in ("torch._dynamo",
+                                    "torch.distributed.tensor",
+                                    "torch.distributed.checkpoint")
+                        if m in sys.modules]
         return run
 
 
@@ -3274,8 +3333,10 @@ def runtime_phase(card: str) -> dict:
           f"{MESH_TIMED_STEPS} steps; compile_count "
           f"{actor_run['compile_count']}; launches {actor_run['counts']}; "
           f"actor created to result {actor_s:.1f} s (its model built and "
-          f"trained in {actor_run['setup_s']:.1f} s); a second num_gpus=1 "
-          f"task waited; card {card}", flush=True)
+          f"trained in {actor_run['setup_s']:.1f} s; of torch._dynamo, "
+          f"torch.distributed.tensor and torch.distributed.checkpoint it "
+          f"imported {actor_run['heavy']}); a second num_gpus=1 task "
+          f"waited; card {card}", flush=True)
     check(rel <= CAPTURE_LOSS_RTOL, "the actor's losses match the "
           "in-process step's")
     check(actor_run["compile_count"] == want_captures
@@ -6667,6 +6728,21 @@ def wait_for(cond, timeout: float, what: str, period: float = 0.05):
     raise AssertionError(f"{what} did not happen within {timeout} s")
 
 
+def proc_table() -> dict[int, tuple[int, str, bytes]]:
+    """``{pid: (ppid, state, cmdline)}`` of every process in /proc."""
+    out = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+        except (OSError, IndexError):
+            continue
+        out[int(pid)] = (int(fields[1]), fields[0], cmd)
+    return out
+
+
 def node_processes_left(daemons: set, timeout: float = 20.0) -> list[str]:
     """Processes that outlive ``daemons`` (pids of node daemons, or of
     any processes) by ``timeout`` seconds: one of them, or a worker a
@@ -6676,17 +6752,11 @@ def node_processes_left(daemons: set, timeout: float = 20.0) -> list[str]:
 
     def left() -> list[str]:
         out = []
-        for pid in filter(str.isdigit, os.listdir("/proc")):
-            try:
-                with open(f"/proc/{pid}/stat") as f:
-                    state = f.read().rsplit(")", 1)[1].split()[0]
-                with open(f"/proc/{pid}/cmdline", "rb") as f:
-                    cmd = f.read().replace(b"\0", b" ").decode()
-            except (OSError, IndexError):
-                continue
-            if state != "Z" and (int(pid) in daemons
-                                 or any(m in cmd for m in marks)):
-                out.append(f"{pid}: {cmd[:160]}")
+        for pid, (_, state, cmd) in proc_table().items():
+            text = cmd.replace(b"\0", b" ").decode(errors="replace")
+            if state != "Z" and (pid in daemons
+                                 or any(m in text for m in marks)):
+                out.append(f"{pid}: {text[:160]}")
         return out
     deadline = time.monotonic() + timeout
     while (out := left()) and time.monotonic() < deadline:
@@ -7719,18 +7789,22 @@ def http_json(url: str, body: dict | None = None, timeout: float = 120.0):
         return code, raw.decode("utf-8", "replace")
 
 
-def job_train(steps: int, capture: bool) -> dict:
+def job_train(steps: int, capture: bool,
+              around=contextlib.nullcontext()) -> dict:
     """Phase 22 (a)'s task, which the job's entrypoint runs at
     ``num_gpus=1``: GPT-2 124M from phase 14 (c)'s weights (seed 0) on
-    its batch, ``steps`` steps of ``gpt2_steps``. Returns the losses, the
-    launches, ``compile_count``, the card's UUID and what the task's
-    process sees."""
+    its batch, ``steps`` steps of ``gpt2_steps`` inside the context
+    manager ``around`` (phase 23 (a)'s device profile). Returns the
+    losses, the launches, ``compile_count``, the card's UUID and what the
+    task's process sees."""
     t_start = time.time()
     cfg = GPT2Config.small()
     model = GPT2(cfg, seed=0)
     first: dict = {}
-    run = gpt2_steps(model, train_batch(cfg.vocab_size), steps, 0, capture,
-                     report=lambda m: first.setdefault("t", m["t"]))
+    with around:
+        run = gpt2_steps(model, train_batch(cfg.vocab_size), steps, 0,
+                         capture,
+                         report=lambda m: first.setdefault("t", m["t"]))
     return {"losses": run["losses"], "counts": run["counts"],
             "compile_count": run["compile_count"],
             "uuid": card_uuid(next(model.parameters()).device),
@@ -7740,18 +7814,8 @@ def job_train(steps: int, capture: bool) -> dict:
 
 def runtime_workers() -> set:
     """Pids of this process's children that are runtime workers."""
-    out = set()
-    for pid in filter(str.isdigit, os.listdir("/proc")):
-        try:
-            with open(f"/proc/{pid}/stat") as f:
-                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
-            with open(f"/proc/{pid}/cmdline", "rb") as f:
-                cmd = f.read()
-        except (OSError, ValueError, IndexError):
-            continue
-        if ppid == os.getpid() and b"core.worker_entry" in cmd:
-            out.add(int(pid))
-    return out
+    return {pid for pid, (ppid, _, cmd) in proc_table().items()
+            if ppid == os.getpid() and b"core.worker_entry" in cmd}
 
 
 def job_status(url: str, sid: str, timeout: float) -> dict:
@@ -8243,6 +8307,479 @@ def autoscale_cards_phase(n: int, card: str) -> dict:
     return t
 
 
+# -- phase 23: the command line, the device-trace summary, a container --------
+
+# Phase 23 (a)'s entrypoint, written under the run's temporary directory:
+# it joins the session of the head that ``cli start --head`` started (its
+# ancestor), runs one num_gpus=1 task (``cli_job_train``) and prints what
+# the task returns on a line of its own.
+CLI_JOB_ENTRY = """\
+import json, sys
+import ray_tpu_torch as rt
+
+
+def train(steps, capture, fault):
+    import chip_smoke
+    return chip_smoke.cli_job_train(steps, capture, fault)
+
+
+rt.init(address="auto")
+task = rt.remote(num_gpus=1)(train)
+fault = None if sys.argv[3] == "none" else sys.argv[3]
+out = rt.get(task.remote(int(sys.argv[1]), sys.argv[2] == "1", fault),
+             timeout=900)
+print("JOB" + json.dumps(out), flush=True)
+"""
+
+# A container runner for phase 23 (c): it records its argv and execs the
+# command after the image (the first argument that is not a flag), as
+# ``tests/test_runtime_env_container.py``'s fake runner does.
+FAKE_RUNNER = """\
+#!{python}
+import json, os, sys
+args = sys.argv[1:]
+i = 1
+while i < len(args) and (args[i].startswith("-") or args[i - 1] == "-v"):
+    i += 1
+with open({marker!r}, "a") as f:
+    f.write(json.dumps({{"argv": args, "image": args[i],
+                         "pid": os.getpid()}}) + "\\n")
+os.execvp(args[i + 1], args[i + 1:])
+"""
+
+# The markers that make a kernel matmul work, from KERNEL_GROUPS: the
+# summary's ``top_matmul`` may name no other kernel.
+MATMUL_GROUPS = ("convolution", "matmul")
+
+
+def cli(*args: str, timeout: float = 300.0) -> subprocess.CompletedProcess:
+    """``python -m ray_tpu_torch.scripts.cli ARGS`` from this checkout."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", *args],
+        cwd=here, env=checkout_env(), capture_output=True, text=True,
+        timeout=timeout)
+
+
+def checkout_env() -> dict:
+    """This process's environment with this checkout first on the
+    import path."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ,
+                PYTHONPATH=here + (os.pathsep + path if path else ""))
+
+
+def descendants(root: int) -> set:
+    """Pids of every live process below ``root``."""
+    children: dict[int, list[int]] = {}
+    for pid, (ppid, _, _) in proc_table().items():
+        children.setdefault(ppid, []).append(pid)
+    out, todo = set(), [root]
+    while todo:
+        for c in children.get(todo.pop(), ()):
+            if c not in out:
+                out.add(c)
+                todo.append(c)
+    return out
+
+
+def is_matmul_kernel(name: str) -> bool:
+    return kernel_group(name) in MATMUL_GROUPS
+
+
+def cli_job_train(steps: int, capture: bool, fault: str | None = None
+                  ) -> dict:
+    """Phase 23 (a)'s task, which the CLI-submitted job runs at
+    ``num_gpus=1``: phase 22 (a)'s GPT-2 124M steps from phase 14 (c)'s
+    weights between ``util.tracing.start_device_profile()`` and
+    ``stop_device_profile(prof, logdir)``. Returns the losses, the
+    launches, ``compile_count``, the card's UUID,
+    ``device_trace_summary(logdir, top_k=TRACE_TOP_K, steps=steps)``, and
+    from the same ``prof.key_averages()`` the device total and each flash
+    kernel's device time (ms). Under ``trace_summary_adds_host_ops`` the
+    summary also sums the host's ``cpu_op`` events."""
+    from torch.autograd import DeviceType
+
+    from ray_tpu_torch.observability import chrome_trace
+    from ray_tpu_torch.observability.profiler import device_trace_summary
+    from ray_tpu_torch.util.tracing import (
+        start_device_profile, stop_device_profile,
+    )
+    if fault == "trace_summary_adds_host_ops":
+        chrome_trace.DEVICE_CATEGORIES += ("cpu_op",)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    held = {}
+
+    @contextlib.contextmanager
+    def profiled():
+        torch.cuda.synchronize()
+        held["prof"] = start_device_profile()
+        yield
+        torch.cuda.synchronize()
+        stop_device_profile(held["prof"], logdir)
+
+    try:
+        out = job_train(steps, capture, around=profiled())
+        summary = device_trace_summary(logdir, top_k=TRACE_TOP_K,
+                                       steps=steps)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    rows = [e for e in held["prof"].key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return dict(out, summary=summary,
+                device_ms=sum(getattr(e, "self_device_time_total", 0.0)
+                              for e in rows) / 1e3,
+                flash_ms={name: sum(e.self_device_time_total for e in rows
+                                    if fn in e.key) / 1e3
+                          for name, fn in KERNEL_NAMES.items()})
+
+
+def summary_flash_ms(summary: dict, steps: int) -> dict:
+    """Each flash kernel's ms over the capture, from the summary's rows
+    (their ``ms`` is per step)."""
+    rows = summary["top_non_matmul"] + summary["top_matmul"]
+    return {name: sum(r["ms"] for r in rows if fn in r["name"]) * steps
+            for name, fn in KERNEL_NAMES.items()}
+
+
+def cli_leg(card: str, ref_losses: list, uuid: str,
+            fault: str | None = None) -> tuple[dict, list]:
+    """Phase 23 (a) and (b): a head started by ``cli start --head
+    --num-gpus 1``, ``cli doctor`` and ``cli status`` against it, the
+    GPT-2 job submitted by ``cli job submit``, the CLI's reads of the live
+    head, then ``cli stop``. Returns readings and checks."""
+    n = GPT2Config.small().n_layer
+    want_captures = 1 if CAPTURE else None
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    info = os.path.join(root, "head.json")
+    log = open(os.path.join(root, "head.log"), "wb")
+    t0 = time.time()
+    head = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "start",
+         "--head", "--num-cpus", "4", "--num-gpus", "1", "--port",
+         str(free_port()), "--host", "127.0.0.1", "--head-info-file", info],
+        cwd=here, env=checkout_env(), stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    reads = {}
+    try:
+        wait_for(lambda: os.path.exists(info), 120, "the head's info file")
+        up_s = time.time() - t0
+        with open(info) as f:
+            head_info = json.load(f)
+        mode = os.stat(info).st_mode & 0o777
+        doctor = cli("doctor")
+        status = cli("status")
+        entry = os.path.join(root, "train_job.py")
+        with open(entry, "w") as f:
+            f.write(CLI_JOB_ENTRY)
+        t1 = time.time()
+        sub = cli("job", "submit", "--address", head_info["client_address"],
+                  "--", sys.executable, entry, str(WORKFLOW_SPAN),
+                  str(int(CAPTURE)), fault or "none", timeout=1200)
+        done_s = time.time() - t1
+        sid = (re.findall(r"submitted job (\S+):", sub.stdout) or [""])[0]
+        line = [x for x in sub.stdout.splitlines() if x.startswith("JOB")]
+        out = json.loads(line[-1][3:]) if line else None
+        if fault is None:
+            t2 = time.time()
+            for name, args in (
+                    ("tasks", ("list", "tasks")),
+                    ("actors", ("list", "actors")),
+                    ("nodes", ("list", "nodes")),
+                    ("summary", ("summary",)), ("memory", ("memory",)),
+                    ("logs", ("logs",)), ("metrics", ("metrics",)),
+                    ("job list", ("job", "list")),
+                    ("job status", ("job", "status", sid)),
+                    ("job logs", ("job", "logs", sid))):
+                reads[name] = cli(*args)
+            reads_s = time.time() - t2
+        held = descendants(head.pid)
+        t3 = time.time()
+        stop = cli("stop", "--head-info-file", info)
+        head_rc = head.wait(timeout=120)
+        stop_s = time.time() - t3
+        left = node_processes_left(held | {head.pid}, timeout=30)
+        info_left = os.path.exists(info)
+    finally:
+        if head.poll() is None:
+            head.kill()
+            head.wait()
+        with open(os.path.join(root, "head.log"), errors="replace") as f:
+            head_log = f.read()
+        shutil.rmtree(root, ignore_errors=True)
+    if out is None:
+        print(f"cli (a) job submit exit {sub.returncode}: "
+              f"{sub.stdout[-3000:]}\n{sub.stderr[-3000:]}\nthe head's log: "
+              f"{head_log[-3000:]}", flush=True)
+        out = {"losses": [], "counts": {}, "compile_count": None,
+               "uuid": None, "summary": None, "device_ms": 0.0,
+               "flash_ms": {}, "pid": None}
+    summary = out["summary"] or {"plane": None, "total_ms": 0.0,
+                                 "top_non_matmul": [], "top_matmul": [],
+                                 "ms_per_step": None, "matmul_share": None}
+    flash = summary_flash_ms(summary, WORKFLOW_SPAN)
+    total_rel = _rel(summary["total_ms"], out["device_ms"]) \
+        if out["device_ms"] else math.inf
+    flash_rel = {k: (_rel(flash[k], v) if v else math.inf)
+                 for k, v in out["flash_ms"].items()}
+    wrong_mm = [r["name"] for r in summary["top_matmul"]
+                if not is_matmul_kernel(r["name"])]
+    rel = [_rel(a, b) for a, b in zip(out["losses"], ref_losses)]
+    card_lines = [x[len("card: "):] for x in doctor.stdout.splitlines()
+                  if x.startswith("card: ")]
+    gpu_status = re.findall(r"\bGPU (\S+)/(\S+)", status.stdout)
+    readings = {"up_s": up_s, "done_s": done_s, "stop_s": stop_s,
+                "counts": out["counts"]}
+    print(f"cli (a) `cli start --head --num-gpus 1` up in {up_s:.2f} s "
+          f"(head-info mode {oct(mode)}); `cli doctor` exit "
+          f"{doctor.returncode}, card lines {card_lines}; `cli status` exit "
+          f"{status.returncode}, GPU used/total {gpu_status}; card {card}",
+          flush=True)
+    print(f"cli (a) `cli job submit` {sid}: exit {sub.returncode}, submit to "
+          f"SUCCEEDED {done_s:.2f} s; {WORKFLOW_SPAN} captured GPT-2 124M "
+          f"steps at {TRAIN_BATCH} x {TRAIN_SEQ} in a num_gpus=1 task under "
+          f"torch.profiler: losses {out['losses']} vs phase 14 (c)'s "
+          f"{ref_losses} (relative {max(rel) if rel else None}, bit-equal "
+          f"expected); launches {out['counts']}, compile_count "
+          f"{out['compile_count']}; task on card {out['uuid']}; card {card}",
+          flush=True)
+    print(f"cli (a) device_trace_summary: plane {summary['plane']!r}, "
+          f"total {summary['total_ms']} ms vs key_averages' device total "
+          f"{out['device_ms']:.3f} ms (relative {total_rel:.2e}, limit "
+          f"{TRACE_RTOL}); {summary['ms_per_step']} ms a step, matmul share "
+          f"{summary['matmul_share']}; flash kernels (ms over the capture) "
+          f"summary {flash} vs key_averages {out['flash_ms']} (relative "
+          f"{flash_rel}); top_matmul "
+          f"{[(r['name'][:40], r['ms']) for r in summary['top_matmul']]}; "
+          f"top_non_matmul "
+          f"{[(r['name'][:40], r['ms']) for r in summary['top_non_matmul'][:8]]}"
+          f"; card {card}", flush=True)
+    bad = {k: v for k, v in out["counts"].items()
+           if k in SQUARE and v != n * WORKFLOW_SPAN}
+    checks = [
+        ("(a) the head-info file is 0600 and `cli doctor` prints this card",
+         mode == 0o600 and doctor.returncode == 0 and card_lines == [card],
+         [oct(mode), doctor.returncode, card_lines]),
+        ("(a) `cli status` reports GPU 1",
+         status.returncode == 0 and len(gpu_status) == 1
+         and float(gpu_status[0][1]) == 1.0, [status.returncode, gpu_status]),
+        ("(a) the CLI-submitted job SUCCEEDED",
+         sub.returncode == 0 and f"job {sid} finished: SUCCEEDED"
+         in sub.stdout, [sub.returncode, sid]),
+        (f"(a) the job's {WORKFLOW_SPAN} losses bit-equal to phase 14 (c)'s "
+         "first steps",
+         len(rel) == WORKFLOW_SPAN and out["losses"] == list(ref_losses),
+         rel),
+        (f"(a) {n} launches of each square kernel a step, compile_count "
+         f"{want_captures}, the task on this card",
+         len(out["counts"]) > 0 and not bad
+         and all(k in out["counts"] for k in SQUARE)
+         and out["compile_count"] == want_captures and out["uuid"] == uuid,
+         [out["counts"], out["compile_count"], out["uuid"]]),
+        ("(a) the summary's plane is the card's",
+         str(summary["plane"]).startswith("/device:gpu"), summary["plane"]),
+        (f"(a) the summary's total within {TRACE_RTOL} of key_averages' "
+         "device total", total_rel <= TRACE_RTOL, total_rel),
+        (f"(a) each flash kernel's summed ms within {TRACE_RTOL} of "
+         "key_averages' time for it",
+         len(flash_rel) == len(KERNEL_NAMES)
+         and all(v <= TRACE_RTOL for v in flash_rel.values()), flash_rel),
+        ("(a) top_matmul names only kernels that match the matmul markers",
+         len(summary["top_matmul"]) > 0 and not wrong_mm, wrong_mm)]
+    if fault is None:
+        text = {k: v.stdout for k, v in reads.items()}
+        codes = {k: v.returncode for k, v in reads.items()}
+        tasks = json.loads(text["tasks"]) if codes["tasks"] == 0 else []
+        nodes = json.loads(text["nodes"]) if codes["nodes"] == 0 else []
+        gpu_task = [t for t in tasks if t["name"] == "train"
+                    and t["state"] == "FINISHED"
+                    and t["required_resources"].get("GPU") == 1.0]
+        print(f"cli (b) the CLI against the live head in {reads_s:.2f} s: "
+              f"exit codes {codes}; list tasks {len(tasks)} rows (the GPU "
+              f"task {len(gpu_task)}), list nodes GPU "
+              f"{[r['resources_total'].get('GPU') for r in nodes]}; `cli "
+              f"stop` exit {stop.returncode} in {stop_s:.2f} s, the head's "
+              f"exit {head_rc}, its info file left {info_left}, processes "
+              f"left {left}; card {card}", flush=True)
+        checks += [
+            ("(b) every CLI read of the live head exits 0",
+             all(c == 0 for c in codes.values()), codes),
+            ("(b) list tasks, list actors, summary and the job commands "
+             "carry the job's task, its supervisor and its id",
+             len(gpu_task) == 1 and sid in text["actors"]
+             and '"train"' in text["summary"]
+             and re.search(rf"^{sid}\s+SUCCEEDED", text["job list"], re.M)
+             is not None and text["job status"].strip() == "SUCCEEDED"
+             and "JOB{" in text["job logs"], [sid, len(gpu_task)]),
+            ("(b) list nodes and memory carry the GPU node's row; logs lists "
+             "the workers' logs; metrics carries the runtime's gauges",
+             [r["resources_total"].get("GPU") for r in nodes] == [1.0]
+             and "head" in text["memory"] and "worker-" in text["logs"]
+             and "ray_tpu_" in text["metrics"],
+             [r["resources_total"] for r in nodes]),
+            ("(b) `cli stop` ends the head, removes its info file and leaves "
+             "no daemon or worker",
+             stop.returncode == 0 and head_rc == 0 and not info_left
+             and not left, [stop.returncode, head_rc, info_left, left])]
+    return readings, checks
+
+
+def container_leg(card: str, uuid: str, fault: str | None = None
+                  ) -> tuple[dict, list]:
+    """Phase 23 (c): one ``num_gpus=1`` task with ``runtime_env=
+    {"container": {"image": "fake"}}`` through FAKE_RUNNER, GPT-2 124M's
+    forward of phase 17's full batch (``autoscaled_forward``), against
+    the same forward in this process. Under ``container_jax_forwards`` the
+    spawner forwards the JAX package's variables only."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core import runtime as core_runtime
+    model = GPT2(GPT2Config.small(), seed=0)
+    tokens = autoscale_tokens(model.config.vocab_size)
+    ref = gpt2_reduction(model, tokens)
+    del model
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="chip_smoke_container_")
+    marker = os.path.join(root, "ran.jsonl")
+    runner = os.path.join(root, "fake_podman")
+    with open(runner, "w") as f:
+        f.write(FAKE_RUNNER.format(python=sys.executable, marker=marker))
+    os.chmod(runner, 0o755)
+    forwards = core_runtime.CONTAINER_ENV_PREFIXES
+    if fault == "container_jax_forwards":
+        core_runtime.CONTAINER_ENV_PREFIXES = ("RAY_TPU_", "JAX_", "XLA_",
+                                               "TPU_", "PYTHON")
+    os.environ["RAY_TPU_CONTAINER_RUNNER"] = runner
+    t0 = time.perf_counter()
+    try:
+        rt.init(num_cpus=2)
+        try:
+            task = rt.remote(num_gpus=1, runtime_env={
+                "container": {"image": "fake"}})(autoscaled_forward)
+            out = rt.get(task.remote(tokens), timeout=600)
+        finally:
+            rt.shutdown()
+        with open(marker) as f:
+            ran = [json.loads(x) for x in f.read().splitlines()]
+    finally:
+        core_runtime.CONTAINER_ENV_PREFIXES = forwards
+        os.environ.pop("RAY_TPU_CONTAINER_RUNNER", None)
+        shutil.rmtree(root, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+    rec = [r for r in ran if r["pid"] == out["pid"]]
+    argv = rec[0]["argv"] if rec else []
+    fwd = [a for a in argv if a.startswith("--env=CUDA_VISIBLE_DEVICES=")]
+    ids = visible_gpu_ids() or [str(i)
+                                for i in range(torch.cuda.device_count())]
+    host_uuid = (card_uuid(torch.device("cuda", ids.index(out["visible"])))
+                 if out["visible"] in ids else None)
+    same = all(np.array_equal(out[k], ref[k]) for k in ("lp", "last"))
+    print(f"container (c) a num_gpus=1 task in runtime_env container "
+          f"'fake' through a runner that records its argv ({len(ran)} "
+          f"containers, the task's worker pid {out['pid']}): device flags "
+          f"{[a for a in argv if a.startswith(('--device', '--gpus'))]}, "
+          f"forwarded {fwd}; the task saw CUDA_VISIBLE_DEVICES "
+          f"{out['visible']!r}, ran on card {out['uuid']} (the scheduler's "
+          f"card {host_uuid}); GPT-2 124M's forward of {SERVE_BATCH} x "
+          f"{TRAIN_SEQ} bit-equal to this process's: {same} (relative "
+          f"{reduction_rel(out, ref):.2e}); launches {out['counts']}; "
+          f"{leg_s:.1f} s; card {card}", flush=True)
+    checks = [
+        ("(c) the runner got the device flag and the forwarded "
+         "CUDA_VISIBLE_DEVICES",
+         len(rec) == 1 and "--device=nvidia.com/gpu=all" in argv
+         and fwd == [f"--env=CUDA_VISIBLE_DEVICES={out['visible']}"],
+         [len(rec), fwd]),
+        ("(c) the task ran on this card's UUID, the card the scheduler "
+         "gave it", out["uuid"] == uuid == host_uuid,
+         [out["uuid"], host_uuid, uuid]),
+        ("(c) its forward bit-equal to this process's, 12 flash_fwd "
+         "launches",
+         same and out["counts"].get("flash_fwd") == GPT2Config.small().n_layer
+         and not any(out["counts"].get(k) for k in SQUARE[1:]),
+         out["counts"])]
+    return {"leg_s": leg_s, "counts": out["counts"]}, checks
+
+
+def example_leg(card: str) -> tuple[dict, list]:
+    """Phase 23 (d): ``python -m ray_tpu_torch.examples.train_gpt2_mesh``
+    on the card, after (a), (b) and (c), exits 0 with 5 finite losses."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.examples.train_gpt2_mesh"],
+        cwd=here, env=checkout_env(), capture_output=True, text=True,
+        timeout=600)
+    leg_s = time.perf_counter() - t0
+    losses = [float(x) for x in re.findall(r"^step \d+: loss=(\S+)",
+                                           proc.stdout, re.M)]
+    print(f"example (d) train_gpt2_mesh on the card: exit "
+          f"{proc.returncode} in {leg_s:.1f} s, losses {losses}; card "
+          f"{card}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], flush=True)
+    return {"leg_s": leg_s}, [
+        ("(d) the example exits 0 with 5 finite losses",
+         proc.returncode == 0 and len(losses) == 5
+         and all(math.isfinite(x) for x in losses), losses)]
+
+
+def cli_phase(card: str, runtime: dict | None = None,
+              fault: str | None = None) -> dict:
+    """Phase 23 (see the module docstring): (a), (b) against a head that
+    ``cli start --head`` started, (c) a container task, (d) the GPT-2
+    example. ``runtime`` (phase 14's readings) gives (a) the driver's
+    losses; without it they are run here. With ``fault`` only the leg it
+    plants runs, its checks read without raising. Returns the readings
+    and whether every check held."""
+    out, checks = {}, []
+    t0 = time.perf_counter()
+    uuid = card_uuid(default_device())
+    if fault in (None, "trace_summary_adds_host_ops"):
+        cfg = GPT2Config.small()
+        if runtime is None:
+            ref_losses = gpt2_steps(GPT2(cfg, seed=0),
+                                    train_batch(cfg.vocab_size),
+                                    WORKFLOW_SPAN, 0, CAPTURE)["losses"]
+        else:
+            ref_losses = runtime["ref_losses"][:WORKFLOW_SPAN]
+        torch.cuda.empty_cache()
+        out["a"], c = cli_leg(card, ref_losses, uuid, fault)
+        checks += c
+    if fault in (None, "container_jax_forwards"):
+        out["c"], c = container_leg(card, uuid, fault)
+        checks += c
+    if fault is None:
+        out["d"], c = example_leg(card)
+        checks += c
+    out["s"] = time.perf_counter() - t0
+    out["held"] = report_checks(checks, card, strict=fault is None,
+                                prefix="cli")
+    return out
+
+
+def cli_fault_main(name: str, card: str) -> int:
+    """``--plant-fault`` of CLI_FAULTS: the build, then the leg of phase
+    23 that the fault plants, its checks read without raising. Exits 1
+    when a check fails it (caught), 2 when none does or the run failed
+    before its checks."""
+    print(f"planted fault {name}: {CLI_FAULTS[name]}", flush=True)
+    try:
+        t0 = time.perf_counter()
+        build.ensure_built()
+        print(f"build: nvcc {time.perf_counter() - t0:.1f} s", flush=True)
+        held = cli_phase(card, fault=name)["held"]
+    except Exception:  # noqa: BLE001 — the harness failed, not the checks
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_checks": True}), flush=True)
+        return 2
+    print(json.dumps({"fault": name, "caught": not held}), flush=True)
+    return 1 if not held else 2
+
+
+
 def node_cards_from_head(self, resources, reported):
     """The planted fault ``node_cards_from_head``: a daemon node's cards
     read from this (the head's) process's environment, not its report."""
@@ -8523,14 +9060,32 @@ def cards_main(n: int, fault: str | None, card: str) -> int:
     return 0
 
 
+def share_bytecode_cache() -> str:
+    """Give this process and every process it starts one bytecode cache, a
+    temporary directory removed at exit. The card's machine sets
+    ``PYTHONDONTWRITEBYTECODE`` and its site-packages hold no bytecode, so
+    each worker, daemon, job and CLI process would compile torch from
+    source again (seconds for ``import torch``, as many for
+    ``torch._dynamo``, which torch.profiler imports). The cache is written
+    under the prefix only, never beside a source."""
+    prefix = tempfile.mkdtemp(prefix="chip_smoke_pycache_")
+    atexit.register(shutil.rmtree, prefix, True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
+    return prefix
+
+
 def main() -> int:
+    share_bytecode_cache()
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--plant-fault",
                         choices=sorted(FAULTS) + sorted(multicard.FAULTS)
                         + list(SERVE_FAULTS) + list(TUNE_FAULTS)
                         + list(RLLIB_FAULTS) + list(VIT_FAULTS)
                         + list(NODE_FAULTS) + list(DAG_FAULTS)
-                        + list(JOB_FAULTS))
+                        + list(JOB_FAULTS) + list(CLI_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -8564,6 +9119,8 @@ def main() -> int:
         return dag_fault_main(args.plant_fault, card)
     if args.plant_fault in JOB_FAULTS:
         return jobs_fault_main(args.plant_fault, card)
+    if args.plant_fault in CLI_FAULTS:
+        return cli_fault_main(args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -8670,6 +9227,14 @@ def run_all(dev, card: str) -> int:
           f"demand to node {jobs['b']['node_s']:.2f} s, to result "
           f"{jobs['b']['result_s']:.2f} s, cleared floor to terminated "
           f"{jobs['b']['terminate_s']:.2f} s); card {card}", flush=True)
+    t23 = time.perf_counter()
+    cli_run = cli_phase(card, runtime)
+    phase_s["23"] = time.perf_counter() - t23
+    print(f"cli: phase 23 {phase_s['23']:.1f} s ((a) head up "
+          f"{cli_run['a']['up_s']:.2f} s, job submit to SUCCEEDED "
+          f"{cli_run['a']['done_s']:.2f} s, stop {cli_run['a']['stop_s']:.2f}"
+          f" s; (c) {cli_run['c']['leg_s']:.1f} s; (d) "
+          f"{cli_run['d']['leg_s']:.1f} s); card {card}", flush=True)
     print("phases (s): " + ", ".join(f"{k} {v:.1f}"
                                      for k, v in phase_s.items()),
           flush=True)
@@ -8744,6 +9309,20 @@ def run_all(dev, card: str) -> int:
                     "path": "autoscaled node",
                     **dict(served["kernel"],
                            launches=jobs["b"]["counts"]["flash_fwd"])})
+    # The square kernels on the CLI job's path: launched by phase 23 (a)'s
+    # num_gpus=1 task of the job that `cli job submit` sent to a head that
+    # `cli start --head` started, timed at GPT-2's shape; the forward kernel
+    # in (c)'s containerized worker, timed at phase 17's full batch.
+    kernels += [{"name": name, "route": "cuda", "source": SOURCES[name],
+                 "replaces": REPLACES[name], "path": "cli job task",
+                 "launches": cli_run["a"]["counts"][name], **main_rows[name]}
+                for name in SQUARE]
+    kernels.append({"name": "flash_fwd", "route": "cuda",
+                    "source": SOURCES["flash_fwd"],
+                    "replaces": REPLACES["flash_fwd"],
+                    "path": "container task",
+                    **dict(served["kernel"],
+                           launches=cli_run["c"]["counts"]["flash_fwd"])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,8 @@ compiled DAGs (``dag``), whose stage actors pipeline over shared-memory
 channels (``experimental.channel``), durable workflows
 (``workflow``), the dashboard (``dashboard``), job submission
 (``job_submission``) and the autoscaler (``autoscaler``), whose nodes
-hold cards.
+hold cards, the command line (``scripts.cli``), the core microbenchmarks
+(``perf``) and C++ tasks (``cpp``, ``cpp_function``).
 
 Entry points run on the card by default and raise when none is visible;
 ``device="cpu"`` runs them on the CPU with the kernels' plain versions.
@@ -73,8 +74,50 @@ from ray_tpu_torch.core.placement_group import (  # noqa: E402
     placement_group_table,
     remove_placement_group,
 )
+from ray_tpu_torch.core.ids import (  # noqa: E402
+    ActorClassID,
+    ActorID,
+    FunctionID,
+    JobID,
+    NodeID,
+    ObjectID,
+    PlacementGroupID,
+    TaskID,
+    UniqueID,
+    WorkerID,
+)
 from ray_tpu_torch.core.logging_config import LoggingConfig  # noqa: E402
 from ray_tpu_torch.client_builder import ClientBuilder, client  # noqa: E402
+from ray_tpu_torch.cross_language import (  # noqa: E402
+    Language,
+    cpp_function,
+    java_actor_class,
+    java_function,
+)
+
+# Worker-mode constants (reference: python/ray/_private/worker.py —
+# SCRIPT_MODE drivers, WORKER_MODE executors, LOCAL_MODE inline).
+SCRIPT_MODE = 0
+WORKER_MODE = 1
+LOCAL_MODE = 2
+
+# (reference: ray.DynamicObjectRefGenerator — the num_returns=
+# "streaming"/"dynamic" return type; one class serves both here)
+DynamicObjectRefGenerator = ObjectRefGenerator
+
+
+def show_in_dashboard(message: str, key: str = "") -> None:
+    """Publish a short free-form message for this process to the
+    dashboard's KV (reference: ray.show_in_dashboard — per-worker
+    display strings). Readable via
+    ``experimental.internal_kv._kv_get(f"worker_msg:{pid}|{key}",
+    namespace="dashboard")``."""
+    import os
+
+    from ray_tpu_torch.experimental.internal_kv import _kv_put
+    _kv_put(f"worker_msg:{os.getpid()}|{key}", message.encode(),
+            namespace="dashboard")
+
 
 __all__ = [
     "__version__",
@@ -90,12 +133,17 @@ __all__ = [
     "placement_group", "remove_placement_group",
     "get_current_placement_group", "placement_group_table",
     "LoggingConfig", "ClientBuilder", "client", "client_address",
+    "ActorClassID", "ActorID", "FunctionID", "JobID", "NodeID",
+    "ObjectID", "PlacementGroupID", "TaskID", "UniqueID", "WorkerID",
+    "Language", "cpp_function", "java_actor_class", "java_function",
+    "SCRIPT_MODE", "WORKER_MODE", "LOCAL_MODE",
+    "DynamicObjectRefGenerator", "show_in_dashboard",
 ]
 
 
 _SUBPACKAGES = ("data", "train", "serve", "tune", "rllib", "workflow",
                 "autoscaler", "dag", "experimental", "util", "runtime_env",
-                "collective", "cluster_utils")
+                "collective", "cluster_utils", "cpp")
 
 
 def __getattr__(name: str):

@@ -64,6 +64,13 @@ from ray_tpu_torch.core.object_store import (
 from ray_tpu_torch.core.serialization import SerializedObject
 
 
+# What a containerized worker's environment forwards (--env flags):
+# the runtime's own variables, the import path, and the card's
+# (CUDA_VISIBLE_DEVICES, the NVIDIA container toolkit's NVIDIA_*).
+CONTAINER_ENV_PREFIXES = ("RAY_TPU_", "PYTHON", "CUDA_VISIBLE_DEVICES",
+                          "NVIDIA_")
+
+
 def session_root() -> str:
     """Where a driver keeps its socket and worker logs (``<pid>/``):
     ``ray_tpu_torch_sessions`` in the temporary directory, or in /tmp
@@ -579,12 +586,17 @@ class WorkerHandle:
             # pins, plugin env_vars) must be forwarded explicitly as
             # --env flags, spliced before the image (prefix's last
             # element by the plugin's contract).
+            # A worker that holds cards also gets the runner's flag
+            # exposing them; the host's ids ride CUDA_VISIBLE_DEVICES
+            # (ContainerPlugin's docstring says why not the one card).
             import json as _json
+
+            from ray_tpu_torch.runtime_env.plugins import card_flags
             prefix = _json.loads(prefix_json)
-            fwd_prefixes = ("RAY_TPU_", "JAX_", "XLA_", "TPU_",
-                            "PYTHON")
             fwd = [f"--env={k}={v}" for k, v in env.items()
-                   if k.startswith(fwd_prefixes)]
+                   if k.startswith(CONTAINER_ENV_PREFIXES)]
+            if env.get("CUDA_VISIBLE_DEVICES"):
+                fwd = card_flags(prefix[0]) + fwd
             cmd = prefix[:-1] + fwd + [prefix[-1]] + cmd
         self.proc = subprocess.Popen(
             cmd,

@@ -6,8 +6,8 @@ Model mirrors the reference's long-poll design: the head keeps a
 bounded per-topic ring of (seq, payload); subscribers long-poll with
 their cursor and receive everything newer (or block until something
 arrives). Works identically for drivers, workers, and remote clients
-because it rides the ordinary client channel (the port runs one node,
-so no remote clients yet: ROADMAP.md §1, item 7).
+because it rides the ordinary client channel, which node daemons' workers
+and remote clients (``init(address=...)``) also speak.
 
     from ray_tpu_torch.experimental import pubsub
     pubsub.publish("events", {"k": 1})

@@ -80,7 +80,6 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils import skip_init
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -229,6 +228,20 @@ class LayerNorm(nn.Module):
         var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.scale
         return ((x - mean) * mul + self.bias).to(self.dtype)
+
+
+def skip_init(cls: type, *args, **kwargs) -> nn.Module:
+    """``cls(*args, **kwargs)`` with its parameters allocated but not
+    initialised, as ``torch.nn.utils.skip_init`` gives. That one builds the
+    module on the meta device, whose reference kernels import
+    ``torch._dynamo`` (and with it sympy): seconds of every worker's start.
+    Here the instance's own ``reset_parameters`` is a no-op while ``cls``'s
+    ``__init__`` runs (``nn.Linear`` and ``nn.Embedding`` call it last)."""
+    module = cls.__new__(cls)
+    object.__setattr__(module, "reset_parameters", lambda: None)
+    cls.__init__(module, *args, **kwargs)
+    object.__delattr__(module, "reset_parameters")
+    return module
 
 
 def _normal(shape, std, dtype, device, gen):

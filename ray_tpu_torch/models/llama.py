@@ -52,7 +52,6 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.nn.utils import skip_init
 
 from ray_tpu_torch.collective import device as coll
 from ray_tpu_torch.core.accelerator import resolve_device
@@ -67,6 +66,7 @@ from ray_tpu_torch.models.gpt2 import (
     put_param,
     remat_call,
     seq_offset,
+    skip_init,
     vocab_embedding,
 )
 from ray_tpu_torch.parallel.mesh import loss_group

@@ -40,7 +40,6 @@ from typing import Callable
 
 import torch
 from torch import nn
-from torch.nn.utils import skip_init
 
 from ray_tpu_torch.core.accelerator import resolve_device
 from ray_tpu_torch.models.gpt2 import (
@@ -55,6 +54,7 @@ from ray_tpu_torch.models.gpt2 import (
     load_norms_and_attention,
     matmul_f32,
     put_param,
+    skip_init,
 )
 from ray_tpu_torch.models.gpt2 import (
     lm_logits,

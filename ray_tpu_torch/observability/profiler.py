@@ -265,11 +265,17 @@ def trigger_device_profile(logdir: str | None = None,
 
 def device_trace_summary(logdir: str | None = None,
                          top_k: int = 5, steps: int = 1) -> dict:
-    """The JAX package summarizes XLA's xplane protobufs here; a
-    summary of torch's Chrome traces is not ported yet."""
-    raise NotImplementedError(
-        "device_trace_summary reads XLA traces; a summary of "
-        "torch.profiler traces is not ported yet (ROADMAP.md §1)")
+    """Slice breakdown of a finished device capture: total / matmul /
+    non-matmul ms plus the top-``top_k`` slices each way, read from the
+    Chrome traces :func:`trigger_device_profile` (or
+    ``util.tracing.stop_device_profile``) wrote (see
+    ``observability.chrome_trace``). ``steps`` normalizes ``ms`` figures
+    per optimizer step. ``logdir`` defaults to ``ray_tpu_torch_profile``
+    in the temporary directory."""
+    from ray_tpu_torch.core.config import temp_path
+    from ray_tpu_torch.observability.chrome_trace import summarize_trace
+    return summarize_trace(logdir or temp_path("ray_tpu_torch_profile"),
+                           top_k=top_k, steps=steps)
 
 
 def handle_profile_op(op: str, args: dict) -> object:

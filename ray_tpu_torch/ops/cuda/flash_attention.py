@@ -42,9 +42,13 @@ Each kernel wrapper takes its kernel for CUDA tensors and raises if the
 inputs do not suit it or the launch fails; it takes the plain PyTorch
 version beside it (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
 ``flash_bwd_dkv_reference``, which also serve the bands) only for CPU
-tensors. Each wrapper runs as a ``torch.library`` custom op, so that
-selective activation checkpointing (models' ``remat_policy``) sees one
-op it can save or recompute, never the launch inside it. Each kernel
+tensors. Each wrapper runs as an operator of the ``ray_tpu_torch``
+``torch.library`` namespace, so that selective activation checkpointing
+(models' ``remat_policy``) sees one op it can save or recompute, never
+the launch inside it. The operators are defined on a ``Library`` rather
+than with ``torch.library.custom_op``: custom_op wraps each kernel in
+``torch._disable_dynamo``, whose first call imports ``torch._dynamo`` and
+with it sympy, seconds of every worker's start. Each kernel
 counts its launches per route (:func:`launch_counts`: ``flash_fwd``,
 ``flash_fwd_rect``, ``flash_fwd_nc_rect`` and so on). A launch captured
 into a CUDA graph runs only when the graph replays, so it is counted
@@ -472,9 +476,20 @@ def _row0(tq: int, tk: int, causal: bool) -> int:
     square), 0 where no diagonal is drawn."""
     return tk - tq if causal else 0
 
-@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
-def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
-                  causal: bool, band: bool) -> tuple[Tensor, Tensor]:
+
+_LIB = torch.library.Library("ray_tpu_torch", "FRAGMENT")
+_LIB.define("flash_fwd(Tensor q, Tensor k, Tensor v, float scale, "
+            "bool causal, bool band) -> (Tensor, Tensor)")
+_LIB.define("flash_bwd_dq(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, float scale, bool causal, bool band) "
+            "-> Tensor")
+_LIB.define("flash_bwd_dkv(Tensor q, Tensor k, Tensor v, Tensor do, "
+            "Tensor lse, Tensor delta, float scale, bool causal, bool band) "
+            "-> (Tensor, Tensor)")
+
+
+def _flash_fwd_impl(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                    causal: bool, band: bool) -> tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale, causal)
     bh, tq, d = q.shape
@@ -489,10 +504,9 @@ def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
     return o, lse
 
 
-@torch.library.custom_op("ray_tpu_torch::flash_bwd_dq", mutates_args=())
-def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
-                     lse: Tensor, delta: Tensor, scale: float, causal: bool,
-                     band: bool) -> Tensor:
+def _flash_bwd_dq_impl(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                       lse: Tensor, delta: Tensor, scale: float, causal: bool,
+                       band: bool) -> Tensor:
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, causal)
     bh, tq, d = q.shape
@@ -506,10 +520,9 @@ def _flash_bwd_dq_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
     return dq
 
 
-@torch.library.custom_op("ray_tpu_torch::flash_bwd_dkv", mutates_args=())
-def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
-                      lse: Tensor, delta: Tensor, scale: float, causal: bool,
-                      band: bool) -> tuple[Tensor, Tensor]:
+def _flash_bwd_dkv_impl(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
+                        lse: Tensor, delta: Tensor, scale: float,
+                        causal: bool, band: bool) -> tuple[Tensor, Tensor]:
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale,
                                        causal)
@@ -523,6 +536,15 @@ def _flash_bwd_dkv_op(q: Tensor, k: Tensor, v: Tensor, do: Tensor,
         _P(dv.data_ptr()), bh, tq, tk, _row0(tq, tk, causal), d, scale,
         int(causal), int(q.dtype == torch.float16))
     return dk, dv
+
+
+for _name, _impl in (("flash_fwd", _flash_fwd_impl),
+                     ("flash_bwd_dq", _flash_bwd_dq_impl),
+                     ("flash_bwd_dkv", _flash_bwd_dkv_impl)):
+    _LIB.impl(_name, _impl, "CompositeExplicitAutograd")
+_flash_fwd_op = torch.ops.ray_tpu_torch.flash_fwd.default
+_flash_bwd_dq_op = torch.ops.ray_tpu_torch.flash_bwd_dq.default
+_flash_bwd_dkv_op = torch.ops.ray_tpu_torch.flash_bwd_dkv.default
 
 
 def _fwd(q, k, v, scale, causal, band):

@@ -38,12 +38,12 @@ axes JAX's table gives its flax counterpart.
 from __future__ import annotations
 
 import re
+import sys
 from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import Replicate, Shard
 
 from ray_tpu_torch.parallel.mesh import (
     AXIS_DP,
@@ -117,6 +117,8 @@ def logical_to_mesh(logical_axes: tuple[str | None, ...], mesh,
     """One DTensor placement per mesh dimension, in the mesh's order:
     ``Shard(d)`` for the mesh axis that splits tensor dimension ``d``,
     ``Replicate()`` for the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
     axes = mesh_axes(logical_axes, mesh, rules)
     return tuple(Shard(axes.index(a)) if a in axes else Replicate()
                  for a in mesh.shape)
@@ -371,6 +373,7 @@ def _place(model: nn.Module, mesh, patterns, rules, forced) -> nn.Module:
     if all(pl.fsdp is None for pl in placements.values()):
         return model
     from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
 
     fsdp_mesh = _fsdp_mesh(mesh)
     names = {id(p): n for n, p in model.named_parameters()}
@@ -390,9 +393,13 @@ def _place(model: nn.Module, mesh, patterns, rules, forced) -> nn.Module:
 
 
 def is_sharded(p: torch.Tensor) -> bool:
-    """True for a parameter or gradient that FSDP2 holds as a DTensor."""
-    from torch.distributed.tensor import DTensor
-    return isinstance(p, DTensor)
+    """True for a parameter or gradient that FSDP2 holds as a DTensor.
+
+    No DTensor exists before ``torch.distributed.tensor`` is imported, and
+    importing it costs a worker seconds (sympy), so an unsharded step
+    never imports it."""
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    return dtensor is not None and isinstance(p, dtensor.DTensor)
 
 
 def local(t: torch.Tensor | None) -> torch.Tensor | None:

@@ -194,7 +194,21 @@ class ContainerPlugin(RuntimeEnvPlugin):
     runtime, so production use brings podman/docker and tests inject
     a fake runner that execs the wrapped command (proving the whole
     seam: plugin -> env var -> spawner prefix -> worker boots through
-    the runner)."""
+    the runner).
+
+    Cards: the spawner (``core/runtime.py`` ``WorkerHandle``) forwards
+    ``CUDA_VISIBLE_DEVICES`` and the ``NVIDIA_*`` variables with the
+    rest of the worker's environment, and a worker that holds cards
+    gets the runner's flag that exposes them (:func:`card_flags`). The
+    flag exposes every card of the host, and the forwarded
+    ``CUDA_VISIBLE_DEVICES`` keeps the host's ids: exposing only the
+    worker's card would renumber it to 0 inside the container, and the
+    forwarded host id would then name a card that is not there. A CPU
+    worker's ``CUDA_VISIBLE_DEVICES`` is empty and gets no flag.
+
+    Workers that a node daemon spawns are not wrapped (the JAX
+    package's daemons do not wrap theirs either); only the driver's
+    and the head's own workers run in the container."""
 
     name = "container"
     priority = 15
@@ -212,11 +226,6 @@ class ContainerPlugin(RuntimeEnvPlugin):
                              "list of strings")
 
     def build(self, value, ctx, cache_dir):
-        # A GPU worker in a container needs the card's device flags and
-        # its CUDA_VISIBLE_DEVICES forwarded; neither is ported yet.
-        raise NotImplementedError(
-            "the container runtime_env is not ported to ray_tpu_torch "
-            "yet (ROADMAP.md §1)")
         # NB: this check runs DRIVER-side — a daemon node whose PATH
         # lacks the runner still fails at spawn (generic worker-died);
         # homogeneous node images are assumed, as in the reference.
@@ -234,6 +243,16 @@ class ContainerPlugin(RuntimeEnvPlugin):
             runner, "run", "--rm", "--network=host", "-v",
             "/tmp:/tmp", *value.get("run_options", []),
             value["image"]]
+
+
+def card_flags(runner: str) -> list[str]:
+    """The runner's flag that exposes the host's cards to a container,
+    chosen by the runner's basename: docker's ``--gpus=all``, or a CDI
+    device (podman and other CDI runners) ``--device=nvidia.com/gpu=all``.
+    One token each, as the ``--env=`` forwards are."""
+    if "docker" in os.path.basename(runner):
+        return ["--gpus=all"]
+    return ["--device=nvidia.com/gpu=all"]
 
 
 _plugins: dict[str, RuntimeEnvPlugin] = {}

@@ -158,6 +158,15 @@ class DeploymentResponse:
             self._value = out
             return out
 
+    def __await__(self):
+        """``await response`` in async code, a replica's composition
+        among it (reference: DeploymentResponse is awaitable):
+        :meth:`result` on the running loop's default executor, so the
+        loop goes on serving while the call is out."""
+        import asyncio
+        return asyncio.get_running_loop().run_in_executor(
+            None, self.result).__await__()
+
     def _to_object_ref(self):
         # Raw-ref unwrap (ray_tpu_torch.get(response) / wait / composition
         # args): single-attempt — the retry plane rides .result() and

@@ -34,8 +34,6 @@ import tempfile
 from typing import Any
 
 import torch
-import torch.distributed.checkpoint as dcp
-from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ray_tpu_torch.core.config import temp_path
 from ray_tpu_torch.parallel.mesh import AXIS_FSDP
@@ -69,6 +67,8 @@ def save_pytree(tree: Any, directory: str) -> str:
 
 
 def _save_local(tree: Any, directory: str) -> str:
+    import torch.distributed.checkpoint as dcp
+
     os.makedirs(directory, exist_ok=True)
     dcp.save(tree, checkpoint_id=directory)
     return directory
@@ -89,12 +89,15 @@ def restore_pytree(directory: str, target: Any = None) -> Any:
 def _restore_local(directory: str, target: Any = None) -> Any:
     if target is None:
         target = _whole_tree(directory)
+    import torch.distributed.checkpoint as dcp
+
     dcp.load(target, checkpoint_id=directory)
     return target
 
 
 def _whole_tree(directory: str) -> dict:
     """An empty tree of whole CPU tensors shaped as the checkpoint's."""
+    import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 
     meta = dcp.FileSystemReader(directory).read_metadata()
@@ -161,6 +164,8 @@ def _whole_view(t: torch.Tensor, p: torch.Tensor, pl: Placement, mesh
     t = t.detach()
     if not pl.split and not is_sharded(p):
         return t
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     names = list(mesh.shape)
     placements = [Replicate()] * len(names)
     for dim, axis, _, _ in pl.split:

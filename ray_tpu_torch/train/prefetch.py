@@ -13,6 +13,10 @@ stream, and records an event there. The consumer makes its current
 stream wait on that event, and marks the batch's tensors as used by that
 stream so the caching allocator does not reuse them early. The host
 never blocks on the copy.
+
+torch is imported where a batch is placed, not with the module: a
+prefetcher with ``place=None`` passes host batches through and loads no
+torch (``perf.py``'s handoff row measures that).
 """
 
 from __future__ import annotations
@@ -21,12 +25,14 @@ import queue
 import threading
 import time
 from functools import partial
-from typing import Any, Callable, Iterable, Iterator
+from typing import TYPE_CHECKING, Any, Callable, Iterable, Iterator
 
 import numpy as np
-import torch
 
 from ray_tpu_torch.core.accelerator import resolve_device
+
+if TYPE_CHECKING:
+    import torch
 
 __all__ = ["DevicePrefetcher", "prefetch_to_device"]
 
@@ -85,6 +91,7 @@ class DevicePrefetcher:
             return batch, None
         if self._stream is None:
             return self._place(batch), None
+        import torch
         with torch.cuda.stream(self._stream):
             batch = self._place(batch)
             ready = torch.cuda.Event()
@@ -135,6 +142,7 @@ class DevicePrefetcher:
             raise StopIteration
         batch, ready = item
         if ready is not None:
+            import torch
             consumer = torch.cuda.current_stream(self._stream.device)
             consumer.wait_event(ready)
             for t in _tensors(batch):
@@ -162,6 +170,7 @@ class DevicePrefetcher:
 
 
 def _tensors(tree: Any) -> Iterator[torch.Tensor]:
+    import torch
     if isinstance(tree, torch.Tensor):
         yield tree
     elif isinstance(tree, dict):
@@ -179,6 +188,7 @@ def _to_device(tree: Any, device: torch.device) -> Any:
     pinned buffer (one host copy, also from a read-only array that the
     object store handed out); a ``dtype=object`` array stays on the
     host as it is."""
+    import torch
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -200,6 +210,7 @@ def _pinned(arr: np.ndarray) -> torch.Tensor:
     """A copy of ``arr`` in pinned (page-locked) host memory, the source
     of an asynchronous copy to the card. The caching host allocator
     keeps the buffer until the copies that read it have run."""
+    import torch
     host = torch.empty(arr.shape, dtype=_torch_dtype(arr.dtype),
                        pin_memory=True)
     np.copyto(host.numpy(), arr)
@@ -207,6 +218,7 @@ def _pinned(arr: np.ndarray) -> torch.Tensor:
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
+    import torch
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
@@ -215,6 +227,7 @@ def prefetch_to_device(batches: Iterable, device=None, *, depth: int = 2,
     """Wrap an iterable of host batches in a :class:`DevicePrefetcher`
     that places each batch on ``device`` (default: the card) ahead of
     consumption. ``place`` overrides the placement function."""
+    import torch
     device = resolve_device(device)
     if place is None:
         place = partial(_to_device, device=device)

@@ -8,8 +8,8 @@ tiers:
 
 - **Live head restart**: the head as a standalone journaled process
   (``ray_tpu/core/head.py``), whose daemons reconnect and whose
-  surviving actor incarnations are re-adopted. It is multi-node, which
-  the port does not run yet (ROADMAP.md §1, item 7).
+  surviving actor incarnations are re-adopted: the port's
+  ``core/head.py``, with its op log (``core/oplog.py``).
 
 - **Manual snapshot/replay** (this module): explicit
   ``save_head_state(path)`` / ``restore_head_state(path)`` for

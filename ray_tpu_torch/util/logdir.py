@@ -1,8 +1,7 @@
 """Shared session log-dir helpers (counterpart of
-``ray_tpu/util/logdir.py``): one implementation for a CLI's ``logs``
-command (not ported yet: ROADMAP.md §1, item 10) and the dashboard's log
-viewer (``/api/logs``); on one node they read the session's ``logs/``
-directory."""
+``ray_tpu/util/logdir.py``): one implementation for the CLI's ``logs``
+command (``scripts/cli.py``) and the dashboard's log viewer
+(``/api/logs``); both read the session's ``logs/`` directory."""
 
 from __future__ import annotations
 

@@ -87,7 +87,20 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.autoscaler.node_provider",
            "ray_tpu_torch.autoscaler.fake_provider",
            "ray_tpu_torch.autoscaler.sdk", "ray_tpu_torch.autoscaler.k8s",
-           "ray_tpu_torch.autoscaler.launcher"} - set(names)
+           "ray_tpu_torch.autoscaler.launcher",
+           "ray_tpu_torch.scripts.cli", "ray_tpu_torch.perf",
+           "ray_tpu_torch.cpp", "ray_tpu_torch.cross_language",
+           "ray_tpu_torch.observability.chrome_trace",
+           "ray_tpu_torch.examples.core_tasks_actors",
+           "ray_tpu_torch.examples.cpp_tasks",
+           "ray_tpu_torch.examples.data_pipeline",
+           "ray_tpu_torch.examples.rllib_dreamer",
+           "ray_tpu_torch.examples.rllib_ppo",
+           "ray_tpu_torch.examples.serve_compose",
+           "ray_tpu_torch.examples.train_gpt2_mesh",
+           "ray_tpu_torch.examples.tune_asha",
+           "ray_tpu_torch.examples.tune_classic",
+           "ray_tpu_torch.examples.workflow_events"} - set(names)
 assert not missing, missing
 importlib.import_module("chip_smoke")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
@@ -232,3 +245,63 @@ def test_dashboard_jobs_and_autoscaler_modules_import_no_torch(module):
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip() == "OK"
+
+
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.scripts.cli", "ray_tpu_torch.perf", "ray_tpu_torch.cpp",
+    "ray_tpu_torch.cross_language",
+    "ray_tpu_torch.observability.chrome_trace"])
+def test_cli_perf_cpp_and_trace_modules_import_no_torch(module):
+    """The CLI, the microbenchmarks, C++ tasks and the trace summary are
+    host code: they load no torch (nor JAX, nor ``ray_tpu``). ``doctor``
+    alone imports torch, inside its own function, to report the card."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         _HOST_CHILD % (BLOCKED + ("torch",), module, module)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "OK"
+
+
+_STEP_CHILD = """
+import sys
+import numpy as np
+import torch
+from ray_tpu_torch.models import GPT2, GPT2Config, Llama, LlamaConfig
+from ray_tpu_torch.models.gpt2 import gpt2_loss_fn
+from ray_tpu_torch.models.moe import MoEConfig, MoETransformer
+from ray_tpu_torch.train import adamw, init_train_state, make_train_step
+import chip_smoke  # noqa: F401 — a job's task imports it
+cfg = GPT2Config.tiny(seq_len=64, vocab_size=256, n_embd=128, n_head=2)
+model = GPT2(cfg, seed=0, device="cpu")
+Llama(LlamaConfig.tiny(), device="cpu")
+MoETransformer(MoEConfig.tiny(), device="cpu")
+opt = adamw(1e-3)
+state = init_train_state(model, opt)
+step = make_train_step(gpt2_loss_fn(), opt)
+toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+batch = {"tokens": torch.from_numpy(toks),
+         "targets": torch.from_numpy(np.roll(toks, -1, 1))}
+for _ in range(2):
+    state, metrics = step(state, batch)
+assert np.isfinite(float(metrics["loss"]))
+print(sorted(m for m in %r if m in sys.modules))
+"""
+
+
+def test_a_train_step_imports_no_dynamo_dtensor_or_dcp():
+    """A worker that builds the models and runs GPT-2 train steps through
+    the flash op loads neither ``torch._dynamo`` nor
+    ``torch.distributed.tensor`` (sympy under both) nor
+    ``torch.distributed.checkpoint``: importing each costs a worker's
+    start seconds. FSDP2, DTensor placements and checkpoints load them
+    when they are used."""
+    heavy = ("torch._dynamo", "torch.distributed.tensor", "sympy",
+             "torch.distributed.checkpoint")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-c", _STEP_CHILD % (heavy,)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip() == "[]"

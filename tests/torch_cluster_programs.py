@@ -359,6 +359,10 @@ def trainer_drain_restart(rt):
             ).fit()
             t.join(60)
             m = result.metrics
+            if "step" not in m:
+                # Name the fit's error in the outcome the test compares.
+                raise AssertionError(f"the fit reported no step: metrics "
+                                     f"{m!r}, error {result.error!r}")
             return [result.error, m["step"], m["resumed"],
                     m["node"] == replaced[0].node_id, m["loss"]]
         finally:
