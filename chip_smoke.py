@@ -16,6 +16,7 @@
     python3 chip_smoke.py --plant-fault fake_node_gpu_as_resource
     python3 chip_smoke.py --plant-fault container_jax_forwards
     python3 chip_smoke.py --plant-fault trace_summary_adds_host_ops
+    python3 chip_smoke.py --plant-fault mm_probe_host_clock
 
 Phases, each printed as it ends; any failed check raises and the script
 exits non-zero without its result line:
@@ -612,6 +613,17 @@ exits non-zero without its result line:
    package's forward list, ``--plant-fault trace_summary_adds_host_ops``
    runs (a) with a summary that also sums ``cpu_op`` events: exit 1
    caught, 2 missed.
+24. The achievable-matmul probe: ``util.mm_probe.achievable_matmul_tflops``
+   on the card (MM_PROBE_M, MM_PROBE_K), up to MM_PROBE_ATTEMPTS attempts
+   until one reads a valid rate, each printed; the phase fails when all
+   read 0.0. Then one torch.profiler pass over the long chain: the matmul
+   kernels' share of its device time (the rest is the probe's
+   normalisation passes). Prints the rate, its share of the 989.4 TFLOP/s
+   peak, that matmul share, the phase's time and the card line.
+   ``--plant-fault mm_probe_host_clock`` runs the probe with each chain
+   timed on the host clock without a synchronize, its result read after
+   the clock stops: exit 1 when every attempt reads 0.0 (caught), 2
+   otherwise.
 
 Every train phase trains through the captured step (one CUDA graph,
 replayed; ``train.step``) and checks that it was captured once
@@ -721,6 +733,7 @@ from ray_tpu_torch.ops.attention import (
     causal_attention,
     ulysses_attention,
 )
+from ray_tpu_torch.observability.chrome_trace import classify_event
 from ray_tpu_torch.ops.cuda import build
 from ray_tpu_torch.ops.cuda import flash_attention as fa
 from ray_tpu_torch.ops.moe import (
@@ -736,6 +749,7 @@ from ray_tpu_torch.parallel.pipeline import spmd_pipeline
 from ray_tpu_torch.parallel.sharding import _place_forced, is_sharded
 import ray_tpu_torch
 from ray_tpu_torch import serve, tune
+from ray_tpu_torch.util import mm_probe
 from ray_tpu_torch.rllib import learner_group
 from ray_tpu_torch.rllib.learner_group import LearnerGroup
 from ray_tpu_torch.train import (
@@ -756,8 +770,9 @@ from ray_tpu_torch.train.checkpoint import (
 )
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor-core
-# rate and HBM3 bandwidth, at the full 700 W power limit.
-PEAK_BF16_FLOPS = 989e12
+# rate (the probe's constant) and HBM3 bandwidth, at the full 700 W power
+# limit.
+PEAK_BF16_FLOPS = mm_probe.PEAK_BF16_TFLOPS * 1e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # lse is float32 in both versions: only summation order differs.
@@ -8780,6 +8795,141 @@ def cli_fault_main(name: str, card: str) -> int:
 
 
 
+# -- phase 24: the achievable-matmul probe ------------------------------------
+
+MM_PROBE_M = 8192                  # phase 24: the probe's m^3 products
+MM_PROBE_K = (5, 25)               # its short and long chains
+MM_PROBE_ATTEMPTS = 3              # all of them 0.0 fails the phase
+# A fault of phase 24: each chain timed on the host clock with no
+# synchronize and its result read after the clock stops, so the reading is
+# the launch queue's. The probe must call it invalid (0.0).
+MM_PROBE_FAULTS = {"mm_probe_host_clock": "the probe times each chain on "
+                   "the host clock without synchronizing and reads its "
+                   "result after the clock stops"}
+# (text of util/mm_probe.py's timed run, the same text with the fault)
+_MM_PROBE_TIMED = ("            t0 = _clock(device)\n"
+                   "            run(kk)\n"
+                   "            best = min(best, _clock(device) - t0)\n")
+_MM_PROBE_HOST_CLOCK = (
+    "            t0 = time.perf_counter()\n"
+    "            r = matmul_chain(r0, a, kk)\n"
+    "            best = min(best, time.perf_counter() - t0)\n"
+    "            float(r.float().reshape(-1)[0])\n")
+
+
+def host_clock_probe():
+    """``achievable_matmul_tflops`` of a copy of ``util/mm_probe.py`` that
+    carries the fault mm_probe_host_clock. The copy is a module of its
+    own; the package's stays as it is."""
+    with open(mm_probe.__file__) as f:
+        src = f.read()
+    check(src.count(_MM_PROBE_TIMED) == 1,
+          "the fault's anchor is in util/mm_probe.py once")
+    mod = types.ModuleType("mm_probe_host_clock")
+    exec(compile(src.replace(_MM_PROBE_TIMED, _MM_PROBE_HOST_CLOCK),
+                 mm_probe.__file__, "exec"), mod.__dict__)
+    return mod.achievable_matmul_tflops
+
+
+def mm_chain_profile() -> dict | None:
+    """One torch.profiler pass over the probe's long chain on the card,
+    after a warm-up chain: the device time of the matmul kernels (by
+    ``chrome_trace.classify_event``, the trace summary's rule) and of all
+    kernels, and the kernels with the most time. None when the profiler
+    records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    r0, a = mm_probe.chain_inputs(MM_PROBE_M, default_device())
+    k = MM_PROBE_K[1]
+    float(mm_probe.matmul_chain(r0, a, k).float().reshape(-1)[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # As profile_dispatch: the host waits on each side of the chain so
+        # that no device record falls outside the profiler's window.
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        float(mm_probe.matmul_chain(r0, a, k).float().reshape(-1)[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_MARGIN_S)
+    rows = [(e.key, e.count, getattr(e, "self_device_time_total", 0.0))
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and getattr(e, "self_device_time_total", 0.0) > 0]
+    busy_ms = sum(us for _, _, us in rows) / 1e3
+    if busy_ms == 0:
+        return None
+    matmul = [r for r in rows if classify_event(r[0])]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "matmul_ms": sum(us for _, _, us in matmul) / 1e3,
+            "matmul_launches": sum(n for _, n, _ in matmul),
+            "top": sorted(rows, key=lambda r: -r[2])[:6]}
+
+
+def mm_probe_phase(card: str, fault: str | None = None) -> dict:
+    """Phase 24 (see the module docstring): the probe on the card, up to
+    MM_PROBE_ATTEMPTS attempts until one reads a valid rate, each printed;
+    then the long chain's profile. With ``fault`` the planted probe runs
+    instead and its check is read without raising. Returns the readings
+    and whether the check held."""
+    t0 = time.perf_counter()
+    probe = (host_clock_probe() if fault
+             else mm_probe.achievable_matmul_tflops)
+    attempts = []
+    for i in range(MM_PROBE_ATTEMPTS):
+        ta = time.perf_counter()
+        rate = probe(MM_PROBE_M, *MM_PROBE_K)
+        attempts.append(rate)
+        print(f"mm_probe attempt {i + 1}: achievable_matmul_tflops {rate!r} "
+              f"({time.perf_counter() - ta:.2f} s); card {card}", flush=True)
+        if rate > 0:
+            break
+    rate = attempts[-1]
+    prof = None if fault else mm_chain_profile()
+    if fault:
+        share = "not profiled (planted fault)"
+    elif prof is None:
+        share = ("matmul share of device time not measured (the profiler "
+                 "recorded no device time)")
+    else:
+        share = (f"matmul kernels {prof['matmul_ms'] / prof['busy_ms']!r} of "
+                 f"the long chain's device time ({prof['matmul_ms']:.3f} of "
+                 f"{prof['busy_ms']:.3f} ms busy, {prof['matmul_launches']} "
+                 f"matmul launches, wall {prof['wall_ms']:.3f} ms)")
+        for key, count, us in prof["top"]:
+            print(f"mm_probe kernel {us / 1e3:9.3f} ms x{count:<4d} "
+                  f"{key[:110]}", flush=True)
+    s = time.perf_counter() - t0
+    print(f"mm_probe: phase 24 {s:.1f} s: achievable_matmul_tflops "
+          f"{rate!r} ({rate / mm_probe.PEAK_BF16_TFLOPS:.1%} of the "
+          f"{mm_probe.PEAK_BF16_TFLOPS} TFLOP/s peak); {share}; card {card}",
+          flush=True)
+    held = report_checks(
+        [(f"a valid reading, inside (peak / 20, peak], in one of "
+          f"{MM_PROBE_ATTEMPTS} attempts", rate > 0, attempts)],
+        card, strict=fault is None, prefix="mm_probe")
+    return {"rate": rate, "attempts": attempts, "profile": prof, "s": s,
+            "held": held}
+
+
+def mm_probe_fault_main(name: str, card: str) -> int:
+    """``--plant-fault`` of MM_PROBE_FAULTS: phase 24 with the planted
+    probe, its check read without raising. Exits 1 when the check fails
+    it (caught), 2 when it does not or the run failed before its check."""
+    print(f"planted fault {name}: {MM_PROBE_FAULTS[name]}", flush=True)
+    try:
+        held = mm_probe_phase(card, fault=name)["held"]
+    except Exception:  # noqa: BLE001 — the harness failed, not the check
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_checks": True}), flush=True)
+        return 2
+    print(json.dumps({"fault": name, "caught": not held}), flush=True)
+    return 1 if not held else 2
+
+
 def node_cards_from_head(self, resources, reported):
     """The planted fault ``node_cards_from_head``: a daemon node's cards
     read from this (the head's) process's environment, not its report."""
@@ -9085,7 +9235,8 @@ def main() -> int:
                         + list(SERVE_FAULTS) + list(TUNE_FAULTS)
                         + list(RLLIB_FAULTS) + list(VIT_FAULTS)
                         + list(NODE_FAULTS) + list(DAG_FAULTS)
-                        + list(JOB_FAULTS) + list(CLI_FAULTS))
+                        + list(JOB_FAULTS) + list(CLI_FAULTS)
+                        + list(MM_PROBE_FAULTS))
     parser.add_argument("--eager", action="store_true",
                         help="run every train step eagerly "
                         "(disable_capture), for the captured-vs-eager A/B")
@@ -9121,6 +9272,8 @@ def main() -> int:
         return jobs_fault_main(args.plant_fault, card)
     if args.plant_fault in CLI_FAULTS:
         return cli_fault_main(args.plant_fault, card)
+    if args.plant_fault in MM_PROBE_FAULTS:
+        return mm_probe_fault_main(args.plant_fault, card)
     if args.plant_fault:
         return fault_main(args.plant_fault, dev)
     if args.eager:
@@ -9235,6 +9388,8 @@ def run_all(dev, card: str) -> int:
           f"{cli_run['a']['done_s']:.2f} s, stop {cli_run['a']['stop_s']:.2f}"
           f" s; (c) {cli_run['c']['leg_s']:.1f} s; (d) "
           f"{cli_run['d']['leg_s']:.1f} s); card {card}", flush=True)
+    torch.cuda.empty_cache()
+    phase_s["24"] = mm_probe_phase(card)["s"]
     print("phases (s): " + ", ".join(f"{k} {v:.1f}"
                                      for k, v in phase_s.items()),
           flush=True)

@@ -71,6 +71,38 @@ CONTAINER_ENV_PREFIXES = ("RAY_TPU_", "PYTHON", "CUDA_VISIBLE_DEVICES",
                           "NVIDIA_")
 
 
+class _RefLock:
+    """The driver's reference-count lock, which knows whether this
+    thread holds it. ``ObjectRef.__del__`` decrements through
+    ``_dec_ref``, and a garbage-collection pass runs finalizers on the
+    thread that allocated, also inside a region that holds this lock:
+    with a plain lock that thread waited on itself, and every later
+    submit on the lock (the JAX package keeps the fault,
+    ``ray_tpu/core/runtime.py:1087-1089, 1203-1204``). Such a
+    decrement is queued instead, and ``on_release`` applies the queue
+    once the holder has let go."""
+
+    def __init__(self, on_release: Callable[[], None]):
+        self._lock = threading.Lock()
+        self._owner: int | None = None
+        self._on_release = on_release
+        self.deferred: deque = deque()
+
+    def __enter__(self):
+        me = threading.get_ident()
+        self._lock.acquire()
+        self._owner = me
+
+    def __exit__(self, *exc):
+        self._owner = None
+        self._lock.release()
+        if self.deferred:
+            self._on_release()
+
+    def held_here(self) -> bool:
+        return self._owner == threading.get_ident()
+
+
 def session_root() -> str:
     """Where a driver keeps its socket and worker logs (``<pid>/``):
     ``ray_tpu_torch_sessions`` in the temporary directory, or in /tmp
@@ -882,7 +914,7 @@ class DriverRuntime:
         # regardless of borrower churn.
         self._contains: dict[ObjectID, list[ObjectID]] = {}
         self._container_pins: dict[ObjectID, int] = {}
-        self._ref_lock = threading.Lock()
+        self._ref_lock = _RefLock(self._apply_deferred_decs)
 
         # Task plane
         self._tasks: dict[TaskID, TaskRecord] = {}
@@ -1259,6 +1291,10 @@ class DriverRuntime:
                 self._consume_escape_locked(rid, nonce)
 
     def _dec_ref(self, oid: ObjectID) -> None:
+        if self._ref_lock.held_here():
+            # A collection inside a locked region ran the finalizer.
+            self._ref_lock.deferred.append(oid)
+            return
         with self._ref_lock:
             cnt = self._refcounts.get(oid, 0) - 1
             if cnt > 0:
@@ -1268,6 +1304,21 @@ class DriverRuntime:
             if self._pinned_locked(oid):
                 return
         self._delete_object(oid)
+
+    def _apply_deferred_decs(self) -> None:
+        """The decrements finalizers queued while this thread held
+        ``_ref_lock``."""
+        oids = []
+        while True:
+            try:
+                oids.append(self._ref_lock.deferred.popleft())
+            except IndexError:   # empty, or emptied by another thread
+                break
+        for oid in oids:
+            try:
+                self._dec_ref(oid)
+            except Exception:  # noqa: BLE001 — as ObjectRef.__del__ does
+                pass
 
     def on_ref_escaped(self, oid: ObjectID, nonce=None) -> None:
         """A copy of this ref was serialized out of the owner (task

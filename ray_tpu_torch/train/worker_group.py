@@ -39,6 +39,7 @@ class TrainWorker:
         self._error: str | None = None
         self._session = None
         self._device = None
+        self._store = None      # the rendezvous store rank 0 holds
 
     def get_coordinator(self) -> str:
         """A rendezvous address on THIS worker's host, so a gang
@@ -46,17 +47,23 @@ class TrainWorker:
         (reference: TorchConfig picks the master addr from worker 0's
         node, torch/config.py:66): the interface that routes toward the
         head (``RAY_TPU_HEAD_IP``, which a node daemon sets for its
-        workers), else loopback; a free port of it."""
+        workers), else loopback; the port of the rendezvous store this
+        worker (rank 0) starts and holds. The store is multi-tenant, so
+        ``setup_distributed``'s env:// rendezvous in this process serves
+        from it: no other socket can take the port between its choice and
+        the group's start. A port picked free and closed again was taken
+        in that gap under load (EADDRINUSE), where the JAX package
+        rendezvouses only gangs of more than one."""
         import os
-        import socket
+
+        from torch.distributed import TCPStore
 
         from ray_tpu_torch.util.net import routable_ip
         head = os.environ.get("RAY_TPU_HEAD_IP")
         host = routable_ip(head) if head else "127.0.0.1"
-        with socket.socket() as s:
-            s.bind(("127.0.0.1" if host == "127.0.0.1" else "", 0))
-            port = s.getsockname()[1]
-        return f"{host}:{port}"
+        self._store = TCPStore(host, 0, self.world_size, is_master=True,
+                               wait_for_workers=False, multi_tenant=True)
+        return f"{host}:{self._store.port}"
 
     def gpu_ids(self) -> list:
         """The cards the runtime gave this rank."""

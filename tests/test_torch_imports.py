@@ -72,6 +72,7 @@ missing = {"ray_tpu_torch.parallel.mesh", "ray_tpu_torch.parallel.sharding",
            "ray_tpu_torch.util.scheduling_strategies",
            "ray_tpu_torch.util.chaos", "ray_tpu_torch.util.ha",
            "ray_tpu_torch.util.usage", "ray_tpu_torch.util.logdir",
+           "ray_tpu_torch.util.mm_probe",
            "ray_tpu_torch.experimental.pubsub",
            "ray_tpu_torch.core.node_daemon", "ray_tpu_torch.core.head",
            "ray_tpu_torch.core.oplog", "ray_tpu_torch.client_builder",
@@ -120,6 +121,7 @@ from ray_tpu_torch.rllib.dqn import DQNHyperparams, DQNLearner
 from ray_tpu_torch.rllib.dreamer import (DreamerHyperparams, DreamerLearner,
                                          DreamerModelConfig)
 from ray_tpu_torch.rllib.sac import SACHyperparams, SACLearner
+from ray_tpu_torch.util.mm_probe import achievable_matmul_tflops
 assert not torch.cuda.is_available()
 for entry in (default_device, initialize, make_mesh,
               lambda: spawn(print, 2), lambda: dryrun_multichip(2),
@@ -136,7 +138,8 @@ for entry in (default_device, initialize, make_mesh,
               lambda: SACLearner({"obs_dim": 3, "action_dim": 1},
                                  SACHyperparams()),
               lambda: DreamerLearner(DreamerModelConfig(),
-                                     DreamerHyperparams())):
+                                     DreamerHyperparams()),
+              lambda: achievable_matmul_tflops(m=64, k_short=1, k_long=2)):
     try:
         entry()
     except RuntimeError as e:

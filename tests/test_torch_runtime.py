@@ -244,3 +244,52 @@ def test_tensor_reducer_keeps_dtype_shape_and_bits():
     (y,), _ = ser.loads(args)
     assert torch.equal(y.view(torch.int16),
                        base.to(torch.bfloat16).view(torch.int16))
+
+
+_GC_IN_REF_LOCK_CHILD = r"""
+import gc, threading
+import ray_tpu_torch as rt
+from ray_tpu_torch.core.api import get_runtime
+rt.init(num_cpus=1)
+runtime = get_runtime()
+ref = rt.put(41)
+oid = ref.id
+box = [ref]
+box.append(box)        # the only way left to the ref is a cycle
+del ref, box
+done = threading.Event()
+
+def holder():
+    # A collection while this thread holds the lock: the ref's
+    # finalizer runs here, as one inside register_ref would.
+    with runtime._ref_lock:
+        gc.collect()
+    done.set()
+
+t = threading.Thread(target=holder, daemon=True)
+t.start()
+t.join(20)
+assert done.is_set(), "the thread holding _ref_lock waited on itself"
+assert oid not in runtime._refcounts, "the deferred decrement was lost"
+assert rt.get(rt.put(1) , timeout=30) == 1
+rt.shutdown()
+print("OK")
+"""
+
+
+def test_a_collection_inside_the_ref_lock_does_not_deadlock():
+    """``ObjectRef.__del__`` takes the reference-count lock; a garbage
+    collection inside a region that holds it ran the finalizer on the
+    holder, which then waited on itself and every later submit on it.
+    The decrement is deferred to the lock's release and applied then. In a process of its own: a deadlock would hold the
+    lock for the rest of the process."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _GC_IN_REF_LOCK_CHILD], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")

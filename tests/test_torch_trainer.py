@@ -360,3 +360,46 @@ def test_trainer_asks_for_the_card_by_default(runs):
     assert cpu.device == "cpu" and "GPU" not in cpu.worker_resources()
     err = runs.get("default_on_no_card")
     assert err is not None and "gpus_per_worker=0" in str(err), err
+
+
+_RENDEZVOUS_CHILD = r"""
+import errno, socket
+import torch
+import torch.distributed as dist
+from ray_tpu_torch.train.worker_group import TrainWorker
+worker = TrainWorker._cls(0, 1, {})
+host, port = worker.get_coordinator().rsplit(":", 1)
+s = socket.socket()
+try:
+    s.bind((host, int(port)))
+    s.listen()
+    taken = False
+except OSError as e:
+    taken = e.errno == errno.EADDRINUSE
+finally:
+    s.close()
+assert taken, f"port {port} was free between its choice and the group"
+worker.setup_distributed(f"{host}:{port}", "cpu")
+t = torch.ones(3)
+dist.all_reduce(t)
+assert dist.get_world_size() == 1 and t.tolist() == [1.0, 1.0, 1.0]
+dist.destroy_process_group()
+print("OK")
+"""
+
+
+def test_rendezvous_port_is_held_from_its_choice_to_the_group():
+    """Rank 0's rendezvous port is bound from ``get_coordinator`` on (a
+    listening socket cannot take it), and the gang's env:// rendezvous
+    in that process joins through it. A port picked free and released
+    again was taken in between under load (EADDRINUSE at the group's
+    start)."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-c", _RENDEZVOUS_CHILD],
+                          cwd=root, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("OK")

@@ -54,8 +54,11 @@ def table() -> dict:
 @pytest.mark.parametrize("program", PROGRAMS)
 def test_program_gives_the_same_result_on_both_packages(table, program):
     jax_out, port_out = (table[name][program] for name in PACKAGES)
-    assert jax_out[0] == "ok", jax_out
-    assert port_out == jax_out
+    both = "; ".join(
+        f"{name} {programs.said(name, program, table[name][program])}"
+        for name in PACKAGES)
+    assert jax_out[0] == "ok", both
+    assert port_out == jax_out, both
 
 
 @pytest.mark.parametrize("program", PROGRAMS)

@@ -8,26 +8,62 @@ refactor would), so the same code runs on both. The table runs in one
 runtime a package, with the package's workflow storage under a temporary
 root of that run. Nothing here imports either package at module level.
 Step executions are counted from files the steps write; waits are on
-conditions with deadlines.
+conditions with deadlines. When a program's outcome is not the expected
+one, ``run_table`` prints it on stderr with the seconds the program and
+each of its ``run``, ``resume`` and ``get_output`` calls took.
 """
 
 from __future__ import annotations
 
+import gc
 import importlib
 import os
 import shutil
+import sys
 import tempfile
 import time
 
 WAIT_S = 120
+
+# (call, seconds) of the running program's workflow calls, and
+# {(package, program): (seconds, calls)} of every program run.
+CALLS: list = []
+TIMES: dict = {}
 
 
 def _mod(rt, name: str):
     return importlib.import_module(f"{rt.__name__}.{name}")
 
 
+class _TimedWorkflow:
+    """The package's ``workflow`` module, with the seconds of each
+    ``run``, ``resume`` and ``get_output`` call noted in ``CALLS``."""
+
+    TIMED = ("run", "resume", "get_output")
+
+    def __init__(self, mod):
+        self._mod = mod
+
+    def __reduce__(self):
+        """A step that closes over it gets the plain module."""
+        return (importlib.import_module, (self._mod.__name__,))
+
+    def __getattr__(self, name):
+        val = getattr(self._mod, name)
+        if name not in self.TIMED:
+            return val
+
+        def timed(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return val(*args, **kwargs)
+            finally:
+                CALLS.append((name, round(time.monotonic() - t0, 3)))
+        return timed
+
+
 def _wf(rt):
-    return _mod(rt, "workflow")
+    return _TimedWorkflow(_mod(rt, "workflow"))
 
 
 def _until(cond, timeout: float, what: str, period: float = 0.05):
@@ -56,11 +92,33 @@ def _count(path: str) -> int:
         return 0
 
 
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _polling_pid(path: str) -> int | None:
+    """The process id a ``FileEvent`` polling for ``path`` wrote, or
+    None before it polls."""
+    try:
+        with open(path + ".pid") as f:
+            return int(f.read())
+    except FileNotFoundError:
+        return None
+
+
 def _file_event(rt):
     """An ``EventListener`` of the package that fires when a file
-    exists; its content is the event."""
+    exists; its content is the event. While it polls, ``<path>.pid``
+    holds its process id."""
     class FileEvent(_wf(rt).EventListener):
         def poll_for_event(self, path):
+            with open(path + ".pid.tmp", "w") as f:
+                f.write(str(os.getpid()))
+            os.replace(path + ".pid.tmp", path + ".pid")
             while not os.path.exists(path):
                 time.sleep(0.05)
             with open(path) as f:
@@ -321,15 +379,24 @@ def resume_all_and_async_output(rt, d):
 
 
 def cancel(rt, d):
-    """A workflow cancelled while its event step waits: its output
-    raises ``WorkflowCancellationError``, its status is CANCELED."""
+    """A workflow cancelled while its event step polls: its output
+    raises ``WorkflowCancellationError``, its status is CANCELED.
+
+    The cancel waits until the step polls, and the program until the
+    step's process is gone. Cancelled while its worker was still
+    starting, the step was dispatched again and polled on after the
+    program, in both packages: their dispatch retries a task whose
+    worker died before it connected, a force-cancelled one too
+    (``ray_tpu/core/runtime.py:2032-2044``)."""
     wf = _wf(rt)
+    never = os.path.join(d, "never")
     wid = wf.run_async(_shout(rt).bind(wf.wait_for_event(
-        _file_event(rt), os.path.join(d, "never"))))
-    _until(lambda: wf.get_status(wid) == "RUNNING", 30, "running")
-    time.sleep(0.3)
+        _file_event(rt), never)))
+    pid = _until(lambda: _polling_pid(never), WAIT_S, "the event step polls")
     wf.cancel(wid)
     name, _ = _raised(lambda: wf.get_output(wid, timeout=WAIT_S))
+    _until(lambda: not _alive(pid), WAIT_S,
+           "the cancelled event step's process is gone")
     return [name, wf.get_status(wid)]
 
 
@@ -420,21 +487,48 @@ def run(program, rt, d: str) -> tuple:
 def run_table(name: str, table: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
     ``name``, in one runtime of ``num_cpus=4`` whose workflow storage is
-    a temporary directory; each program gets a scratch directory."""
+    a temporary directory; each program gets a scratch directory.
+
+    The JAX package's table runs with the automatic garbage collector
+    off: a collection that runs an ``ObjectRef`` finalizer on a thread
+    holding the runtime's reference-count lock deadlocks that thread,
+    and every later submit (``ray_tpu/core/runtime.py:1087-1089,
+    1203-1204``). The port defers such a decrement (``_RefLock``), so
+    its table runs with the collector as it is."""
     rt = importlib.import_module(name)
     root = tempfile.mkdtemp(prefix=f"wf_{name}_")
     rt.init(num_cpus=4)
+    collector_off = name == "ray_tpu" and gc.isenabled()
+    if collector_off:
+        gc.disable()
     try:
         _wf(rt).init(os.path.join(root, "store"))
         out = {}
         for prog, fn in table.items():
             d = os.path.join(root, prog)
             os.makedirs(d)
+            CALLS.clear()
+            t0 = time.monotonic()
             out[prog] = run(fn, rt, d)
+            TIMES[(name, prog)] = (round(time.monotonic() - t0, 3),
+                                   list(CALLS))
+            if out[prog] != ("ok", EXPECTED.get(prog)):
+                print(f"{name} {prog}: {said(name, prog, out[prog])}",
+                      file=sys.stderr, flush=True)
         return out
     finally:
         rt.shutdown()
         shutil.rmtree(root, ignore_errors=True)
+        if collector_off:
+            gc.enable()
+
+
+def said(name: str, prog: str, outcome) -> str:
+    """``outcome`` of ``prog`` on package ``name``, what was expected,
+    and the seconds the program and each of its workflow calls took."""
+    took, calls = TIMES.get((name, prog), (None, []))
+    return (f"outcome {outcome}, expected {('ok', EXPECTED.get(prog))}; "
+            f"took {took} s; calls {calls}")
 
 
 # What each program must give (the same on both packages, and right).
