@@ -7,6 +7,7 @@
     python3 chip_smoke.py --cards 4               (phase 16, on four cards)
     python3 chip_smoke.py --cards 4 --plant-fault ring_dkv_home
     python3 chip_smoke.py --plant-fault serve_left_pad
+    python3 chip_smoke.py --plant-fault cancel_retries_starting_task
     python3 chip_smoke.py --plant-fault pbt_own_restore
     python3 chip_smoke.py --plant-fault learner_no_allreduce
     python3 chip_smoke.py --plant-fault sac_stale_critic
@@ -214,7 +215,19 @@ exits non-zero without its result line:
    gives the trainer's next loss bit for bit. (e) The host rates of
    RUNTIME_TASKS no-op tasks and RUNTIME_ACTOR_CALLS calls to one actor
    (printed, not checked); the workers loaded the kernels the driver
-   built (no library rebuilt).
+   built (no library rebuilt). (f) In a fresh runtime, a ``num_gpus=1``
+   task that writes a marker file, in a container whose runner
+   (HELD_RUNNER) holds the worker before its handshake, is force-cancelled
+   while it is held: ``get`` raises TaskCancelledError; the runner started
+   once and the marker is never written, also after the runner lets go;
+   the next ``num_gpus=1`` task gets the card (its time printed) and sees
+   this process's card UUID; the resources and the card's hold come back
+   once. ``--plant-fault cancel_retries_starting_task`` runs (f) alone
+   with a dispatch that queues such a task again, as the runtime did
+   before it checked for a cancel there, reads its checks without raising
+   and prints ``{"fault": ..., "caught": ...}``; it exits 1 when a check
+   fails it (caught), 2 when none does or the run failed before the
+   checks.
 15. The Data library (``ray_tpu_torch.data``) feeding GPT-2 124M at batch
    32 x 1024 from seed 0. (a) DATA_STEPS x 32 rows of 1025 token ids
    (numpy seed 0, GPT-2's vocabulary) written with ``data.tfrecord``
@@ -351,7 +364,12 @@ exits non-zero without its result line:
    printed. (b) PBT (``perturbation_interval=2``, lr mutations
    TUNE_MUTATIONS, ``quantile_fraction=0.5``, seed 0) over lr
    TUNE_PBT_LRS, both trials at ``GPU: 0.5`` and started together,
-   checkpointing every 2 steps: an exploit, each from a donor of the upper
+   checkpointing every 2 steps, and held level there: after each
+   checkpoint report a trial waits until the controller has handled a
+   result of that iteration or later from every trial of the population
+   (``wait_for_level``), so that no trial passes a perturbation point, or
+   ends, before the other has reported at it. Checks: an exploit, each
+   from a donor of the upper
    quantile; each restart's first loss bit-equal to the donor's own loss
    from the same checkpoint (the loss precedes the update, so the new lr
    does not reach it), and the donor's checkpoint restored here giving
@@ -373,7 +391,9 @@ exits non-zero without its result line:
    ``deterministic=False`` forward with a CUDA ``torch.Generator`` keeps
    0.9 of the activations at every site within 4 sigma, each kept value
    x/0.9 exactly; two draws differ; the same seed gives the same output.
-   Prints each leg's time and each trial's start to first report.
+   Prints each leg's time and each trial's start to first report, and for
+   (b) each exploit, each trial's reported iterations with their times
+   and the seconds it waited at the level barrier, and (b)'s wall time.
    ``--plant-fault pbt_own_restore`` runs (b) with every exploited trial
    restoring its own latest checkpoint instead of its donor's, reads (b)'s
    checks without raising and prints ``{"fault": ..., "caught": ...}``:
@@ -931,7 +951,8 @@ TUNE_ONE_CARD_LRS = (1e-4, 3e-4)   # (a)'s grid: one wave of two trials
 TUNE_PBT_LRS = (1e-5, 1e-3)        # (b)'s population
 TUNE_MUTATIONS = [1e-5, 1e-4, 1e-3]   # PBT's lr choices
 TUNE_PBT_INTERVAL = 2              # PBT's perturbation interval, and (b)'s
-#                                    checkpoint interval
+#                                    checkpoint interval and level barrier
+LEVELS = "levels"                  # (b)'s level marks, in its gate directory
 TUNE_SHARE = 0.5                   # each trial's share of the card
 TUNE_TRAINER_LR = 3e-4             # (c)'s trial, one of (a)'s grid
 TUNE_TORCH_STEPS = 4               # (d)'s and (g)'s eager steps
@@ -1030,6 +1051,10 @@ _DQ_MASK = ("      bool masked = min(a.tk, a.causal ? a.row0 + wrow0 + 1 : a.tk)
             " < kBK;\n")
 _DKV_QEND = "    int q_end = a.tq;\n"
 _ARGS_ROW0 = "  args.row0 = row0;"
+# Faults of phase 14 (f)'s dispatch (the runtime's code, patched).
+RUNTIME_FAULTS = {"cancel_retries_starting_task": "dispatch queues a "
+                  "force-cancelled task whose worker had not connected "
+                  "again, as it queues one whose worker died on its own"}
 # Faults of phase 17's deployment (user code, not a kernel).
 NODE_FAULTS = {"node_cards_from_head": "a daemon node's cards are read from "
                "the head process's environment, not the daemon's report"}
@@ -3099,6 +3124,163 @@ def gpu_probe() -> dict:
             "gpu_ids": ray_tpu_torch.get_gpu_ids()}
 
 
+def task_card() -> dict:
+    """The card a ``num_gpus=1`` task runs on (in a runtime worker)."""
+    import ray_tpu_torch
+    return {"uuid": card_uuid(torch.device("cuda", 0)),
+            "gpu_ids": ray_tpu_torch.get_gpu_ids()}
+
+
+def write_marker(path: str) -> str:
+    """(f)'s task: its one visible effect is ``path``."""
+    with open(path, "w") as f:
+        f.write("ran")
+    return path
+
+
+# (f)'s container runner: it notes its start, holds the worker until
+# ROOT/open exists, then execs the worker command after the image.
+HELD_RUNNER = """\
+#!{python}
+import os, sys, time
+args = sys.argv[1:]
+i = 1
+while i < len(args) and (args[i].startswith("-") or args[i - 1] == "-v"):
+    i += 1
+open(os.path.join({root!r}, "started-%d" % os.getpid()), "w").close()
+while not os.path.exists(os.path.join({root!r}, "open")):
+    time.sleep(0.01)
+os.execvp(args[i + 1], args[i + 1:])
+"""
+
+
+def plant_cancel_retries():
+    """The planted fault ``cancel_retries_starting_task``: a dispatch that
+    fails on a task ``cancel`` marked CANCELLED leaves it RUNNING, so the
+    failure path queues it again, as before the repair. Returns the undo."""
+    from ray_tpu_torch.core.runtime import DriverRuntime
+    dispatch = DriverRuntime._dispatch
+
+    def planted(self, rec, spawn_ok=True):
+        try:
+            return dispatch(self, rec, spawn_ok)
+        except Exception:
+            if rec.state == "CANCELLED":
+                rec.state = "RUNNING"
+            raise
+    DriverRuntime._dispatch = planted
+
+    def undo():
+        DriverRuntime._dispatch = dispatch
+    return undo
+
+
+def cancel_leg(card: str, fault: str | None = None) -> list[tuple]:
+    """Phase 14 (f): a ``num_gpus=1`` task that writes a marker, force-
+    cancelled while its worker starts: its container runner (HELD_RUNNER)
+    holds the worker before its handshake until the cancel is in, so the
+    window is held open by the runner, not by a sleep. Returns the checks
+    (what, held, reading)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.exceptions import TaskCancelledError
+    root = tempfile.mkdtemp(prefix="chip_smoke_cancel_")
+    runner = os.path.join(root, "held_podman")
+    with open(runner, "w") as f:
+        f.write(HELD_RUNNER.format(python=sys.executable, root=root))
+    os.chmod(runner, 0o755)
+    marker = os.path.join(root, "marker")
+
+    def started() -> int:
+        return sum(n.startswith("started-") for n in os.listdir(root))
+
+    def until(cond, timeout: float) -> bool:
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.01)
+        return True
+
+    undo = plant_cancel_retries() if fault else None
+    os.environ["RAY_TPU_CONTAINER_RUNNER"] = runner
+    t_leg = time.perf_counter()
+    try:
+        rt.init()
+        try:
+            before = rt.available_resources()
+            held = rt.remote(num_gpus=1, max_retries=3, runtime_env={
+                "container": {"image": "held"}})(write_marker)
+            ref = held.remote(marker)
+            held_up = until(lambda: started() == 1, 120)
+            t0 = time.perf_counter()
+            rt.cancel(ref, force=True)
+            try:
+                rt.get(ref, timeout=60)
+                raised = None
+            except TaskCancelledError:
+                raised = "TaskCancelledError"
+            except Exception as e:  # noqa: BLE001 — read, then checked
+                raised = type(e).__name__
+            cancel_s = time.perf_counter() - t0
+            # Given back, or started again: whichever comes first.
+            until(lambda: started() > 1
+                  or rt.available_resources() == before, 60)
+            with open(os.path.join(root, "open"), "w"):
+                pass
+            t1 = time.perf_counter()
+            nxt = rt.get(rt.remote(num_gpus=1)(task_card).remote(),
+                         timeout=300)
+            next_s = time.perf_counter() - t1
+            # A task queued again holds the card until it has run.
+            after = rt.available_resources()
+            starts, wrote = started(), os.path.exists(marker)
+        finally:
+            rt.shutdown()
+    finally:
+        if undo:
+            undo()
+        os.environ.pop("RAY_TPU_CONTAINER_RUNNER", None)
+        shutil.rmtree(root, ignore_errors=True)
+    here = card_uuid(default_device())
+    print(f"runtime (f) a num_gpus=1 task force-cancelled while its runner "
+          f"held its worker before the handshake (held {held_up}): get "
+          f"raised {raised} {cancel_s:.3f} s after the cancel; runner starts "
+          f"{starts}, marker written {wrote}; the next num_gpus=1 task got "
+          f"the card in {next_s:.2f} s (its worker's start included), card "
+          f"{nxt['uuid']} (this process's {here}), gpu_ids "
+          f"{nxt['gpu_ids']}; resources before {before}, after {after}; "
+          f"leg {time.perf_counter() - t_leg:.1f} s; card {card}",
+          flush=True)
+    return [("(f) a runner held the task's worker before its handshake",
+             held_up, starts),
+            ("(f) get of the force-cancelled task raises "
+             "TaskCancelledError", raised == "TaskCancelledError", raised),
+            ("(f) the cancelled task never ran: one start of its worker, no "
+             "marker", starts == 1 and not wrote, [starts, wrote]),
+            ("(f) the next num_gpus=1 task got the card, the same card UUID",
+             nxt["gpu_ids"] == [0] and nxt["uuid"] == here,
+             [nxt, here]),
+            ("(f) the resources and the card's hold given back once",
+             after == before, [before, after])]
+
+
+def runtime_fault_main(name: str, card: str) -> int:
+    """``--plant-fault`` of RUNTIME_FAULTS: phase 14 (f) with the planted
+    dispatch, its checks read without raising. Exits 1 when a check fails
+    it (caught), 2 when none does or the run failed before its checks."""
+    print(f"planted fault {name}: {RUNTIME_FAULTS[name]}", flush=True)
+    try:
+        checks = cancel_leg(card, fault=name)
+    except Exception:  # noqa: BLE001 — the harness failed, not the check
+        traceback.print_exc()
+        print(json.dumps({"fault": name, "caught": False,
+                          "failed_before_checks": True}), flush=True)
+        return 2
+    held = report_checks(checks, card, strict=False, prefix="runtime")
+    print(json.dumps({"fault": name, "caught": not held}), flush=True)
+    return 1 if not held else 2
+
+
 def echo(x):
     return x
 
@@ -3443,6 +3625,9 @@ def runtime_phase(card: str) -> dict:
                if os.path.getmtime(build.lib_path(name)) != t]
     check(not rebuilt, f"the workers loaded the kernels the driver built "
           f"(rebuilt: {rebuilt})")
+
+    # (f) A num_gpus=1 task force-cancelled while its worker starts.
+    report_checks(cancel_leg(card), card, prefix="runtime")
     return {"first_s": first_s, "fit_s": fit_s,
             "ref_losses": ref_run["losses"],
             "actor_losses": actor_run["losses"], "trainer_losses": reported}
@@ -4389,9 +4574,10 @@ def tune_spec(model_cfg, device: str = "cuda", steps: int = TUNE_STEPS,
     model config, its device ("cuda": the card it holds; "cpu" for the CPU
     tests), steps, when to checkpoint (every ``ckpt_every`` steps before
     the last, and at the last with ``ckpt_last``), the population that
-    starts together behind ``gate``, the directory of the controller's
-    marks that each step waits for (``acks``, set by :func:`tune_pbt`) and
-    a planted fault."""
+    starts together behind ``gate`` (and, with ``acks``, holds level at
+    each checkpoint through ``gate``'s LEVELS marks), the directory of the
+    controller's marks that each step waits for (``acks``, set by
+    :func:`tune_pbt`) and a planted fault."""
     spec = {"model": model_cfg, "device": device, "steps": steps,
             "ckpt_every": 0, "ckpt_last": False, "population": 0, "gate": "",
             "acks": "", "fault": None, "capture": CAPTURE}
@@ -4410,9 +4596,40 @@ def wait_for_population(gate: str, n: int, timeout: float = 300.0) -> None:
     with open(os.path.join(gate, f"{os.getpid()}-{time.time_ns()}"), "w"):
         pass
     deadline = time.monotonic() + timeout
-    while len(os.listdir(gate)) < n:
+    while sum(e.is_file() for e in os.scandir(gate)) < n:
         check(time.monotonic() < deadline, f"{n} trials reach the gate")
         time.sleep(0.01)
+
+
+def mark_level(gate: str, trial_id: str, iteration: int) -> None:
+    """Note in ``gate``'s LEVELS directory that the controller has handled
+    this trial's result ``iteration``."""
+    levels = os.path.join(gate, LEVELS)
+    os.makedirs(levels, exist_ok=True)
+    with open(os.path.join(levels, f"{trial_id}-{iteration}"), "w"):
+        pass
+
+
+def wait_for_level(gate: str, n: int, iteration: int,
+                   timeout: float = 300.0) -> float:
+    """Wait until each of a population's ``n`` trials has had a result of
+    ``iteration`` or later handled (:func:`mark_level`), so that PBT
+    decides on a level population: no trial passes a perturbation point,
+    or ends, before every other has reported at it. A trial that PBT
+    restarted from a later checkpoint marks its later results, and so
+    counts as having passed. Returns the seconds waited."""
+    levels = os.path.join(gate, LEVELS)
+    t0 = time.monotonic()
+    while True:
+        reached: dict[str, int] = {}
+        for name in os.listdir(levels):
+            trial, _, it = name.rpartition("-")
+            reached[trial] = max(reached.get(trial, 0), int(it))
+        if sum(it >= iteration for it in reached.values()) >= n:
+            return time.monotonic() - t0
+        check(time.monotonic() - t0 < timeout,
+              f"{n} trials report iteration {iteration}")
+        time.sleep(0.005)
 
 
 def wait_for_ack(acks: str, trial_id: str, iteration: int,
@@ -4493,6 +4710,9 @@ def gpt2_tune_steps(config: dict, weights: dict, batches: list, spec: dict,
     placed = [device_batch(*b, dev) for b in batches]
     card = card_uuid(dev)
     losses: list[float] = []
+    # PBT's trials (a controller that acks, a population) hold level.
+    level = bool(spec["acks"] and spec["population"])
+    waited = 0.0                # at the level barrier before this step
     with contextlib.nullcontext() if spec["capture"] else disable_capture():
         fa.reset_launch_counts()
         while state.step < spec["steps"]:
@@ -4503,7 +4723,8 @@ def gpt2_tune_steps(config: dict, weights: dict, batches: list, spec: dict,
                  "restored": restored, "card": card, "pid": os.getpid(),
                  "t_start": t_start, "t": time.time(),
                  "counts": fa.launch_counts(),
-                 "compile_count": compile_count(step)}
+                 "compile_count": compile_count(step),
+                 "level_wait_s": waited}
             if restored and len(losses) == 1:
                 m["digest"] = param_digest(model)
             token, ckpt = "", None
@@ -4524,6 +4745,12 @@ def gpt2_tune_steps(config: dict, weights: dict, batches: list, spec: dict,
                     shutil.rmtree(ckpt, ignore_errors=True)
             if spec["acks"]:
                 wait_for_ack(spec["acks"], trial_id, state.step)
+            waited = 0.0
+            if level:
+                mark_level(spec["gate"], trial_id, state.step)
+                if ckpt is not None and state.step % TUNE_PBT_INTERVAL == 0:
+                    waited = wait_for_level(spec["gate"],
+                                            spec["population"], state.step)
     return losses
 
 
@@ -4712,7 +4939,9 @@ def tune_pbt(weights, batches, spec: dict, lrs, resources: dict,
              storage: str, name: str = "pbt") -> dict:
     """(b): PBT over ``lrs``, every trial started together (``spec``'s
     gate), checkpointing every TUNE_PBT_INTERVAL steps, each step waiting
-    until the controller has handled the last (:class:`ResultAcks`)."""
+    until the controller has handled the last (:class:`ResultAcks`), and
+    each checkpoint until every trial has reported at it
+    (:func:`wait_for_level`)."""
     from ray_tpu_torch.train import RunConfig
     sched = RecordedPBT(
         metric="loss", mode="min", perturbation_interval=TUNE_PBT_INTERVAL,
@@ -4909,6 +5138,12 @@ def pbt_readings(run: dict, weights, batches, spec: dict
     card_of = {tid: h[0]["card"] for tid, h in hist.items() if h}
     pairs = [(a, b) for a, b in overlaps(spans) if card_of[a] == card_of[b]]
     readings = {"exploits": run["exploits"], "restarts": restarts,
+                "reports": {tid: [(m["training_iteration"],
+                                   round(m["t"] - run["t0"], 3))
+                                  for m in h] for tid, h in hist.items()},
+                "level_wait_s": {tid: round(sum(m.get("level_wait_s", 0.0)
+                                                for m in h), 3)
+                                 for tid, h in hist.items()},
                 "losses": {tid: [(m["training_iteration"], m["loss"])
                                  for m in h] for tid, h in hist.items()},
                 "configs": {r.trial_id: r.config for r in grid},
@@ -4922,7 +5157,7 @@ def pbt_readings(run: dict, weights, batches, spec: dict
                readings["errors"] or "none"),
               ("(b) at least one exploit, each from a donor of the upper "
                "quantile", run["exploits"] >= 1
-               and all(r["upper"] for r in restarts), run["exploits"]),
+               and all(r["upper"] for r in restarts), pbt_said(readings)),
               ("(b) each restart's first loss is its donor's, bit for bit, "
                "and the donor's checkpoint restored here gives it and the "
                f"next weights (limit {CAPTURE_LOSS_RTOL})", restore_ok,
@@ -4931,6 +5166,22 @@ def pbt_readings(run: dict, weights, batches, spec: dict
                bool(pairs), pairs)]
     checks += launch_checks(grid, spec, "(b)")
     return readings, checks
+
+
+def pbt_said(readings: dict) -> str:
+    """What PBT did in (b): each exploit of ``RecordedPBT.log`` (the trial,
+    its donor and the donor checkpoint's step, the new lr, whether the
+    donor was in the upper quantile) and each trial's reported iterations
+    with their seconds since the Tuner started, and the seconds it spent
+    at the level barrier."""
+    exploits = [f"{r['trial']} from {r['donor']}'s step {r['step']} at lr "
+                f"{r['lr']:g} (upper {r['upper']})"
+                for r in readings["restarts"]]
+    reports = "; ".join(
+        f"{tid}: {[f'{it}@{t:.2f}s' for it, t in rows]} (level barrier "
+        f"{readings['level_wait_s'][tid]:.2f} s)"
+        for tid, rows in sorted(readings["reports"].items()))
+    return f"{readings['exploits']} exploits {exploits}; reports {reports}"
 
 
 def tune_trainer(weights_ref, batches, spec: dict, storage: str) -> dict:
@@ -5143,10 +5394,11 @@ def tune_phase(card: str, runtime: dict | None = None) -> dict:
         rb, more = pbt_readings(pbt, weights, batches, spec)
         checks += more
         print(f"tune (b) PBT over lr {list(TUNE_PBT_LRS)} at GPU "
-              f"{TUNE_SHARE}, interval {TUNE_PBT_INTERVAL}: {rb['exploits']} "
-              f"exploits, restarts {rb['restarts']}; losses "
-              f"{rb['losses']}; final configs {rb['configs']}; "
-              f"{rb['wall_s']:.1f} s; card {card}", flush=True)
+              f"{TUNE_SHARE}, interval {TUNE_PBT_INTERVAL}, each trial held "
+              f"level at every checkpoint: {pbt_said(rb)}; restarts "
+              f"{rb['restarts']}; losses {rb['losses']}; final configs "
+              f"{rb['configs']}; wall {rb['wall_s']:.2f} s with the level "
+              f"barrier; card {card}", flush=True)
         # (a)'s trial at the same lr, or, where ASHA stopped it early, the
         # same steps in this process.
         ref = next((t["losses"] for t in ra["trials"].values()
@@ -5308,8 +5560,9 @@ def tune_fault_main(name: str, card: str) -> int:
         finally:
             rt.shutdown()
         readings, checks = pbt_readings(run, weights, batches, spec)
-        print(f"tune (b) with {name}: {readings['exploits']} exploits, "
-              f"restarts {readings['restarts']}", flush=True)
+        print(f"tune (b) with {name}: {pbt_said(readings)}; restarts "
+              f"{readings['restarts']}; wall {readings['wall_s']:.2f} s with "
+              f"the level barrier; card {card}", flush=True)
         report_checks(checks, card, strict=False)
     except Exception:  # noqa: BLE001 — the harness failed, not (b)
         traceback.print_exc()
@@ -9235,6 +9488,7 @@ def main() -> int:
                         + list(SERVE_FAULTS) + list(TUNE_FAULTS)
                         + list(RLLIB_FAULTS) + list(VIT_FAULTS)
                         + list(NODE_FAULTS) + list(DAG_FAULTS)
+                        + list(RUNTIME_FAULTS)
                         + list(JOB_FAULTS) + list(CLI_FAULTS)
                         + list(MM_PROBE_FAULTS))
     parser.add_argument("--eager", action="store_true",
@@ -9260,6 +9514,8 @@ def main() -> int:
         return cards_main(args.cards, args.plant_fault, card)
     if args.plant_fault in SERVE_FAULTS:
         return serve_fault_main(args.plant_fault, dev, card)
+    if args.plant_fault in RUNTIME_FAULTS:
+        return runtime_fault_main(args.plant_fault, card)
     if args.plant_fault in TUNE_FAULTS:
         return tune_fault_main(args.plant_fault, card)
     if args.plant_fault in RLLIB_FAULTS:

@@ -2125,6 +2125,12 @@ class DriverRuntime:
             # dependency/placement error — already propagated
             self._prune_task(rec)
             return
+        if rec.state == "CANCELLED":
+            # cancel(force=True) marked it after it left the queue
+            # (_dispatch checks again under the lock): no worker.
+            self._release_picked(rec)
+            self._prune_task(rec)
+            return
         from ray_tpu_torch.util.tracing import get_tracer
         t0 = time.time() if get_tracer().enabled else 0.0
         try:
@@ -2136,29 +2142,28 @@ class DriverRuntime:
         except self._InlineNeedsSpawn:
             raise
         except Exception:  # noqa: BLE001
+            self._release_picked(rec)
+            if rec.state == "CANCELLED":
+                # cancel(force=True) stored the error and stopped the
+                # worker before it connected (or before it was taken):
+                # never retried, and no attempt refunded.
+                self._prune_task(rec)
+                return
             if getattr(rec.worker, "drain_preempted", False):
                 # A node drain killed the worker before it connected:
                 # the attempt is refunded, as a running task's is
                 # (_handle_worker_victim).
                 rec.attempts = max(0, rec.attempts - 1)
                 self.drain_tasks_preempted += 1
-            hold, rec.card_hold = rec.card_hold, None
-            self._release(self._effective_resources(rec.options),
-                          rec.options.placement_group,
-                          node_id=rec.node_id, bundle=rec.pg_bundle,
-                          hold=hold)
             max_retries = (rec.options.max_retries
                            if rec.options.max_retries >= 0
                            else self.config.task_max_retries)
-            if rec.attempts <= max_retries:
-                # Dispatch failure (e.g. the worker died before its
-                # handshake) is retryable, same as a mid-task death.
-                rec.state = "PENDING"
-                rec.worker = None
-                rec.oom_killed = False
-                with self._res_cv:
-                    self._pending_add_locked(rec)
-                    self._res_cv.notify_all()
+            # Dispatch failure (e.g. the worker died before its
+            # handshake) is retryable, same as a mid-task death.
+            if rec.attempts <= max_retries and self._retry(rec):
+                return
+            if rec.state == "CANCELLED":
+                self._prune_task(rec)
                 return
             if rec.oom_killed:
                 # The memory monitor terminated the worker while it
@@ -2178,6 +2183,44 @@ class DriverRuntime:
             rec.state = "FAILED"
             self._event(rec, "FAILED")
             self._prune_task(rec)
+
+    def _release_picked(self, rec: TaskRecord) -> None:
+        """Give back what placement acquired for ``rec`` (its resources
+        and card hold) when no worker runs it."""
+        hold, rec.card_hold = rec.card_hold, None
+        self._release(self._effective_resources(rec.options),
+                      rec.options.placement_group,
+                      node_id=rec.node_id, bundle=rec.pg_bundle,
+                      hold=hold)
+
+    def _start_on(self, rec: TaskRecord, w) -> None:
+        """Mark ``rec`` RUNNING on ``w``. ``cancel(force=True)`` marks a
+        task it finds taken from the queue CANCELLED under the same lock;
+        such a task starts on no worker: TaskCancelledError, for the
+        caller's failure path."""
+        with self._task_lock:
+            if rec.state == "CANCELLED":
+                raise TaskCancelledError(rec.name)
+            rec.worker = w
+            rec.worker_index = w.index
+            rec.state = "RUNNING"
+
+    def _retry(self, rec: TaskRecord) -> bool:
+        """Queue a task whose attempt failed again, unless
+        ``cancel(force=True)`` marked it CANCELLED (checked under the lock
+        cancel marks it with). Returns whether it was queued."""
+        with self._task_lock:
+            if rec.state == "CANCELLED":
+                return False
+            rec.state = "PENDING"
+            rec.worker = None
+            # A fresh attempt gets a clean slate: a later unrelated
+            # crash must not be misreported as OOM.
+            rec.oom_killed = False
+        with self._res_cv:
+            self._pending_add_locked(rec)
+            self._res_cv.notify_all()
+        return True
 
     def _effective_resources(self, options: TaskOptions) -> dict[str, float]:
         return options.resources or {"CPU": 1.0}
@@ -3608,10 +3651,12 @@ class DriverRuntime:
                               spawn=spawn_ok)
         if w is None:
             raise self._InlineNeedsSpawn()
+        try:
+            self._start_on(rec, w)
+        except TaskCancelledError:
+            self._return_worker(w)
+            raise
         w.card_hold = rec.card_hold
-        rec.worker = w
-        rec.worker_index = w.index
-        rec.state = "RUNNING"
         rec.started_at = time.time()
         rec.attempts += 1
         fn_blob = None
@@ -3709,28 +3754,27 @@ class DriverRuntime:
         for i, cand in enumerate(extras):
             try:
                 self._dispatch_leased(cand, w)
+            except TaskCancelledError:
+                # cancel(force=True) marked it once it left the queue;
+                # the lease holds the resources, so nothing to release.
+                self._prune_task(cand)
             except Exception:  # noqa: BLE001
                 # Worker died mid-append: EVERY not-yet-dispatched
                 # extra goes back to the pending queue (they were
                 # already popped from it — dropping any would strand
                 # its caller forever); the normal dispatch path owns
-                # them from here.
-                with self._res_cv:
-                    for c in extras[i:]:
-                        c.leased = False
-                        c.state = "PENDING"
-                        c.worker = None
-                        self._pending_add_locked(c)
-                    self._res_cv.notify_all()
+                # them from here, and drops those cancelled meanwhile.
+                for c in extras[i:]:
+                    c.leased = False
+                    if not self._retry(c):
+                        self._prune_task(c)
                 return
 
     def _dispatch_leased(self, rec: TaskRecord, w: WorkerHandle) -> None:
         if rec.env_vars is None:
             rec.env_key, rec.env_vars = self._env_for_options_cached(
                 rec.options)
-        rec.worker = w
-        rec.worker_index = w.index
-        rec.state = "RUNNING"
+        self._start_on(rec, w)
         rec.started_at = time.time()
         rec.attempts += 1
         fn_blob = None
@@ -3948,14 +3992,9 @@ class DriverRuntime:
             produced = st.produced if st is not None else 0
         if victim.attempts <= max_retries and (not streaming
                                                or produced == 0):
-            victim.state = "PENDING"
-            victim.worker = None
-            # A fresh attempt gets a clean slate: a later unrelated
-            # crash must not be misreported as OOM.
-            victim.oom_killed = False
-            with self._res_cv:
-                self._pending_add_locked(victim)
-                self._res_cv.notify_all()
+            if not self._retry(victim):
+                # cancel(force=True) marked it since: never retried.
+                self._prune_task(victim)
         else:
             if victim.oom_killed:
                 from ray_tpu_torch.core.exceptions import OutOfMemoryError
@@ -4549,17 +4588,23 @@ class DriverRuntime:
                 rec.state = "CANCELLED"
                 return
         if force:
-            rec = self._tasks.get(task_id)
-            if rec is not None and rec.worker is not None \
-                    and rec.state == "RUNNING":
-                # Mark cancelled and store the error BEFORE terminating:
-                # _on_worker_exit must see CANCELLED, not RUNNING, or it
-                # would retry the task we are killing.
+            # Running, its worker starting, or taken from the queue and
+            # not yet started: marked under the lock that _start_on and
+            # _retry check, so neither starts nor queues it again.
+            with self._task_lock:
+                rec = self._tasks.get(task_id)
+                if rec is None or rec.state not in ("PENDING", "RUNNING"):
+                    return
                 rec.state = "CANCELLED"
-                blob = ser.dumps(TaskCancelledError(rec.name))
-                for oid in rec.return_ids:
-                    self._store_error(oid, blob)
-                rec.worker.proc.terminate()
+                worker = rec.worker
+            # The error is stored BEFORE terminating: _on_worker_exit and
+            # _dispatch_picked see CANCELLED, not RUNNING, and release
+            # the task's resources once without retrying it.
+            blob = ser.dumps(TaskCancelledError(rec.name))
+            for oid in rec.return_ids:
+                self._store_error(oid, blob)
+            if worker is not None:
+                worker.proc.terminate()
 
     # ---------------- introspection ----------------
 

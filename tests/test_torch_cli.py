@@ -30,6 +30,7 @@ import torch
 
 import torch_cli_programs as programs
 import torch_ops_programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 LOSS_ATOL = 2e-5                    # tests/test_torch_jobs.py's
@@ -56,8 +57,9 @@ def table() -> dict:
     out = {}
     for name in PACKAGES:
         rt = __import__(name)
-        out[name] = {prog: programs.run(fn, rt)
-                     for prog, fn in programs.TABLE.items()}
+        with table_run(name):
+            out[name] = {prog: programs.run(fn, rt)
+                         for prog, fn in programs.TABLE.items()}
     return out
 
 

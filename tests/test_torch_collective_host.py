@@ -25,6 +25,7 @@ import torch
 
 import torch_rllib_programs as programs
 import torch_runtime_programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 
@@ -51,11 +52,12 @@ def outcomes() -> dict:
     out = {}
     for name in PACKAGES:
         rt = importlib.import_module(name)
-        rt.init(num_cpus=5)
-        try:
-            out[name] = programs.run(programs.collective_ops, rt)
-        finally:
-            rt.shutdown()
+        with table_run(name):
+            rt.init(num_cpus=5)
+            try:
+                out[name] = programs.run(programs.collective_ops, rt)
+            finally:
+                rt.shutdown()
     return out
 
 

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 import torch_ops_programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 
@@ -169,8 +170,9 @@ def table(tmp_path_factory) -> dict:
     out = {}
     for name in PACKAGES:
         rt = importlib.import_module(name)
-        out[name] = {prog: _run(fn, rt, tmp_path_factory.mktemp(
-            f"{name}_{prog}")) for prog, fn in PROGRAMS.items()}
+        with table_run(name):
+            out[name] = {prog: _run(fn, rt, tmp_path_factory.mktemp(
+                f"{name}_{prog}")) for prog, fn in PROGRAMS.items()}
     return out
 
 

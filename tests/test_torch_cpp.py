@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import torch_ops_programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -220,19 +221,20 @@ def table() -> dict:
         rt = importlib.import_module(name)
         cpp = importlib.import_module(f"{name}.cpp")
         path = cpp.compile_library(CPP_SOURCE)
-        rt.init(num_cpus=2)
-        try:
-            lib = cpp.load_library(path)
-            res = {}
-            for prog, fn in PROGRAMS.items():
-                try:
-                    res[prog] = ("ok", fn(rt, cpp, lib))
-                except Exception as e:  # noqa: BLE001
-                    res[prog] = ("raised", type(e).__name__, str(e))
-            out[name] = res
-        finally:
-            rt.shutdown()
-            os.unlink(path)
+        with table_run(name):
+            rt.init(num_cpus=2)
+            try:
+                lib = cpp.load_library(path)
+                res = {}
+                for prog, fn in PROGRAMS.items():
+                    try:
+                        res[prog] = ("ok", fn(rt, cpp, lib))
+                    except Exception as e:  # noqa: BLE001
+                        res[prog] = ("raised", type(e).__name__, str(e))
+                out[name] = res
+            finally:
+                rt.shutdown()
+                os.unlink(path)
     return out
 
 

@@ -85,4 +85,4 @@ def test_pbt_restarts_from_its_donor_on_the_card(setup, runtime):
         readings, checks = cs.pbt_readings(run, setup["weights"],
                                            setup["batches"], spec)
     _held(checks)
-    assert readings["exploits"] >= 1
+    assert readings["exploits"] >= 1, cs.pbt_said(readings)

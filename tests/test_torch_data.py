@@ -39,6 +39,7 @@ import torch
 
 import torch_data_programs as programs
 import torch_runtime_programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -63,12 +64,13 @@ def _no_worker_left():
 
 def _run_table(name: str) -> dict:
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        return {prog: programs.run(fn, rt)
-                for prog, fn in programs.TABLE.items()}
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            return {prog: programs.run(fn, rt)
+                    for prog, fn in programs.TABLE.items()}
+        finally:
+            rt.shutdown()
 
 
 @pytest.fixture(scope="module")

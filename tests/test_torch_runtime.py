@@ -11,12 +11,19 @@ through ``put``/``get`` bit for bit, the GPU as a resource
 (``init(num_gpus=1)``, which needs no card: the worker that holds it
 learns the node's count from its environment), no module of ``ray_tpu``
 in a worker, and what stays refused (``bind``, the dashboard; a second
-``init``, ``address`` or not, in a process that runs a runtime).
+``init``, ``address`` or not, in a process that runs a runtime). A
+``cancel(force=True)`` that lands while a task's worker starts (held before
+its handshake by a container runner, on the head or on a node daemon),
+once the dispatcher has taken the task from the queue, or among racing
+dispatches, ends the task CANCELLED: never run, never queued again, its
+resources back once; a worker that dies before its handshake uncancelled
+is still retried.
 """
 
 from __future__ import annotations
 
 import importlib
+import os
 import time
 
 import numpy as np
@@ -24,6 +31,7 @@ import pytest
 import torch
 
 import torch_runtime_programs as programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 
@@ -47,17 +55,18 @@ def _no_worker_left():
 
 def _run_table(name: str) -> dict:
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        out = {prog: programs.run(fn, rt)
-               for prog, fn in programs.TABLE.items()}
-    finally:
-        rt.shutdown()
-    rt.init(local_mode=True)
-    try:
-        out["local_mode"] = programs.run(programs.local_mode, rt)
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            out = {prog: programs.run(fn, rt)
+                   for prog, fn in programs.TABLE.items()}
+        finally:
+            rt.shutdown()
+        rt.init(local_mode=True)
+        try:
+            out["local_mode"] = programs.run(programs.local_mode, rt)
+        finally:
+            rt.shutdown()
     return out
 
 
@@ -181,6 +190,224 @@ def test_features_outside_this_slice_raise(port):
     with pytest.raises(RuntimeError, match="called twice"):
         port.init(include_dashboard=True)
     assert port.is_initialized()
+
+
+# A container runner (``runtime_env={"container": ...}``, the runner named
+# by RAY_TPU_CONTAINER_RUNNER) that holds a worker before its handshake:
+# it notes its start in DIR, then, as its mode says, waits for DIR/open
+# ("gate"), or exits the first time it runs ("die_once"), before it execs
+# the worker command that follows the image.
+RUNNER = """#!{python}
+import os, sys, time
+d, mode = {dir!r}, {mode!r}
+args = sys.argv[1:]
+i = 1
+while i < len(args) and (args[i].startswith("-") or args[i - 1] == "-v"):
+    i += 1
+open(os.path.join(d, "started-%d" % os.getpid()), "w").close()
+if mode == "gate":
+    while not os.path.exists(os.path.join(d, "open")):
+        time.sleep(0.01)
+elif not os.path.exists(os.path.join(d, "died")):
+    open(os.path.join(d, "died"), "w").close()
+    sys.exit(3)
+os.execvp(args[i + 1], args[i + 1:])
+"""
+
+
+def _runner(tmp_path, monkeypatch, mode: str) -> str:
+    import stat
+    import sys
+    script = tmp_path / f"runner_{mode}"
+    script.write_text(RUNNER.format(python=sys.executable, dir=str(tmp_path),
+                                    mode=mode))
+    script.chmod(script.stat().st_mode | stat.S_IXUSR)
+    monkeypatch.setenv("RAY_TPU_CONTAINER_RUNNER", str(script))
+    return str(script)
+
+
+def _started(tmp_path) -> int:
+    return len(list(tmp_path.glob("started-*")))
+
+
+def _until(cond, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while not (out := cond()):
+        assert time.monotonic() < deadline, what
+        time.sleep(0.02)
+    return out
+
+
+def _cancel_while_starting(port, tmp_path, options: dict) -> None:
+    """Force-cancel a task whose worker the gated runner holds before its
+    handshake; ``get`` raises TaskCancelledError, the task is dropped
+    with its resources given back once (no second start meanwhile), and
+    once the gate opens its body still never runs."""
+    from ray_tpu_torch.core.api import get_runtime
+    from ray_tpu_torch.core.exceptions import TaskCancelledError
+    runtime = get_runtime()
+    before = port.available_resources()
+    marker = str(tmp_path / "marker")
+    ref = port.remote(programs.write_marker).options(
+        max_retries=3, runtime_env={"container": {"image": "held"}},
+        **options).remote(marker)
+    _until(lambda: _started(tmp_path) == 1, 60, "the runner starts")
+    port.cancel(ref, force=True)
+    with pytest.raises(TaskCancelledError):
+        port.get(ref, timeout=30)
+    task_id = ref.id.task_id()
+    # Dropped, or started again: whichever comes first.
+    _until(lambda: _started(tmp_path) > 1 or (
+        task_id not in runtime._tasks
+        and port.available_resources() == before), 30,
+        "the cancelled task is dropped and its resources given back")
+    assert _started(tmp_path) == 1, "the cancelled task started again"
+    (tmp_path / "open").touch()
+    # The resources serve the next task of the same shape.
+    view = port.remote(programs.worker_view).options(**options)
+    assert port.get(view.remote(), timeout=60)["gpu_ids"] == \
+        ([0] if options.get("num_gpus") else [])
+    assert _started(tmp_path) == 1 and not os.path.exists(marker)
+    assert port.available_resources() == before
+
+
+def test_a_task_cancelled_while_its_worker_starts_never_runs(
+        port, tmp_path, monkeypatch):
+    """``cancel(force=True)`` while the task's worker has not connected
+    (the runner holds it): the dispatch that then fails must not queue
+    the task again, as it queues a task whose worker died on its own.
+    On a ``num_gpus=1`` task, so that the card's hold is given back too."""
+    _runner(tmp_path, monkeypatch, "gate")
+    _cancel_while_starting(port, tmp_path, {"num_gpus": 1})
+
+
+def test_a_task_cancelled_while_its_daemon_worker_starts_never_runs(
+        port, tmp_path, monkeypatch):
+    """The same window on a node daemon's worker: the head's kill reaches
+    the daemon, which reports the worker's exit; that task is CANCELLED,
+    so it is dropped, never retried."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.core.api import get_runtime
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy,
+    )
+    _runner(tmp_path, monkeypatch, "gate")
+    cluster = Cluster(initialize_head=False)
+    cluster._rt = get_runtime()        # the daemon joins this runtime
+    node = cluster.add_node(num_cpus=1)
+    try:
+        _cancel_while_starting(port, tmp_path, {
+            "scheduling_strategy": NodeAffinitySchedulingStrategy(
+                node.node_id, soft=False)})
+    finally:
+        cluster.remove_node(node)
+
+
+def test_a_task_cancelled_once_taken_from_the_queue_never_starts(port):
+    """``cancel(force=True)`` after the dispatcher took the task from the
+    queue and before it picked a worker: nothing was running, yet the
+    task must end CANCELLED, start on no worker, and give back what its
+    placement acquired."""
+    import threading
+
+    from ray_tpu_torch.core.api import get_runtime
+    from ray_tpu_torch.core.exceptions import TaskCancelledError
+    runtime = get_runtime()
+    before = port.available_resources()
+    test_thread = threading.current_thread()
+    taken, go = threading.Event(), threading.Event()
+    take = runtime._take_worker
+
+    def held(*args, **kwargs):
+        if threading.current_thread() is not test_thread:
+            taken.set()
+            go.wait(30)
+        return take(*args, **kwargs)
+    view = port.remote(programs.worker_view)
+    runtime._take_worker = held
+    try:
+        # An env no idle worker has: the dispatcher thread takes it.
+        ref = view.options(num_gpus=1, runtime_env={
+            "env_vars": {"TAKEN_FROM_QUEUE": "1"}}).remote()
+        assert taken.wait(30), "the dispatcher takes the task"
+        runtime._take_worker = take
+        port.cancel(ref, force=True)
+    finally:
+        runtime._take_worker = take
+        go.set()
+    with pytest.raises(TaskCancelledError):
+        port.get(ref, timeout=30)
+    _until(lambda: ref.id.task_id() not in runtime._tasks
+           and port.available_resources() == before, 30,
+           "the cancelled task is dropped and its resources given back")
+    assert port.get(view.options(num_gpus=1).remote(),
+                    timeout=60)["gpu_ids"] == [0]
+
+
+def test_a_worker_that_dies_before_its_handshake_is_retried(
+        port, tmp_path, monkeypatch):
+    """With no cancel, a worker that exits before it connects is a failed
+    attempt, retried as before."""
+    _runner(tmp_path, monkeypatch, "die_once")
+    marker = str(tmp_path / "marker")
+    before = port.available_resources()
+    ref = port.remote(programs.write_marker).options(
+        max_retries=1, runtime_env={"container": {"image": "dies"}}
+    ).remote(marker)
+    assert port.get(ref, timeout=60) == marker
+    assert _started(tmp_path) == 2 and os.path.exists(marker)
+    _until(lambda: port.available_resources() == before, 30,
+           "the resources come back")
+
+
+def test_force_cancels_racing_dispatch_lose_no_task_and_no_resource(
+        port, tmp_path):
+    """Stress: 24 tasks on 3 CPUs (queued, taken, their workers starting,
+    running behind a gate, or riding a lease) and 12 of them force-
+    cancelled from 4 threads at staggered moments, with a short switch
+    interval. Every cancelled task raises TaskCancelledError and its body
+    never runs to its end, also after the gate opens; every other task
+    returns its value; the resources come back to their totals, as a
+    release missed or made twice would not."""
+    import sys
+    import threading
+
+    from ray_tpu_torch.core.exceptions import TaskCancelledError
+    before = port.available_resources()
+    task = port.remote(programs.gated_marks).options(max_retries=5)
+    refs = [task.remote(str(tmp_path), i) for i in range(24)]
+    doomed = list(range(0, 24, 2))
+    errors: list = []
+
+    def canceller(k: int) -> None:
+        try:
+            for j, i in enumerate(doomed[k::4]):
+                time.sleep((0.0, 0.005, 0.05, 0.4)[(j + k) % 4])
+                port.cancel(refs[i], force=True)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=canceller, args=(k,))
+                   for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads) and not errors, errors
+    finally:
+        sys.setswitchinterval(interval)
+    for i in doomed:
+        with pytest.raises(TaskCancelledError):
+            port.get(refs[i], timeout=60)
+    (tmp_path / "open").touch()
+    kept = [i for i in range(24) if i not in doomed]
+    assert port.get([refs[i] for i in kept], timeout=120) == kept
+    _until(lambda: port.available_resources() == before, 60,
+           "the resources come back to their totals")
+    done = {int(p.name.split("-")[1]) for p in tmp_path.glob("done-*")}
+    assert done == set(kept), sorted(done & set(doomed))
 
 
 def test_init_counts_gpus_without_torch(monkeypatch):

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 import torch_ops_programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -254,8 +255,9 @@ def table() -> dict:
     out = {}
     for name in PACKAGES:
         rt = importlib.import_module(name)
-        out[name] = {prog: torch_ops_programs.run(fn, rt)
-                     for prog, fn in PROGRAMS.items()}
+        with table_run(name):
+            out[name] = {prog: torch_ops_programs.run(fn, rt)
+                         for prog, fn in PROGRAMS.items()}
     return out
 
 

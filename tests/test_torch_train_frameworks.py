@@ -33,6 +33,7 @@ import torch
 
 import torch_runtime_programs
 import torch_tune_programs as programs
+from torch_parity import table_run
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 WORLDS = (2, 4)
@@ -180,15 +181,16 @@ def outcomes() -> dict:
     out = {}
     for pkg in PACKAGES:
         rt = importlib.import_module(pkg)
-        rt.init(num_cpus=4)
-        try:
-            with tempfile.TemporaryDirectory() as d:
-                out[pkg] = {"sklearn": _sklearn(pkg, d),
-                            "transformers": _transformers(pkg, d)}
-                for n in WORLDS:
-                    out[pkg][f"ddp{n}"] = _ddp(pkg, n, d)
-        finally:
-            rt.shutdown()
+        with table_run(pkg):
+            rt.init(num_cpus=4)
+            try:
+                with tempfile.TemporaryDirectory() as d:
+                    out[pkg] = {"sklearn": _sklearn(pkg, d),
+                                "transformers": _transformers(pkg, d)}
+                    for n in WORLDS:
+                        out[pkg][f"ddp{n}"] = _ddp(pkg, n, d)
+            finally:
+                rt.shutdown()
     return out
 
 

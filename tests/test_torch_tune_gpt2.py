@@ -9,10 +9,15 @@ model, with the trials on the CPU (``resources_per_trial={"CPU": 1}``).
   float32, bit-equal expected); ASHA's stops reproduced by a fresh
   scheduler fed the recorded results. Whether two trials overlapped is a
   card check (on the CPU their starts are not held together).
-- (b) PBT over two lrs: an exploit, from the upper quantile; each
-  restart's first loss bit-equal to its donor's from the same
-  checkpoint, and the checkpoint restored here gives that loss and,
-  one step later at the new lr, the trial's weights.
+- (b) PBT over two lrs, the trials held level at each checkpoint: an
+  exploit, from the upper quantile; each restart's first loss bit-equal
+  to its donor's from the same checkpoint, and the checkpoint restored
+  here gives that loss and, one step later at the new lr, the trial's
+  weights. A failure names each exploit and each trial's reported
+  iterations with their times (``pbt_said``).
+- PBT's decisions, port against reference, on the same recorded results
+  in the orders (b)'s controller can see them: level, one trial ahead,
+  one finished first.
 - The planted fault ``pbt_own_restore`` (an exploited trial restores its
   own latest checkpoint) fails (b)'s restore check.
 - (c) ``Tuner(TorchTrainer(...))``: one gloo worker's losses against the
@@ -23,6 +28,7 @@ model, with the trials on the CPU (``resources_per_trial={"CPU": 1}``).
 
 from __future__ import annotations
 
+import importlib
 import tempfile
 
 import numpy as np
@@ -125,20 +131,101 @@ def test_step0_against_the_jax_loss(sweep, setup):
 
 def test_pbt_restart_restores_its_donor(rt, setup):
     readings, checks = _pbt(rt, setup)
+    said = cs.pbt_said(readings)
     _held(checks)
-    assert readings["exploits"] >= 1
-    assert any(r["stepped"] for r in readings["restarts"])
+    assert readings["exploits"] >= 1, said
+    assert any(r["stepped"] for r in readings["restarts"]), said
 
 
 def test_planted_own_restore_fails_the_restore_check(rt, setup):
     readings, checks = _pbt(rt, setup, fault="pbt_own_restore")
+    said = cs.pbt_said(readings)
     verdict = {what: ok for what, ok, _ in checks}
     restore = [ok for what, ok in verdict.items() if "first loss" in what]
     exploit = [ok for what, ok in verdict.items() if "exploit" in what]
-    assert exploit == [True], readings
-    assert restore == [False], readings["restarts"]
+    assert exploit == [True], said
+    assert restore == [False], (said, readings["restarts"])
     assert any(r["stepped"] and not r["from_donor"]
-               for r in readings["restarts"]), readings["restarts"]
+               for r in readings["restarts"]), (said, readings["restarts"])
+
+
+def _decisions(pkg: str, sequence: list) -> list[str]:
+    """PBT of phase 18 (b)'s settings from package ``pkg``, fed
+    ``sequence`` ((trial, iteration, loss, checkpointed) results, or
+    (trial, "complete")) as the Tune controller feeds it; the decision on
+    each result, an exploit carried out as the controller carries it."""
+    sched = importlib.import_module(f"{pkg}.tune.schedulers")
+    pbt = sched.PopulationBasedTraining(
+        metric="loss", mode="min",
+        perturbation_interval=cs.TUNE_PBT_INTERVAL,
+        hyperparam_mutations={"lr": cs.TUNE_MUTATIONS},
+        quantile_fraction=0.5, seed=0)
+    for tid, lr in zip("ab", cs.TUNE_PBT_LRS):
+        pbt.on_trial_add(tid, {"lr": lr})
+    out = []
+    for tid, *rest in sequence:
+        if rest == ["complete"]:
+            pbt.on_trial_complete(tid)
+            continue
+        it, loss, checkpointed = rest
+        if checkpointed:
+            pbt.on_checkpoint(tid, f"{tid}/checkpoint_{it:06d}")
+        decision = pbt.on_result(tid, {"loss": loss,
+                                       "training_iteration": it})
+        if decision == sched.EXPLOIT:
+            config, ckpt = pbt.exploit(tid)
+            decision = f"{decision} {ckpt} lr {config['lr']:g}"
+        out.append(f"{tid}@{it}: {decision}")
+    return out
+
+
+def _results(tid: str, iterations, loss) -> list:
+    return [(tid, it, loss(it), it % cs.TUNE_PBT_INTERVAL == 0)
+            for it in iterations]
+
+
+def _bad(it):
+    return 10.0 - 0.01 * it          # trial "a": lr 1e-5
+
+
+def _good(it):
+    return 10.0 - 1.0 * it           # trial "b": lr 1e-3
+
+
+# Orders in which phase 18 (b)'s controller can see its two trials'
+# results: level, as the barrier holds them; the good trial two intervals
+# ahead; either trial finished before the other's first result.
+ORDERS = {
+    "level": [r for it in range(1, 9) for r in (
+        _results("a", [it], _bad) + _results("b", [it], _good))],
+    "good_ahead": (_results("b", range(1, 5), _good)
+                   + [r for it in range(1, 9) for r in (
+                       _results("a", [it], _bad)
+                       + _results("b", [it + 4] if it <= 4 else [],
+                                  _good))]),
+    "good_finished": (_results("b", range(1, 9), _good) + [("b", "complete")]
+                      + _results("a", range(1, 9), _bad)),
+    "bad_finished": (_results("a", range(1, 9), _bad) + [("a", "complete")]
+                     + _results("b", range(1, 9), _good)),
+}
+
+
+@pytest.mark.parametrize("order", sorted(ORDERS))
+def test_pbt_decides_the_same_on_both_packages(order):
+    """The port's PopulationBasedTraining against the reference's on the
+    same recorded results: the same decisions in every order. So a (b)
+    that saw no exploit was its trials' order, not the port's scheduler:
+    where one trial ended before the other reported, PBT has no other
+    score to rank the bad trial against at its perturbation points and
+    exploits nothing; held level, it exploits the bad trial."""
+    port, ref = (_decisions(pkg, ORDERS[order])
+                 for pkg in ("ray_tpu_torch", "ray_tpu"))
+    assert port == ref
+    exploits = [d for d in port if "EXPLOIT" in d]
+    if order.endswith("_finished"):
+        assert exploits == [], port
+    else:
+        assert exploits and all(d.startswith("a@") for d in exploits), port
 
 
 def test_tuner_over_a_trainer(rt, setup):

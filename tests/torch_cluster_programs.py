@@ -26,6 +26,8 @@ import time
 
 import numpy as np
 
+from torch_parity import table_run
+
 TOKEN = "cd" * 16
 
 
@@ -766,7 +768,8 @@ def run_table(name: str, table: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
     ``name``; each program starts and stops its own cluster."""
     rt = importlib.import_module(name)
-    return {prog: run(fn, rt) for prog, fn in table.items()}
+    with table_run(name):
+        return {prog: run(fn, rt) for prog, fn in table.items()}
 
 
 # What each program must give (the same on both packages, and right).

@@ -23,6 +23,8 @@ import time
 
 import numpy as np
 
+from torch_parity import table_run
+
 
 def _mod(rt, name: str):
     return importlib.import_module(f"{rt.__name__}.{name}")
@@ -598,11 +600,12 @@ def run_table(name: str, table: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
     ``name``, in one runtime of ``num_cpus=4``."""
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        return {prog: run(fn, rt) for prog, fn in table.items()}
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            return {prog: run(fn, rt) for prog, fn in table.items()}
+        finally:
+            rt.shutdown()
 
 
 def run_alone(name: str, table: dict) -> dict:
@@ -610,10 +613,11 @@ def run_alone(name: str, table: dict) -> dict:
     cluster, on package ``name``."""
     rt = importlib.import_module(name)
     out = {}
-    for prog, fn in table.items():
-        out[prog] = run(fn, rt)
-        if rt.is_initialized():
-            rt.shutdown()
+    with table_run(name):
+        for prog, fn in table.items():
+            out[prog] = run(fn, rt)
+            if rt.is_initialized():
+                rt.shutdown()
     return out
 
 

@@ -26,6 +26,8 @@ import urllib.request
 
 import numpy as np
 
+from torch_parity import table_run
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(REPO, "tests")
 
@@ -827,19 +829,20 @@ def run_table(name: str, table: dict, shared: dict | None = None) -> dict:
     ``name``. Each program starts and stops its own runtime, or, given
     ``shared`` (``init``'s keywords), all run in one runtime."""
     rt = importlib.import_module(name)
-    if shared is None:
-        return {prog: run(fn, rt) for prog, fn in table.items()}
-    rt.init(**shared)
-    try:
-        out = {}
-        for prog, fn in table.items():
-            try:
-                out[prog] = ("ok", fn(rt))
-            except Exception as e:  # noqa: BLE001
-                out[prog] = ("raised", type(e).__name__, str(e))
-        return out
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        if shared is None:
+            return {prog: run(fn, rt) for prog, fn in table.items()}
+        rt.init(**shared)
+        try:
+            out = {}
+            for prog, fn in table.items():
+                try:
+                    out[prog] = ("ok", fn(rt))
+                except Exception as e:  # noqa: BLE001
+                    out[prog] = ("raised", type(e).__name__, str(e))
+            return out
+        finally:
+            rt.shutdown()
 
 
 def processes_left(timeout: float = 15.0) -> list[str]:

@@ -34,6 +34,8 @@ import tempfile
 
 import numpy as np
 
+from torch_parity import table_run
+
 PORT = "ray_tpu_torch"
 CARTPOLE = {"obs_dim": 4, "num_actions": 2}
 
@@ -1327,15 +1329,16 @@ def run_table(name: str, table: dict, inputs: dict) -> dict:
     the programs that take one."""
     import warnings
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            return {prog: run(fn, rt, *((inputs[prog],) if prog in inputs
-                                        else ()))
-                    for prog, fn in table.items()}
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return {prog: run(fn, rt, *((inputs[prog],)
+                                            if prog in inputs else ()))
+                        for prog, fn in table.items()}
+        finally:
+            rt.shutdown()
 
 
 # -- the host collective plane -----------------------------------------------

@@ -232,6 +232,24 @@ def echo(x):
 LR, WD = 1e-3, 0.1
 
 
+def write_marker(path: str) -> str:
+    """A task's visible effect: it writes ``path``."""
+    with open(path, "w") as f:
+        f.write("ran")
+    return path
+
+
+def gated_marks(root: str, i: int) -> int:
+    """Note a start in ``root``, wait until ``root``/open exists, note the
+    end, and return ``i``: a task whose body ran to its end shows it."""
+    import uuid
+    open(os.path.join(root, f"start-{i}-{uuid.uuid4().hex}"), "w").close()
+    while not os.path.exists(os.path.join(root, "open")):
+        time.sleep(0.01)
+    open(os.path.join(root, f"done-{i}-{uuid.uuid4().hex}"), "w").close()
+    return i
+
+
 def lm_batch(vocab: int, seq: int, bsz: int = 4, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, vocab, (bsz, seq)).astype(np.int32)

@@ -36,6 +36,8 @@ import urllib.request
 
 import numpy as np
 
+from torch_parity import table_run
+
 
 def _serve(rt):
     return importlib.import_module(rt.__name__ + ".serve")
@@ -1583,11 +1585,12 @@ def run_table(name: str, table: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
     ``name``, in one runtime of ``num_cpus=4``."""
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        return {prog: run(fn, rt) for prog, fn in table.items()}
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            return {prog: run(fn, rt) for prog, fn in table.items()}
+        finally:
+            rt.shutdown()
 
 
 _ZERO_LOSS = [[], True]

@@ -36,6 +36,8 @@ import time
 
 import numpy as np
 
+from torch_parity import table_run
+
 
 def _sub(rt, name: str):
     return importlib.import_module(f"{rt.__name__}.{name}")
@@ -939,13 +941,14 @@ def run_table(name: str, table: dict) -> dict:
     ``name``, in one runtime of ``num_cpus=4``."""
     import warnings
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            return {prog: run(fn, rt) for prog, fn in table.items()}
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return {prog: run(fn, rt) for prog, fn in table.items()}
+        finally:
+            rt.shutdown()
 
 
 _DONE4 = ["COMPLETED"] * 4

@@ -32,6 +32,8 @@ import tempfile
 import threading
 import time
 
+from torch_parity import table_run
+
 
 def _sub(rt, name: str):
     return importlib.import_module(f"{rt.__name__}.{name}")
@@ -558,18 +560,20 @@ def run_table(name: str, table: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
     ``name``, in one runtime of ``num_cpus=4``."""
     rt = importlib.import_module(name)
-    rt.init(num_cpus=4)
-    try:
-        return {prog: run(fn, rt) for prog, fn in table.items()}
-    finally:
-        rt.shutdown()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            return {prog: run(fn, rt) for prog, fn in table.items()}
+        finally:
+            rt.shutdown()
 
 
 def run_alone(name: str, table: dict) -> dict:
     """{program: outcome} of programs that start and stop their own
     runtimes, on package ``name``."""
     rt = importlib.import_module(name)
-    return {prog: run(fn, rt) for prog, fn in table.items()}
+    with table_run(name):
+        return {prog: run(fn, rt) for prog, fn in table.items()}
 
 
 # What each program must give (the same on both packages, and right).

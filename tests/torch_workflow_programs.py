@@ -15,13 +15,14 @@ each of its ``run``, ``resume`` and ``get_output`` calls took.
 
 from __future__ import annotations
 
-import gc
 import importlib
 import os
 import shutil
 import sys
 import tempfile
 import time
+
+from torch_parity import table_run
 
 WAIT_S = 120
 
@@ -487,40 +488,31 @@ def run(program, rt, d: str) -> tuple:
 def run_table(name: str, table: dict) -> dict:
     """{program: outcome} of every program of ``table`` on package
     ``name``, in one runtime of ``num_cpus=4`` whose workflow storage is
-    a temporary directory; each program gets a scratch directory.
-
-    The JAX package's table runs with the automatic garbage collector
-    off: a collection that runs an ``ObjectRef`` finalizer on a thread
-    holding the runtime's reference-count lock deadlocks that thread,
-    and every later submit (``ray_tpu/core/runtime.py:1087-1089,
-    1203-1204``). The port defers such a decrement (``_RefLock``), so
-    its table runs with the collector as it is."""
+    a temporary directory; each program gets a scratch directory. The
+    run goes through ``torch_parity.table_run`` (the JAX package's
+    with the automatic garbage collector off)."""
     rt = importlib.import_module(name)
     root = tempfile.mkdtemp(prefix=f"wf_{name}_")
-    rt.init(num_cpus=4)
-    collector_off = name == "ray_tpu" and gc.isenabled()
-    if collector_off:
-        gc.disable()
-    try:
-        _wf(rt).init(os.path.join(root, "store"))
-        out = {}
-        for prog, fn in table.items():
-            d = os.path.join(root, prog)
-            os.makedirs(d)
-            CALLS.clear()
-            t0 = time.monotonic()
-            out[prog] = run(fn, rt, d)
-            TIMES[(name, prog)] = (round(time.monotonic() - t0, 3),
-                                   list(CALLS))
-            if out[prog] != ("ok", EXPECTED.get(prog)):
-                print(f"{name} {prog}: {said(name, prog, out[prog])}",
-                      file=sys.stderr, flush=True)
-        return out
-    finally:
-        rt.shutdown()
-        shutil.rmtree(root, ignore_errors=True)
-        if collector_off:
-            gc.enable()
+    with table_run(name):
+        rt.init(num_cpus=4)
+        try:
+            _wf(rt).init(os.path.join(root, "store"))
+            out = {}
+            for prog, fn in table.items():
+                d = os.path.join(root, prog)
+                os.makedirs(d)
+                CALLS.clear()
+                t0 = time.monotonic()
+                out[prog] = run(fn, rt, d)
+                TIMES[(name, prog)] = (round(time.monotonic() - t0, 3),
+                                       list(CALLS))
+                if out[prog] != ("ok", EXPECTED.get(prog)):
+                    print(f"{name} {prog}: {said(name, prog, out[prog])}",
+                          file=sys.stderr, flush=True)
+            return out
+        finally:
+            rt.shutdown()
+            shutil.rmtree(root, ignore_errors=True)
 
 
 def said(name: str, prog: str, outcome) -> str:
